@@ -1,0 +1,67 @@
+"""Context: the public entry point (counterpart of
+``libertem_tpu/api.py``)."""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import torch
+
+from .common.backend import resolve_device
+from .io.dataset.base import DataSet
+from .udf.base import UDF, UDFRunner
+
+
+class SingleUDFResults(dict):
+    """One UDF's result buffers by name, with attribute access and the
+    run's ``damage`` buffer."""
+
+    def __init__(self, buffers: dict, damage):
+        super().__init__(buffers)
+        self.damage = damage
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError:
+            raise AttributeError(k) from None
+
+
+class Context:
+    """Loads datasets and runs UDFs on one device: the CUDA card by
+    default (raising when there is none), or the CPU when asked for
+    with ``device="cpu"``."""
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        # host feed timings of the last run (HostFeed.stats)
+        self.feed_stats: Optional[dict] = None
+
+    def load(self, filetype: str, *args, **kwargs) -> DataSet:
+        """``load("memory", data=..., ...)`` or ``load("raw", path=...,
+        dtype=..., nav_shape=..., sig_shape=...)``."""
+        if filetype == "memory":
+            from .io.dataset.memory import MemoryDataSet
+            ds = MemoryDataSet(*args, **kwargs)
+        elif filetype == "raw":
+            from .io.dataset.raw import RawFileDataSet
+            ds = RawFileDataSet(*args, **kwargs)
+        else:
+            raise ValueError(f"unknown or not yet ported format {filetype!r}")
+        return ds.initialize()
+
+    def run_udf(self, dataset: DataSet, udf: Union[UDF, Sequence[UDF]]):
+        """Run one or more UDFs over a dataset in a single pass.
+
+        Returns a dict of result buffers for a single UDF, or a list of
+        dicts for a sequence of UDFs."""
+        single = isinstance(udf, UDF)
+        udfs = [udf] if single else list(udf)
+        if not udfs:
+            raise ValueError("empty list of UDFs - nothing to do!")
+        runner = UDFRunner(udfs)
+        results = runner.run_for_dataset(dataset, self.device)
+        self.feed_stats = runner.feed_stats
+        wrapped = [
+            SingleUDFResults(b, results.damage) for b in results.buffers
+        ]
+        return wrapped[0] if single else wrapped

@@ -1,0 +1,159 @@
+"""Result-buffer declarations and containers (counterpart of
+``libertem_tpu/common/buffers.py``).
+
+``BufferWrapper`` is two things:
+
+1. a *declaration* (kind / extra_shape / dtype / use) from which the
+   runner allocates the run's state tensors on the device, and
+2. after a run, a *container* for the final host-side result:
+   ``.data`` (nav buffers in the full nav shape), ``.raw_data`` (flat
+   nav storage layout), ``.valid_mask`` and ``.masked_data``.
+
+Kinds: ``'nav'`` one entry per scan position, ``'sig'`` one per
+detector pixel, ``'single'`` one entry (plus ``extra_shape``).
+Uses: ``None`` regular, ``'private'`` not part of the final results,
+``'result_only'`` produced only by ``UDF.get_results``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .shape import Shape
+
+KINDS = ("nav", "sig", "single")
+USES = (None, "private", "result_only")
+
+
+class BufferWrapper:
+    def __init__(
+        self,
+        kind: str,
+        extra_shape: Sequence[int] = (),
+        dtype="float32",
+        use: Optional[str] = None,
+    ):
+        if kind not in KINDS:
+            raise ValueError(f"unknown buffer kind {kind!r}")
+        if use not in USES:
+            raise ValueError(f"unknown buffer use {use!r}")
+        self._kind = kind
+        self._extra_shape = tuple(int(s) for s in extra_shape)
+        self._dtype = np.dtype(dtype)
+        self._use = use
+        self._ds_shape: Optional[Shape] = None
+        self._data: Optional[np.ndarray] = None
+        self._valid_nav_mask: Optional[np.ndarray] = None
+        self._custom_mask: Optional[np.ndarray] = None
+
+    @property
+    def kind(self) -> str:
+        return self._kind
+
+    @property
+    def extra_shape(self) -> tuple[int, ...]:
+        return self._extra_shape
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._dtype
+
+    @property
+    def use(self) -> Optional[str]:
+        return self._use
+
+    def set_shape_ds(self, ds_shape: Shape) -> None:
+        self._ds_shape = ds_shape
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """The storage shape (flat nav for 'nav')."""
+        if self._ds_shape is None:
+            raise RuntimeError("buffer not bound to a dataset shape yet")
+        if self._kind == "nav":
+            return (self._ds_shape.nav.size,) + self._extra_shape
+        if self._kind == "sig":
+            return tuple(self._ds_shape.sig) + self._extra_shape
+        # a 'single' buffer with no extra_shape is (1,), never 0-d
+        return self._extra_shape if self._extra_shape else (1,)
+
+    def set_result(
+        self,
+        data: np.ndarray,
+        valid_nav_mask: Optional[np.ndarray] = None,
+        custom_mask: Optional[np.ndarray] = None,
+    ) -> None:
+        """Install the final host result; ``valid_nav_mask`` is the
+        flat-nav damage mask, ``custom_mask`` (from ``UDF.with_mask``)
+        overrides the default validity of this buffer."""
+        self._data = np.asarray(data)
+        self._valid_nav_mask = valid_nav_mask
+        self._custom_mask = custom_mask
+
+    @property
+    def raw_data(self) -> Optional[np.ndarray]:
+        return self._data
+
+    @property
+    def data(self) -> Optional[np.ndarray]:
+        if self._data is None or self._kind != "nav":
+            return self._data
+        return self._data.reshape(
+            tuple(self._ds_shape.nav) + self._extra_shape
+        )
+
+    @property
+    def valid_mask(self) -> Optional[np.ndarray]:
+        if self._data is None:
+            return None
+        if self._custom_mask is not None:
+            return np.broadcast_to(
+                np.asarray(self._custom_mask, dtype=bool),
+                self.data.shape,
+            )
+        if self._kind == "nav":
+            nav_shape = tuple(self._ds_shape.nav)
+            vm = (
+                np.ones(self.shape[0], dtype=bool)
+                if self._valid_nav_mask is None
+                else np.asarray(self._valid_nav_mask, dtype=bool)
+            )
+            return np.broadcast_to(
+                vm.reshape(nav_shape + (1,) * len(self._extra_shape)),
+                nav_shape + self._extra_shape,
+            )
+        any_valid = (
+            True if self._valid_nav_mask is None
+            else bool(np.any(self._valid_nav_mask))
+        )
+        return np.full(self.data.shape, any_valid, dtype=bool)
+
+    @property
+    def masked_data(self) -> Optional[np.ma.MaskedArray]:
+        if self._data is None:
+            return None
+        return np.ma.MaskedArray(self.data, mask=~self.valid_mask)
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.data
+        if dtype is not None:
+            arr = np.asarray(arr, dtype=dtype)
+        return np.array(arr, copy=True) if copy else np.asarray(arr)
+
+    def __repr__(self) -> str:
+        return (
+            f"<BufferWrapper kind={self._kind} extra_shape="
+            f"{self._extra_shape} dtype={self._dtype} use={self._use}>"
+        )
+
+
+class ArrayWithMask:
+    """A result array bundled with an explicit validity mask, returned
+    from ``UDF.get_results`` via ``UDF.with_mask``."""
+
+    def __init__(self, arr, mask):
+        self.arr = np.asarray(arr)
+        self.mask = np.broadcast_to(
+            np.asarray(mask, dtype=bool), self.arr.shape
+        )

@@ -1,0 +1,138 @@
+"""Fused moments + mask projection (counterpart of
+``libertem_tpu/ops/moments.py``).
+
+In a single pass over a ``(depth, pixels)`` block of frames:
+
+  * ``y = x @ masks_t.T``   per-frame mask projections, (depth, M)
+  * ``colsum = sum_d x``    per-pixel first moment, (pixels,)
+  * ``colvar``              per-pixel centred second moment over the
+                            first ``valid_count`` rows, (pixels,)
+
+This one read of each block replaces a pass per UDF (ApplyMasks, CoM,
+SumSig, Sum, StdDev).  On a CUDA tensor :func:`fused_moments` launches
+the hand-written kernel in ``csrc/fused_moments.cu`` (the port of the
+TPU kernel ``_fused_moments_pallas``, libertem_tpu/ops/moments.py:135);
+on a CPU tensor it runs :func:`fused_moments_reference`, the plain
+PyTorch version (counterpart of ``_fused_moments_xla``).
+
+Contract, as in the JAX package: rows >= ``valid_count`` are zero on
+input (the host feed zero-pads tails), so ``y`` and ``colsum`` need no
+row mask; only the variance masks them.  ``compute_var=False`` returns
+a zero ``colvar``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+MAX_MASKS = 8
+_DTYPE_CODES = {
+    torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
+    torch.int32: 4, torch.uint32: 5, torch.float32: 6,
+}
+
+
+def fused_moments_reference(x, masks_t, valid_count: int,
+                            compute_var: bool = True):
+    """Plain PyTorch version: two-pass variance over the whole block.
+    Computes in float32, like the kernel; a float32 product on the card
+    must run without TF32 (the caller's
+    ``torch.backends.cuda.matmul.allow_tf32`` stays False)."""
+    xt = x.to(torch.float32)
+    y = xt @ masks_t.T
+    colsum = xt.sum(dim=0)
+    if compute_var:
+        row_valid = (
+            torch.arange(xt.shape[0], device=xt.device) < valid_count
+        ).to(torch.float32)[:, None]
+        mean = colsum / max(int(valid_count), 1)
+        diff = (xt - mean) * row_valid
+        colvar = (diff * diff).sum(dim=0)
+    else:
+        colvar = torch.zeros_like(colsum)
+    return y, colsum, colvar
+
+
+def _library():
+    lib = build.load("fused_moments")
+    fn = lib.fused_moments_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            + [ctypes.c_int] * 5
+            + [ctypes.c_void_p] * 5
+        )
+        fn.restype = ctypes.c_int
+        lib.fused_moments_error_string.argtypes = [ctypes.c_int]
+        lib.fused_moments_error_string.restype = ctypes.c_char_p
+        lib.fused_moments_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fused_moments_scratch_floats.restype = ctypes.c_long
+    return lib
+
+
+def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
+    if x.dim() != 2 or masks_t.dim() != 2:
+        raise ValueError("x must be (depth, pixels), masks_t (M, pixels)")
+    depth, pixels = x.shape
+    n_masks = masks_t.shape[0]
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel does not take {x.dtype} input")
+    if masks_t.dtype != torch.float32 or masks_t.shape[1] != pixels:
+        raise ValueError(
+            f"masks_t must be float32 of shape (M, {pixels}), got "
+            f"{masks_t.dtype} {tuple(masks_t.shape)}"
+        )
+    if not 1 <= n_masks <= MAX_MASKS:
+        raise ValueError(
+            f"the CUDA kernel takes 1..{MAX_MASKS} mask rows, got "
+            f"{n_masks}"
+        )
+    if masks_t.device != x.device:
+        raise ValueError("x and masks_t must be on the same device")
+    if not (x.is_contiguous() and masks_t.is_contiguous()):
+        raise ValueError("x and masks_t must be contiguous")
+    valid_count = int(valid_count)
+    if not 0 <= valid_count <= depth:
+        raise ValueError(f"valid_count {valid_count} not in [0, {depth}]")
+    if depth == 0 or pixels == 0:
+        raise ValueError(f"empty block {tuple(x.shape)}")
+    y = torch.empty((depth, n_masks), dtype=torch.float32, device=x.device)
+    colsum = torch.empty(pixels, dtype=torch.float32, device=x.device)
+    colvar = torch.empty(pixels, dtype=torch.float32, device=x.device)
+    lib = _library()
+    scratch = torch.empty(
+        lib.fused_moments_scratch_floats(depth, pixels, n_masks),
+        dtype=torch.float32, device=x.device,
+    )
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.fused_moments_launch(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), masks_t.data_ptr(),
+            depth, pixels, n_masks, valid_count, int(bool(compute_var)),
+            scratch.data_ptr(), y.data_ptr(), colsum.data_ptr(),
+            colvar.data_ptr(), stream,
+        )
+    if code != 0:
+        msg = lib.fused_moments_error_string(code).decode()
+        raise RuntimeError(f"fused_moments kernel launch failed: {msg}")
+    fused_moments.launches += 1
+    return y, colsum, colvar
+
+
+def fused_moments(x, masks_t, valid_count: int,
+                  compute_var: bool = True):
+    """``(y, colsum, colvar)`` of a ``(depth, pixels)`` block; see the
+    module docstring.  ``x`` of any real dtype, ``masks_t`` (M, pixels)
+    float32 on the same device, ``valid_count`` a Python int."""
+    if x.device.type == "cpu":
+        return fused_moments_reference(x, masks_t, valid_count,
+                                       compute_var)
+    return _fused_moments_cuda(x, masks_t, valid_count, compute_var)
+
+
+# kernel launches so far; a run reads it to show it went through the
+# kernel
+fused_moments.launches = 0

@@ -1,0 +1,181 @@
+"""CoMUDF: centre of mass (counterpart of ``libertem_tpu/udf/com.py``).
+
+Device side: three projections per frame (total, y-weighted,
+x-weighted) on the fused path.  Every derived field (shifts,
+rotation/flip correction, magnitude, divergence, curl) is computed on
+the host in ``get_results``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from .base import UDF
+
+
+class RegressionOptions:
+    NO_REGRESSION = -1
+    SUBTRACT_MEAN = 0
+    SUBTRACT_LINEAR = 1
+
+
+@dataclass
+class CoMParams:
+    cy: Optional[float] = None
+    cx: Optional[float] = None
+    r: Optional[float] = None      # outer mask radius (None = whole frame)
+    ri: Optional[float] = None     # inner radius (annular CoM)
+    scan_rotation: float = 0.0
+    flip_y: bool = False
+    regression: int = RegressionOptions.NO_REGRESSION
+
+
+def apply_com_correction(sy, sx, scan_rotation, flip_y):
+    """Flip-then-rotate shift correction: flip_y negates y, then the
+    (y, x) vector is rotated with R = [[cos, sin], [-sin, cos]]."""
+    theta = np.deg2rad(scan_rotation)
+    if flip_y:
+        sy = -sy
+    y_corr = sy * np.cos(theta) + sx * np.sin(theta)
+    x_corr = -sy * np.sin(theta) + sx * np.cos(theta)
+    return y_corr, x_corr
+
+
+def com_masks(sig_shape, cy, cx, r=None, ri=None) -> np.ndarray:
+    """(3, *sig) stack: [total, y-weighted, x-weighted]."""
+    h, w = sig_shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    d2 = (y - cy) ** 2 + (x - cx) ** 2
+    if r is not None:
+        base = (d2 <= r ** 2).astype(np.float32)
+    else:
+        base = np.ones((h, w), dtype=np.float32)
+    if ri is not None and ri > 0:
+        # annulus: keep d > ri
+        base *= (d2 > ri ** 2).astype(np.float32)
+    return np.stack([base, y * base, x * base], axis=0)
+
+
+class CoMUDF(UDF):
+    def __init__(self, com_params: Optional[CoMParams] = None):
+        super().__init__(com_params=com_params or CoMParams())
+
+    @classmethod
+    def with_params(cls, cy=None, cx=None, r=None, ri=None,
+                    scan_rotation=0.0, flip_y=False,
+                    regression=RegressionOptions.NO_REGRESSION,
+                    ) -> "CoMUDF":
+        if r is not None and ri is not None and ri >= r:
+            raise ValueError(
+                "inner radius must be less than the outer radius"
+            )
+        return cls(CoMParams(
+            cy=cy, cx=cx, r=r, ri=ri, scan_rotation=scan_rotation,
+            flip_y=flip_y, regression=regression,
+        ))
+
+    def get_result_buffers(self):
+        if self.meta.dataset_shape.sig.dims != 2:
+            raise ValueError("CoMUDF only works with 2D sig shape.")
+        if self.meta.dataset_shape.nav.dims != 2:
+            raise ValueError("CoMUDF only works with 2D nav shape.")
+        if self.params.com_params.regression != \
+                RegressionOptions.NO_REGRESSION:
+            raise NotImplementedError(
+                "CoM regression is not ported yet"
+            )
+        return {
+            "raw_mask_result": self.buffer(
+                kind="nav", extra_shape=(3,), use="private",
+            ),
+            "raw_com": self.buffer(
+                kind="nav", extra_shape=(2,), use="result_only",
+            ),
+            "raw_shifts": self.buffer(
+                kind="nav", extra_shape=(2,), use="result_only",
+            ),
+            "field": self.buffer(
+                kind="nav", extra_shape=(2,), use="result_only",
+            ),
+            "field_y": self.buffer(kind="nav", use="result_only"),
+            "field_x": self.buffer(kind="nav", use="result_only"),
+            "magnitude": self.buffer(kind="nav", use="result_only"),
+            "divergence": self.buffer(kind="nav", use="result_only"),
+            "curl": self.buffer(kind="nav", use="result_only"),
+            "regression": self.buffer(
+                kind="single", extra_shape=(3, 2), use="result_only",
+            ),
+        }
+
+    def _center(self):
+        p: CoMParams = self.params.com_params
+        h, w = self.meta.sig_shape
+        # the default centre is the integer h // 2, not (h - 1) / 2
+        cy = p.cy if p.cy is not None else h // 2
+        cx = p.cx if p.cx is not None else w // 2
+        return cy, cx
+
+    def get_results(self):
+        p: CoMParams = self.params.com_params
+        cy, cx = self._center()
+        raw = np.asarray(self.results.raw_mask_result, dtype=np.float64)
+        # zero-sum frames report the reference centre (zero shift)
+        nz = raw[:, 0] != 0
+        com_y = np.full(raw.shape[0], cy, dtype=np.float64)
+        com_x = np.full(raw.shape[0], cx, dtype=np.float64)
+        np.divide(raw[:, 1], raw[:, 0], out=com_y, where=nz)
+        np.divide(raw[:, 2], raw[:, 0], out=com_x, where=nz)
+        raw_com = np.stack([com_y, com_x], axis=-1).astype(np.float32)
+        raw_shifts = np.stack(
+            [com_y - cy, com_x - cx], axis=-1
+        ).astype(np.float32)
+        # every derived field is a function of the stored float32
+        # shifts
+        y_corr, x_corr = apply_com_correction(
+            raw_shifts[..., 0].astype(np.float64),
+            raw_shifts[..., 1].astype(np.float64),
+            p.scan_rotation, p.flip_y,
+        )
+        div, curl = self._div_curl(y_corr, x_corr)
+        return {
+            "raw_com": raw_com,
+            "raw_shifts": raw_shifts,
+            "field": np.stack([y_corr, x_corr], axis=-1).astype(
+                np.float32
+            ),
+            "field_y": y_corr.astype(np.float32),
+            "field_x": x_corr.astype(np.float32),
+            "magnitude": np.sqrt(y_corr ** 2 + x_corr ** 2).astype(
+                np.float32
+            ),
+            "divergence": div,
+            "curl": curl,
+            "regression": self.with_mask(
+                np.zeros((3, 2), dtype=np.float32), mask=False,
+            ),
+        }
+
+    def _div_curl(self, y_corr, x_corr):
+        nav_shape = tuple(self.meta.dataset_shape.nav)
+        if min(nav_shape) < 2:
+            nanbuf = np.full(y_corr.shape[0], np.nan, dtype=np.float32)
+            return nanbuf, nanbuf.copy()
+        dy_dy, dy_dx = np.gradient(y_corr.reshape(nav_shape))
+        dx_dy, dx_dx = np.gradient(x_corr.reshape(nav_shape))
+        div = (dy_dy + dx_dx).astype(np.float32).reshape(-1)
+        # curl_2d = dFy/dx - dFx/dy
+        curl = (dy_dx - dx_dy).astype(np.float32).reshape(-1)
+        return div, curl
+
+    def fused_moments_spec(self):
+        """Join the fused pass with the 3-row CoM mask stack."""
+        p: CoMParams = self.params.com_params
+        cy, cx = self._center()
+        stack = com_masks(self.meta.sig_shape, cy, cx, p.r, p.ri)
+        return {
+            "mode": "masks",
+            "operand": stack.reshape(3, -1).astype(np.float32),
+            "name": "raw_mask_result",
+        }

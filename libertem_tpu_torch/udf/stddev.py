@@ -1,0 +1,65 @@
+"""StdDevUDF: per-pixel mean / variance / std in one pass (counterpart
+of ``libertem_tpu/udf/stddev.py``).
+
+Per-partition (count, sum, varsum) states fold with the
+Chan/Golub/LeVeque parallel-variance combine.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .base import UDF
+
+
+def _combine(n0, sum0, varsum0, n1, sum1, varsum1):
+    """Combine two (count, sum, varsum) variance states (tensors)."""
+    n = n0 + n1
+    mean0 = sum0 / torch.clamp(n0, min=1)
+    mean1 = sum1 / torch.clamp(n1, min=1)
+    delta = mean1 - mean0
+    corr = delta * delta * (n0 * n1 / torch.clamp(n, min=1))
+    varsum = torch.where(
+        n0 == 0, varsum1,
+        torch.where(n1 == 0, varsum0, varsum0 + varsum1 + corr),
+    )
+    return n, sum0 + sum1, varsum
+
+
+class StdDevUDF(UDF):
+    """Per-pixel mean / variance / std over all frames."""
+
+    def get_result_buffers(self):
+        return {
+            "num_frames": self.buffer(kind="single", dtype="float32"),
+            "sum": self.buffer(kind="sig", dtype="float32"),
+            "varsum": self.buffer(kind="sig", dtype="float32"),
+            "var": self.buffer(kind="sig", dtype="float32",
+                               use="result_only"),
+            "std": self.buffer(kind="sig", dtype="float32",
+                               use="result_only"),
+            "mean": self.buffer(kind="sig", dtype="float32",
+                                use="result_only"),
+        }
+
+    def fused_moments_spec(self):
+        """Consumes the fused pass's colsum/colvar moments."""
+        return {"mode": "stats"}
+
+    def merge(self, dest, src):
+        n, s, v = _combine(
+            dest.num_frames, dest.sum, dest.varsum,
+            src.num_frames, src.sum, src.varsum,
+        )
+        dest.num_frames = n
+        dest.sum = s
+        dest.varsum = v
+
+    def get_results(self):
+        n = max(float(np.asarray(self.results.num_frames).reshape(())), 1.0)
+        var = self.results.varsum / n
+        return {
+            "var": var,
+            "std": np.sqrt(var),
+            "mean": self.results.sum / n,
+        }
