@@ -4,7 +4,9 @@ The main path of the JAX package, on one NVIDIA H100: a 4D-STEM
 dataset streamed from disk through virtual detectors (ApplyMasksUDF),
 centre of mass (CoMUDF) and statistics (SumUDF, SumSigUDF, StdDevUDF)
 in one fused pass, carried by a hand-written CUDA kernel
-(``csrc/fused_moments.cu``).
+(``csrc/fused_moments.cu``); any other UDF set (LogsumUDF, PickUDF,
+FEMUDF, CrystallinityUDF, a user's own) on the generic path.  Both
+take a roi and detector corrections (``io.corrections.CorrectionSet``).
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the
@@ -12,9 +14,22 @@ caller passes ``device="cpu"``.
 """
 from . import masks
 from .api import Context
-from .udf import ApplyMasksUDF, CoMUDF, StdDevUDF, SumSigUDF, SumUDF
+from .io.corrections import CorrectionSet
+from .udf import (
+    ApplyMasksUDF,
+    CoMUDF,
+    CrystallinityUDF,
+    FEMUDF,
+    LogsumUDF,
+    NoOpUDF,
+    PickUDF,
+    StdDevUDF,
+    SumSigUDF,
+    SumUDF,
+)
 
 __all__ = [
-    "Context", "masks", "ApplyMasksUDF", "CoMUDF", "StdDevUDF",
-    "SumSigUDF", "SumUDF",
+    "Context", "CorrectionSet", "masks", "ApplyMasksUDF", "CoMUDF",
+    "StdDevUDF", "SumSigUDF", "SumUDF", "LogsumUDF", "PickUDF", "FEMUDF",
+    "CrystallinityUDF", "NoOpUDF",
 ]

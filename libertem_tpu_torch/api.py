@@ -4,11 +4,17 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .common.backend import resolve_device
+from .io.corrections import CorrectionSet
 from .io.dataset.base import DataSet
 from .udf.base import UDF, UDFRunner
+
+# the least partition count of a loaded dataset: the JAX package's
+# max(4, 2 x workers), with one worker (the card)
+MIN_PARTITIONS = 4
 
 
 class SingleUDFResults(dict):
@@ -38,7 +44,9 @@ class Context:
 
     def load(self, filetype: str, *args, **kwargs) -> DataSet:
         """``load("memory", data=..., ...)`` or ``load("raw", path=...,
-        dtype=..., nav_shape=..., sig_shape=...)``."""
+        dtype=..., nav_shape=..., sig_shape=...)``.  Without a given
+        ``num_partitions`` the dataset splits into at least
+        ``MIN_PARTITIONS`` partitions, as in the JAX package."""
         if filetype == "memory":
             from .io.dataset.memory import MemoryDataSet
             ds = MemoryDataSet(*args, **kwargs)
@@ -47,10 +55,22 @@ class Context:
             ds = RawFileDataSet(*args, **kwargs)
         else:
             raise ValueError(f"unknown or not yet ported format {filetype!r}")
+        ds.set_num_cores(MIN_PARTITIONS)
         return ds.initialize()
 
-    def run_udf(self, dataset: DataSet, udf: Union[UDF, Sequence[UDF]]):
+    def run_udf(
+        self,
+        dataset: DataSet,
+        udf: Union[UDF, Sequence[UDF]],
+        roi: Optional[np.ndarray] = None,
+        corrections: Optional[CorrectionSet] = None,
+    ):
         """Run one or more UDFs over a dataset in a single pass.
+
+        ``roi``: a bool array over the nav positions (nav-shaped or
+        flat) selecting the frames to process; nav results hold nan
+        (0 for integers) elsewhere.  ``corrections``: dark frame, gain
+        map and excluded pixels applied to every frame on the device.
 
         Returns a dict of result buffers for a single UDF, or a list of
         dicts for a sequence of UDFs."""
@@ -59,7 +79,9 @@ class Context:
         if not udfs:
             raise ValueError("empty list of UDFs - nothing to do!")
         runner = UDFRunner(udfs)
-        results = runner.run_for_dataset(dataset, self.device)
+        results = runner.run_for_dataset(
+            dataset, self.device, roi=roi, corrections=corrections,
+        )
         self.feed_stats = runner.feed_stats
         wrapped = [
             SingleUDFResults(b, results.damage) for b in results.buffers

@@ -6,8 +6,10 @@
 1. a *declaration* (kind / extra_shape / dtype / use) from which the
    runner allocates the run's state tensors on the device, and
 2. after a run, a *container* for the final host-side result:
-   ``.data`` (nav buffers in the full nav shape), ``.raw_data`` (flat
-   nav storage layout), ``.valid_mask`` and ``.masked_data``.
+   ``.data`` (nav buffers in the full nav shape; with a roi, the
+   positions outside it hold nan for floats, 0 for integers),
+   ``.raw_data`` (the storage layout: flat nav, roi-compressed),
+   ``.valid_mask`` and ``.masked_data``.
 
 Kinds: ``'nav'`` one entry per scan position, ``'sig'`` one per
 detector pixel, ``'single'`` one entry (plus ``extra_shape``).
@@ -43,7 +45,10 @@ class BufferWrapper:
         self._dtype = np.dtype(dtype)
         self._use = use
         self._ds_shape: Optional[Shape] = None
+        self._roi: Optional[np.ndarray] = None
+        self._roi_count: Optional[int] = None
         self._data: Optional[np.ndarray] = None
+        self._full_data: Optional[np.ndarray] = None
         self._valid_nav_mask: Optional[np.ndarray] = None
         self._custom_mask: Optional[np.ndarray] = None
 
@@ -63,16 +68,27 @@ class BufferWrapper:
     def use(self) -> Optional[str]:
         return self._use
 
-    def set_shape_ds(self, ds_shape: Shape) -> None:
+    def set_shape_ds(self, ds_shape: Shape,
+                     roi: Optional[np.ndarray] = None) -> None:
+        """Bind to a dataset shape and the run's roi (flat bool over
+        nav, or None for every position)."""
         self._ds_shape = ds_shape
+        if roi is not None:
+            roi = np.asarray(roi).reshape(-1).astype(bool)
+            self._roi_count = int(np.count_nonzero(roi))
+        self._roi = roi
 
     @property
     def shape(self) -> tuple[int, ...]:
-        """The storage shape (flat nav for 'nav')."""
+        """The storage shape (roi-compressed flat nav for 'nav')."""
         if self._ds_shape is None:
             raise RuntimeError("buffer not bound to a dataset shape yet")
         if self._kind == "nav":
-            return (self._ds_shape.nav.size,) + self._extra_shape
+            n = (
+                self._roi_count if self._roi is not None
+                else self._ds_shape.nav.size
+            )
+            return (n,) + self._extra_shape
         if self._kind == "sig":
             return tuple(self._ds_shape.sig) + self._extra_shape
         # a 'single' buffer with no extra_shape is (1,), never 0-d
@@ -83,13 +99,20 @@ class BufferWrapper:
         data: np.ndarray,
         valid_nav_mask: Optional[np.ndarray] = None,
         custom_mask: Optional[np.ndarray] = None,
+        full_data: Optional[np.ndarray] = None,
     ) -> None:
         """Install the final host result; ``valid_nav_mask`` is the
-        flat-nav damage mask, ``custom_mask`` (from ``UDF.with_mask``)
-        overrides the default validity of this buffer."""
+        roi-compressed flat-nav damage mask, ``custom_mask`` (from
+        ``UDF.with_mask``) overrides the default validity of this
+        buffer, and ``full_data`` (nav buffers only) is a full-nav
+        array that ``get_results`` produced itself, kept verbatim as
+        ``.data``."""
         self._data = np.asarray(data)
         self._valid_nav_mask = valid_nav_mask
         self._custom_mask = custom_mask
+        self._full_data = (
+            None if full_data is None else np.asarray(full_data)
+        )
 
     @property
     def raw_data(self) -> Optional[np.ndarray]:
@@ -97,11 +120,21 @@ class BufferWrapper:
 
     @property
     def data(self) -> Optional[np.ndarray]:
+        if self._full_data is not None:
+            return self._full_data
         if self._data is None or self._kind != "nav":
             return self._data
-        return self._data.reshape(
-            tuple(self._ds_shape.nav) + self._extra_shape
+        nav_shape = tuple(self._ds_shape.nav)
+        if self._roi is None:
+            return self._data.reshape(nav_shape + self._extra_shape)
+        # keep the stored dtype where get_results widened it
+        out_dtype = np.result_type(self._data.dtype, self._dtype)
+        full = np.full(
+            (self._ds_shape.nav.size,) + self._extra_shape,
+            _fill_value(out_dtype), dtype=out_dtype,
         )
+        full[self._roi] = self._data
+        return full.reshape(nav_shape + self._extra_shape)
 
     @property
     def valid_mask(self) -> Optional[np.ndarray]:
@@ -119,8 +152,13 @@ class BufferWrapper:
                 if self._valid_nav_mask is None
                 else np.asarray(self._valid_nav_mask, dtype=bool)
             )
+            full = np.zeros(self._ds_shape.nav.size, dtype=bool)
+            if self._roi is None:
+                full[:] = vm
+            else:
+                full[self._roi] = vm
             return np.broadcast_to(
-                vm.reshape(nav_shape + (1,) * len(self._extra_shape)),
+                full.reshape(nav_shape + (1,) * len(self._extra_shape)),
                 nav_shape + self._extra_shape,
             )
         any_valid = (
@@ -146,6 +184,16 @@ class BufferWrapper:
             f"<BufferWrapper kind={self._kind} extra_shape="
             f"{self._extra_shape} dtype={self._dtype} use={self._use}>"
         )
+
+
+def _fill_value(dtype: np.dtype):
+    """What ``.data`` holds outside the roi: nan for floats, False
+    for bools, 0 otherwise."""
+    if dtype.kind in "fc":
+        return np.nan
+    if dtype.kind == "b":
+        return False
+    return 0
 
 
 class ArrayWithMask:

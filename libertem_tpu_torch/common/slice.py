@@ -2,11 +2,13 @@
 (counterpart of ``libertem_tpu/common/slice.py``).
 
 Partitions describe the flat-nav frame range they cover with one; a
-tiling scheme lists the sig slices of its tiles.
+tiling scheme lists the sig slices of its tiles (``subslices`` cuts
+the frame into them).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import itertools
+from typing import Iterator, Sequence
 
 from .shape import Shape
 
@@ -53,3 +55,24 @@ class Slice:
     def from_shape(cls, shape: Sequence[int], sig_dims: int) -> "Slice":
         s = Shape(shape, sig_dims=sig_dims)
         return cls((0,) * s.dims, s)
+
+    def subslices(self, shape: Sequence[int]) -> Iterator["Slice"]:
+        """Sub-slices tiling this slice in a grid of ``shape`` (the
+        last ones along each axis cut at the edge)."""
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != self.shape.dims:
+            raise ValueError("subslice shape dims mismatch")
+        ranges = [
+            range(o, o + full, step)
+            for o, full, step in zip(self.origin, self.shape, shape)
+        ]
+        for origin in itertools.product(*ranges):
+            sub_shape = tuple(
+                min(step, o + full - oo)
+                for oo, o, full, step in zip(
+                    origin, self.origin, self.shape, shape
+                )
+            )
+            yield Slice(
+                origin, Shape(sub_shape, sig_dims=self.shape.sig.dims)
+            )

@@ -2,11 +2,16 @@
 
 The system has no weights: what a run is parameterised by is the fused
 mask stack and the per-UDF specs that ``_build_fused_plan`` derives
-from the UDFs' parameters.  :func:`fused_plan_from_numpy` takes that
-plan as plain numpy/dicts and gives the port's :class:`FusedPlan`,
-so the two packages' plans can be held against each other.
+from the UDFs' parameters, and the detector-correction plan that
+``CorrectionSet.make_plan`` derives from a dark frame, a gain map and
+the excluded pixels.  :func:`fused_plan_from_numpy` and
+:func:`correction_plan_from_numpy` take those plans as plain
+numpy/dicts and give the port's, so the two packages' plans can be
+held against each other.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -26,3 +31,29 @@ def fused_plan_from_numpy(masks_t, specs) -> FusedPlan:
         need_var="stats" in modes,
         need_colsum=bool(modes & {"colsum", "stats"}),
     )
+
+
+_CORRECTION_DTYPES = {
+    "dark": np.float32,
+    "gain": np.float32,
+    "repair_idx": np.int32,
+    "nbr_idx": np.int32,
+    "nbr_w": np.float32,
+}
+
+
+def correction_plan_from_numpy(plan: Optional[dict]) -> Optional[dict]:
+    """``plan``: the dict of ``CorrectionSet.make_plan(sig_shape)``
+    (``dark``, ``gain``, ``repair_idx``, ``nbr_idx``, ``nbr_w``, each
+    an array or None), or None for no corrections; returns the port's
+    plan, as ``io.corrections.CorrectionSet.make_plan`` gives it."""
+    if plan is None:
+        return None
+    unknown = set(plan) - set(_CORRECTION_DTYPES)
+    if unknown:
+        raise ValueError(f"unknown correction plan keys: {sorted(unknown)}")
+    return {
+        key: None if plan.get(key) is None
+        else np.ascontiguousarray(plan[key], dtype=dtype)
+        for key, dtype in _CORRECTION_DTYPES.items()
+    }

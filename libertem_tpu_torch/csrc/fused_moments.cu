@@ -5,9 +5,10 @@
 //   y[d, m]   = sum_p x[d, p] * masks[m, p]            (D, M)
 //   colsum[p] = sum_d x[d, p]                          (P)
 //   colvar[p] = sum_{d < valid} (x[d, p] - mean[p])^2  (P)
-// with x of any of u8/i8/u16/i16/i32/u32/f32, cast to f32 in registers,
-// and fp32 FMA on the CUDA cores (M <= 8 is far too thin for tensor
-// cores, and TF32 would break the 1e-5 contract of the JAX package).
+// with x of any of u8/i8/u16/i16/i32/u32/f32/f16/bf16/f64/i64/u64, cast
+// to f32 in registers, and fp32 FMA on the CUDA cores (a mask group of
+// at most 8 rows is far too thin for tensor cores, and TF32 would
+// break the 1e-5 contract of the JAX package).
 //
 // Bound on the H100: memory.  The work is 2*D*P*M + ~5*D*P FLOPs,
 // 17 FLOPs per pixel at M = 6: 8.5 FLOPs per byte of u16 input and
@@ -26,18 +27,29 @@
 //     value count at each shuffle step instead of shuffling every
 //     value 5 times;
 //   * only small partials go back to memory.
+// Types of 8 bytes (f64, i64, u64) take element loads instead of the
+// ring: they are rare input (64-bit files), and the ring would hold
+// only one row group of them.
+//
+// Any mask count M: the partials kernel holds at most MASK_GROUP = 8
+// mask rows in registers, so M > 8 runs it once per group of 8 rows,
+// each launch reading x again.  The first group also takes the column
+// moments; later groups skip them (`moments` = 0) and write only their
+// projections.  One combine launch serves all groups.  M = 40 reads x
+// five times: a tensor-core design for large stacks is later work.
 //
 // The TPU kernel carries colsum/colvar across a sequential grid.  Here
 // CTAs run in no order, so the work is two launches:
-//   1. `moments_partials`, a 2-D grid of (pixel chunks x row chunks).
+//   1. `moments_partials`, a 2-D grid of (pixel chunks x row chunks),
+//      once per mask group.
 //      Each CTA covers ROWS rows x CHUNK_PX pixels.  Per pixel it keeps
 //      the row chunk's sum and the sums of (x - c) and (x - c)^2 with
 //      c = the chunk's first row (a shifted two-moment form: exact 0
 //      for constant data, stable for a large mean with a narrow
 //      spread, and one read of x).  Rows >= valid enter no variance
 //      term.  Per row it reduces the M projections across the CTA
-//      (warp shuffles, then the warps in a fixed order) into a
-//      (n_pixel_chunks, D, M) partial.
+//      (warp shuffles, then the warps in a fixed order) into the
+//      group's (n_pixel_chunks, D, Mg) partial, Mg its row count.
 //   2. `moments_combine` folds the row-chunk partials of each pixel
 //      with the Chan/Golub/LeVeque update and sums the pixel-chunk
 //      partials of y, 8 lanes per output, each over every 8th chunk,
@@ -52,6 +64,8 @@
 // cudaGetLastError().
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,6 +79,7 @@ constexpr int GROUP = 4;                 // rows reduced together
 constexpr int RING_BYTES = 32 * 1024;    // cp.async ring per CTA
 constexpr int COMBINE_THREADS = 256;
 constexpr int LANES = 8;                 // combine lanes per output
+constexpr int MASK_GROUP = 8;            // mask rows per partials launch
 
 // 8 raw elements: one thread's pixels of one row
 template <typename T>
@@ -72,10 +87,41 @@ struct alignas(sizeof(T) * PX) Raw8 {
   T v[PX];
 };
 
+// types up to 4 bytes stream through the cp.async ring; 8-byte types
+// take element loads and get a one-row placeholder ring
+template <typename T>
+constexpr bool kRing = sizeof(T) <= 4;
+
 // rows the ring holds: 32 (1-byte types), 16 (2-byte), 8 (4-byte)
 template <typename T>
 constexpr int kRingRows =
-    RING_BYTES / (CHUNK_PX * static_cast<int>(sizeof(T)));
+    kRing<T> ? RING_BYTES / (CHUNK_PX * static_cast<int>(sizeof(T))) : 1;
+
+template <typename T>
+__device__ __forceinline__ float to_float(T v) {
+  return static_cast<float>(v);
+}
+template <>
+__device__ __forceinline__ float to_float<__half>(__half v) {
+  return __half2float(v);
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __half zero_of<__half>() {
+  return __float2half(0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -112,7 +158,7 @@ template <typename T>
 __device__ __forceinline__ Raw8<T> load_part(const T* p, int n) {
   Raw8<T> r;
 #pragma unroll
-  for (int i = 0; i < PX; ++i) r.v[i] = i < n ? p[i] : T(0);
+  for (int i = 0; i < PX; ++i) r.v[i] = i < n ? p[i] : zero_of<T>();
   return r;
 }
 
@@ -156,7 +202,7 @@ template <typename T, int MB>
 __global__ void __launch_bounds__(THREADS)
 moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
                  int D, int P, int M, int valid, int vec_ok,
-                 int compute_var, float* __restrict__ ypart,
+                 int compute_var, int moments, float* __restrict__ ypart,
                  float* __restrict__ psum, float* __restrict__ pshift,
                  float* __restrict__ pm1, float* __restrict__ pm2) {
   constexpr int RR = kRingRows<T>;
@@ -170,10 +216,11 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
   const int p0 = pc * CHUNK_PX + tid * PX;
   const int r0 = rc * ROWS;
   const int rows = min(ROWS, D - r0);
-  const int nvar = compute_var ? max(0, min(rows, valid - r0)) : 0;
+  const int nvar =
+      compute_var && moments ? max(0, min(rows, valid - r0)) : 0;
   const int npx = max(0, min(PX, P - p0));
   // aligned rows and a whole chunk: the cp.async ring (CTA-uniform)
-  const bool fast = vec_ok && (pc + 1) * CHUNK_PX <= P;
+  const bool fast = kRing<T> && vec_ok && (pc + 1) * CHUNK_PX <= P;
 
   float mk[MB][PX];
 #pragma unroll
@@ -193,29 +240,33 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
   // done before the copy is issued.
   constexpr int RG = RR / GROUP;
   const T* xcol = x + (size_t)r0 * P + p0;
-  if (fast) {
+  if constexpr (kRing<T>) {
+    if (fast) {
 #pragma unroll
-    for (int q = 0; q < RG - 1; ++q) {
+      for (int q = 0; q < RG - 1; ++q) {
 #pragma unroll
-      for (int u = 0; u < GROUP; ++u) {
-        const int row = q * GROUP + u;
-        if (row < rows)
-          copy_async(&ring[row % RR][tid], xcol + (size_t)row * P);
+        for (int u = 0; u < GROUP; ++u) {
+          const int row = q * GROUP + u;
+          if (row < rows)
+            copy_async(&ring[row % RR][tid], xcol + (size_t)row * P);
+        }
+        commit_async();
       }
-      commit_async();
     }
   }
   for (int r = 0; r < rows; r += GROUP) {
     float xg[GROUP][PX];
-    if (fast) {
+    if constexpr (kRing<T>) {
+      if (fast) {
 #pragma unroll
-      for (int u = 0; u < GROUP; ++u) {
-        const int row = r + (RG - 1) * GROUP + u;
-        if (row < rows)
-          copy_async(&ring[row % RR][tid], xcol + (size_t)row * P);
+        for (int u = 0; u < GROUP; ++u) {
+          const int row = r + (RG - 1) * GROUP + u;
+          if (row < rows)
+            copy_async(&ring[row % RR][tid], xcol + (size_t)row * P);
+        }
+        commit_async();
+        wait_async<RG - 1>();  // the group of rows r .. r + GROUP - 1
       }
-      commit_async();
-      wait_async<RG - 1>();  // the group of rows r .. r + GROUP - 1
     }
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
@@ -225,7 +276,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
                : load_part(xcol + (size_t)row * P, row < rows ? npx : 0);
 #pragma unroll
       for (int i = 0; i < PX; ++i)
-        xg[u][i] = row < rows ? static_cast<float>(raw.v[i]) : 0.f;
+        xg[u][i] = row < rows ? to_float(raw.v[i]) : 0.f;
     }
     if (r == 0) {
 #pragma unroll
@@ -238,7 +289,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
       for (int m = 0; m < MB; ++m) acc[u * MB + m] = 0.f;
 #pragma unroll
       for (int i = 0; i < PX; ++i) {
-        s[i] += xg[u][i];
+        if (moments) s[i] += xg[u][i];
 #pragma unroll
         for (int m = 0; m < MB; ++m)
           acc[u * MB + m] = fmaf(xg[u][i], mk[m][i], acc[u * MB + m]);
@@ -265,6 +316,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     for (int w = 0; w < WARPS; ++w) v += red[w][rr][m];
     ypart[((size_t)pc * D + r0 + rr) * M + m] = v;
   }
+  if (!moments) return;
   const size_t base = (size_t)rc * P + p0;
   const float n = static_cast<float>(max(nvar, 1));
   float m1[PX], m2[PX];
@@ -372,10 +424,18 @@ moments_combine(const float* __restrict__ ypart,
     }
     return;
   }
+  // y[d, m] of mask group mg = m / MASK_GROUP: that group's partials
+  // lie after those of the full groups before it, (n_pc, D, Mg) each
   const long k = item - P;
   if (k < (long)D * M) {
+    const int d = static_cast<int>(k / M);
+    const int m = static_cast<int>(k - (long)d * M);
+    const int mg = m / MASK_GROUP;
+    const int width = min(MASK_GROUP, M - mg * MASK_GROUP);
+    const float* yp = ypart + (size_t)mg * MASK_GROUP * n_pc * D +
+                      (size_t)d * width + (m - mg * MASK_GROUP);
     float v = 0.f;
-    for (int j = g; j < n_pc; j += LANES) v += ypart[(size_t)j * D * M + k];
+    for (int j = g; j < n_pc; j += LANES) v += yp[(size_t)j * D * width];
 #pragma unroll
     for (int off = 1; off < LANES; off <<= 1)
       v += __shfl_xor_sync(gmask, v, off);
@@ -385,7 +445,8 @@ moments_combine(const float* __restrict__ ypart,
 
 template <typename T, int MB>
 void launch_partials(const void* x, const float* masks, int D, int P,
-                     int M, int valid, int compute_var, float* ypart,
+                     int M, int valid, int compute_var, int moments,
+                     float* ypart,
                      float* psum, float* pshift, float* pm1, float* pm2,
                      cudaStream_t stream) {
   const int vec_ok =
@@ -394,39 +455,50 @@ void launch_partials(const void* x, const float* masks, int D, int P,
   const dim3 grid((P + CHUNK_PX - 1) / CHUNK_PX, (D + ROWS - 1) / ROWS);
   moments_partials<T, MB><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), masks, D, P, M, valid, vec_ok,
-      compute_var, ypart, psum, pshift, pm1, pm2);
+      compute_var, moments, ypart, psum, pshift, pm1, pm2);
 }
 
+// One partials launch per group of at most MASK_GROUP mask rows; the
+// first group also takes the column moments.  Returns cudaGetLastError
+// of the first launch that fails, else cudaSuccess.
 template <typename T>
-bool dispatch_masks(const void* x, const float* masks, int D, int P,
-                    int M, int valid, int compute_var, float* ypart,
-                    float* psum, float* pshift, float* pm1, float* pm2,
-                    cudaStream_t s) {
-  // M rounds up to the next instantiated width; the extra mask rows
-  // are zeros in registers and never written out
-  if (M <= 2)
-    launch_partials<T, 2>(x, masks, D, P, M, valid, compute_var, ypart,
-                          psum, pshift, pm1, pm2, s);
-  else if (M <= 4)
-    launch_partials<T, 4>(x, masks, D, P, M, valid, compute_var, ypart,
-                          psum, pshift, pm1, pm2, s);
-  else if (M <= 6)
-    launch_partials<T, 6>(x, masks, D, P, M, valid, compute_var, ypart,
-                          psum, pshift, pm1, pm2, s);
-  else if (M <= 8)
-    launch_partials<T, 8>(x, masks, D, P, M, valid, compute_var, ypart,
-                          psum, pshift, pm1, pm2, s);
-  else
-    return false;
-  return true;
+cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
+                          int M, int valid, int compute_var, float* ypart,
+                          float* psum, float* pshift, float* pm1,
+                          float* pm2, cudaStream_t s) {
+  const int n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
+  for (int m0 = 0; m0 < M; m0 += MASK_GROUP) {
+    const int mg = min(MASK_GROUP, M - m0);
+    const float* mk = masks + (size_t)m0 * P;
+    float* yp = ypart + (size_t)m0 * n_pc * D;
+    const int first = m0 == 0;
+    // the group's width rounds up to the next instantiated one; the
+    // extra mask rows are zeros in registers and never written out
+    if (mg <= 2)
+      launch_partials<T, 2>(x, mk, D, P, mg, valid, compute_var, first, yp,
+                            psum, pshift, pm1, pm2, s);
+    else if (mg <= 4)
+      launch_partials<T, 4>(x, mk, D, P, mg, valid, compute_var, first, yp,
+                            psum, pshift, pm1, pm2, s);
+    else if (mg <= 6)
+      launch_partials<T, 6>(x, mk, D, P, mg, valid, compute_var, first, yp,
+                            psum, pshift, pm1, pm2, s);
+    else
+      launch_partials<T, 8>(x, mk, D, P, mg, valid, compute_var, first, yp,
+                            psum, pshift, pm1, pm2, s);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// y partials of every pixel chunk, padded to 256 bytes so that the
-// row-chunk partials after them take float4 stores
+// y partials of every pixel chunk, group after group ((n_pc, D, Mg)
+// each, so M floats per pixel chunk and row in all), padded to 256
+// bytes so that the row-chunk partials after them take float4 stores
 static long ypart_floats(int D, int P, int M) {
   const long n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
   return (n_pc * D * M + 63) / 64 * 64;
@@ -438,8 +510,9 @@ long fused_moments_scratch_floats(int D, int P, int M) {
   return ypart_floats(D, P, M) + 4L * ((D + ROWS - 1) / ROWS) * P;
 }
 
-// dtype codes: 0 u8, 1 i8, 2 u16, 3 i16, 4 i32, 5 u32, 6 f32.
-// Returns a cudaError_t, or -1 for an unsupported dtype or M.
+// dtype codes: 0 u8, 1 i8, 2 u16, 3 i16, 4 i32, 5 u32, 6 f32, 7 f64,
+// 8 i64, 9 u64, 10 f16, 11 bf16.
+// Returns a cudaError_t, or -1 for an unsupported dtype or M < 1.
 int fused_moments_launch(int dtype, const void* x, const float* masks,
                          int D, int P, int M, int valid, int compute_var,
                          float* scratch, float* y, float* colsum,
@@ -452,10 +525,11 @@ int fused_moments_launch(int dtype, const void* x, const float* masks,
   float* pshift = psum + (size_t)n_rc * P;
   float* pm1 = pshift + (size_t)n_rc * P;
   float* pm2 = pm1 + (size_t)n_rc * P;
-  bool ok = false;
+  if (M < 1) return -1;
+  cudaError_t err = cudaSuccess;
 #define FM_CASE(code, T)                                                  \
   case code:                                                              \
-    ok = dispatch_masks<T>(x, masks, D, P, M, valid, compute_var, ypart, \
+    err = launch_groups<T>(x, masks, D, P, M, valid, compute_var, ypart, \
                            psum, pshift, pm1, pm2, s);                   \
     break;
   switch (dtype) {
@@ -466,12 +540,15 @@ int fused_moments_launch(int dtype, const void* x, const float* masks,
     FM_CASE(4, int32_t)
     FM_CASE(5, uint32_t)
     FM_CASE(6, float)
+    FM_CASE(7, double)
+    FM_CASE(8, int64_t)
+    FM_CASE(9, uint64_t)
+    FM_CASE(10, __half)
+    FM_CASE(11, __nv_bfloat16)
     default:
-      break;
+      return -1;
   }
 #undef FM_CASE
-  if (!ok) return -1;
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long threads = ((long)P + (long)D * M) * LANES;
   const int blocks =

@@ -3,10 +3,10 @@
 
 A dataset is split along the flattened navigation axis into
 contiguous-frame :class:`Partition` s.  Each partition streams its
-frames as fixed-depth :class:`Block` s in the raw on-disk dtype,
-zero-padded at the tail, with a ``valid`` count of real frames.  The
-cast to float happens on the device, inside the fused kernel, so
-narrow detector data crosses PCIe at its raw width.
+frames (those of a roi only, when the run has one) as fixed-depth
+:class:`Block` s in the raw on-disk dtype, zero-padded at the tail,
+with a ``valid`` count of real frames.  The cast to float happens on
+the device, so narrow detector data crosses PCIe at its raw width.
 """
 from __future__ import annotations
 
@@ -50,12 +50,16 @@ class Block:
     """One fixed-depth chunk of frames headed for the device.
 
     data:          (depth, *sig) raw-dtype array, zero-padded
-    global_offset: first frame's position in the flat nav order
+    global_offset: first frame's position in the (roi-compressed)
+                   flat nav order
+    coords:        (depth, nav_dims) int32 nav coordinates of the
+                   frames, zeros in the padding rows
     valid:         number of non-padding frames (<= depth)
     """
 
     data: np.ndarray
     global_offset: int
+    coords: np.ndarray
     valid: int
 
 
@@ -90,30 +94,77 @@ class Partition:
             self._read_raw_frames(start, c1, out[:c1 - start])
         out[c1 - start:] = 0
 
+    def local_frame_ids(self, roi: Optional[np.ndarray]) -> np.ndarray:
+        """Flat-nav ids of the frames this partition contributes
+        (roi-filtered), in order."""
+        if roi is None:
+            return np.arange(
+                self.start_frame, self.start_frame + self.num_frames,
+                dtype=np.int64,
+            )
+        roi = np.asarray(roi).reshape(-1)
+        sel = np.flatnonzero(
+            roi[self.start_frame:self.start_frame + self.num_frames]
+        )
+        return (sel + self.start_frame).astype(np.int64)
+
+    def roi_offset(self, roi: Optional[np.ndarray]) -> int:
+        """Position of this partition's first selected frame in the
+        roi-compressed global ordering."""
+        if roi is None:
+            return self.start_frame
+        roi = np.asarray(roi).reshape(-1)
+        return int(np.count_nonzero(roi[:self.start_frame]))
+
+    def frames_in_roi(self, roi: Optional[np.ndarray]) -> int:
+        if roi is None:
+            return self.num_frames
+        return len(self.local_frame_ids(roi))
+
     def gen_blocks(
         self,
         scheme: TilingScheme,
+        roi: Optional[np.ndarray] = None,
         out: Optional[Callable[[], np.ndarray]] = None,
     ) -> Iterator[Block]:
-        """Stream this partition as zero-padded fixed-depth blocks.
+        """Stream this partition's (roi-selected) frames as
+        zero-padded fixed-depth blocks.
 
-        ``out`` hands out the destination array of each block (the
-        host feed passes its pinned staging buffers, so frames are
-        read straight into memory the card can copy from); by default
-        every block gets a fresh array.
+        A roi is read run by run: each stretch of consecutive selected
+        frames is one read straight into the block, so no frame
+        outside the roi is read.  ``out`` hands out the destination
+        array of each block (the host feed passes its pinned staging
+        buffers, so frames are read straight into memory the card can
+        copy from); by default every block gets a fresh array.
         """
+        ids = self.local_frame_ids(roi)
         depth = scheme.depth
+        goff = self.roi_offset(roi)
+        nav_shape = tuple(self.meta.shape.nav)
         sig = tuple(self.meta.shape.sig)
-        for off in range(0, self.num_frames, depth):
-            valid = min(depth, self.num_frames - off)
+        for off in range(0, len(ids), depth):
+            chunk = ids[off:off + depth]
+            valid = len(chunk)
             data = (
                 np.empty((depth,) + sig, self.meta.native_dtype)
                 if out is None else out()
             )
-            start = self.start_frame + off
-            self.read_frames_into(start, start + valid, data[:valid])
+            breaks = np.flatnonzero(np.diff(chunk) != 1) + 1
+            starts = np.concatenate(([0], breaks))
+            stops = np.concatenate((breaks, [valid]))
+            for a, b in zip(starts, stops):
+                self.read_frames_into(
+                    int(chunk[a]), int(chunk[b - 1]) + 1, data[a:b]
+                )
             data[valid:] = 0
-            yield Block(data=data, global_offset=start, valid=valid)
+            coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
+            if nav_shape:
+                for d, u in enumerate(np.unravel_index(chunk, nav_shape)):
+                    coords[:valid, d] = u
+            yield Block(
+                data=data, global_offset=goff + off, coords=coords,
+                valid=valid,
+            )
 
 
 class DataSet:
@@ -124,6 +175,12 @@ class DataSet:
     def __init__(self, num_partitions: Optional[int] = None):
         self._meta: Optional[DataSetMeta] = None
         self._num_partitions = num_partitions
+        self._cores = 1
+
+    def set_num_cores(self, cores: int) -> None:
+        """The least partition count without a fixed ``num_partitions``
+        (``Context.load`` asks for 4, as the JAX package's does)."""
+        self._cores = max(1, int(cores))
 
     def initialize(self) -> "DataSet":
         raise NotImplementedError()
@@ -139,13 +196,13 @@ class DataSet:
         return self.meta.shape
 
     def get_num_partitions(self) -> int:
-        """Each partition at most MAX_PARTITION_SIZE bytes, unless the
-        caller fixed the count."""
+        """At least ``set_num_cores`` partitions, each at most
+        MAX_PARTITION_SIZE bytes, unless the caller fixed the count."""
         if self._num_partitions is not None:
             n = max(1, self._num_partitions)
         else:
             total = self.meta.shape.size * self.meta.raw_dtype.itemsize
-            n = max(1, -(-total // MAX_PARTITION_SIZE))
+            n = max(self._cores, -(-total // MAX_PARTITION_SIZE))
         return min(n, max(1, self.meta.shape.nav.size))
 
     def get_partition_ranges(self) -> list[tuple[int, int]]:

@@ -19,6 +19,11 @@ Contract, as in the JAX package: rows >= ``valid_count`` are zero on
 input (the host feed zero-pads tails), so ``y`` and ``colsum`` need no
 row mask; only the variance masks them.  ``compute_var=False`` returns
 a zero ``colvar``.
+
+The kernel takes any mask count: it runs once per group of
+``MASK_GROUP`` mask rows (``launches`` counts each of those), and any
+real input dtype of 1 to 8 bytes (u8 .. u64, i8 .. i64, f16, bf16,
+f32, f64), cast to float32 in registers.
 """
 from __future__ import annotations
 
@@ -28,10 +33,12 @@ import torch
 
 from . import build
 
-MAX_MASKS = 8
+# mask rows one kernel launch projects on (MASK_GROUP in the source)
+MASK_GROUP = 8
 _DTYPE_CODES = {
     torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
-    torch.int32: 4, torch.uint32: 5, torch.float32: 6,
+    torch.int32: 4, torch.uint32: 5, torch.float32: 6, torch.float64: 7,
+    torch.int64: 8, torch.uint64: 9, torch.float16: 10, torch.bfloat16: 11,
 }
 
 
@@ -85,11 +92,8 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
             f"masks_t must be float32 of shape (M, {pixels}), got "
             f"{masks_t.dtype} {tuple(masks_t.shape)}"
         )
-    if not 1 <= n_masks <= MAX_MASKS:
-        raise ValueError(
-            f"the CUDA kernel takes 1..{MAX_MASKS} mask rows, got "
-            f"{n_masks}"
-        )
+    if n_masks < 1:
+        raise ValueError(f"the CUDA kernel needs a mask row, got {n_masks}")
     if masks_t.device != x.device:
         raise ValueError("x and masks_t must be on the same device")
     if not (x.is_contiguous() and masks_t.is_contiguous()):
@@ -118,7 +122,7 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
     if code != 0:
         msg = lib.fused_moments_error_string(code).decode()
         raise RuntimeError(f"fused_moments kernel launch failed: {msg}")
-    fused_moments.launches += 1
+    fused_moments.launches += -(-n_masks // MASK_GROUP)
     return y, colsum, colvar
 
 
@@ -133,6 +137,6 @@ def fused_moments(x, masks_t, valid_count: int,
     return _fused_moments_cuda(x, masks_t, valid_count, compute_var)
 
 
-# kernel launches so far; a run reads it to show it went through the
-# kernel
+# kernel launches so far, one per mask group of each call; a run reads
+# it to show it went through the kernel
 fused_moments.launches = 0

@@ -1,13 +1,19 @@
-"""The UDFs of the fused main path."""
-from .base import UDF, UDFData, UDFMeta, UDFResults, UDFRunner
+"""The UDFs of the port: the five of the fused main path, and the
+ones that run on the generic path."""
+from .base import NoOpUDF, UDF, UDFData, UDFMeta, UDFResults, UDFRunner
 from .com import CoMParams, CoMUDF, RegressionOptions
+from .crystallinity import CrystallinityUDF
+from .FEM import FEMUDF
+from .logsum import LogsumUDF
 from .masks import ApplyMasksUDF, MaskContainer
+from .raw import PickUDF
 from .stddev import StdDevUDF
 from .sum import SumUDF
 from .sumsigudf import SumSigUDF
 
 __all__ = [
-    "UDF", "UDFData", "UDFMeta", "UDFResults", "UDFRunner",
+    "UDF", "UDFData", "UDFMeta", "UDFResults", "UDFRunner", "NoOpUDF",
     "CoMParams", "CoMUDF", "RegressionOptions", "ApplyMasksUDF",
-    "MaskContainer", "StdDevUDF", "SumUDF", "SumSigUDF",
+    "MaskContainer", "StdDevUDF", "SumUDF", "SumSigUDF", "LogsumUDF",
+    "PickUDF", "FEMUDF", "CrystallinityUDF",
 ]

@@ -1,9 +1,10 @@
 """CoMUDF: centre of mass (counterpart of ``libertem_tpu/udf/com.py``).
 
 Device side: three projections per frame (total, y-weighted,
-x-weighted) on the fused path.  Every derived field (shifts,
-rotation/flip correction, magnitude, divergence, curl) is computed on
-the host in ``get_results``.
+x-weighted), on the fused path as rows of the fused mask stack, on the
+generic path as a float32 matmul of the tile with the stack.  Every
+derived field (shifts, rotation/flip correction, magnitude,
+divergence, curl) is computed on the host in ``get_results``.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .base import UDF
+from .masks import TileOperand
 
 
 class RegressionOptions:
@@ -61,6 +64,7 @@ def com_masks(sig_shape, cy, cx, r=None, ri=None) -> np.ndarray:
 class CoMUDF(UDF):
     def __init__(self, com_params: Optional[CoMParams] = None):
         super().__init__(com_params=com_params or CoMParams())
+        self._operand = TileOperand()
 
     @classmethod
     def with_params(cls, cy=None, cx=None, r=None, ri=None,
@@ -117,6 +121,17 @@ class CoMUDF(UDF):
         cx = p.cx if p.cx is not None else w // 2
         return cy, cx
 
+    def _stack(self) -> np.ndarray:
+        p: CoMParams = self.params.com_params
+        cy, cx = self._center()
+        return com_masks(self.meta.sig_shape, cy, cx, p.r, p.ri)
+
+    def process_tile(self, tile):
+        flat = tile.reshape(tile.shape[0], -1).to(torch.float32)
+        self.results.raw_mask_result += flat @ self._operand.get(
+            self._stack, self.meta
+        )
+
     def get_results(self):
         p: CoMParams = self.params.com_params
         cy, cx = self._center()
@@ -158,24 +173,35 @@ class CoMUDF(UDF):
         }
 
     def _div_curl(self, y_corr, x_corr):
+        """Divergence and curl on the 2-D nav grid; with a roi, the
+        roi-compressed fields are embedded with nan gaps first (so a
+        neighbour outside the roi gives nan), and compressed again."""
         nav_shape = tuple(self.meta.dataset_shape.nav)
         if min(nav_shape) < 2:
             nanbuf = np.full(y_corr.shape[0], np.nan, dtype=np.float32)
             return nanbuf, nanbuf.copy()
-        dy_dy, dy_dx = np.gradient(y_corr.reshape(nav_shape))
-        dx_dy, dx_dx = np.gradient(x_corr.reshape(nav_shape))
-        div = (dy_dy + dx_dx).astype(np.float32).reshape(-1)
+        roi = self.meta.roi
+        sel = (
+            np.ones(int(np.prod(nav_shape)), dtype=bool) if roi is None
+            else roi.reshape(-1)
+        )
+
+        def embed(flat):
+            full = np.full(sel.size, np.nan, dtype=np.float64)
+            full[sel] = flat
+            return full.reshape(nav_shape)
+
+        dy_dy, dy_dx = np.gradient(embed(y_corr))
+        dx_dy, dx_dx = np.gradient(embed(x_corr))
+        div = (dy_dy + dx_dx).astype(np.float32).reshape(-1)[sel]
         # curl_2d = dFy/dx - dFx/dy
-        curl = (dy_dx - dx_dy).astype(np.float32).reshape(-1)
+        curl = (dy_dx - dx_dy).astype(np.float32).reshape(-1)[sel]
         return div, curl
 
     def fused_moments_spec(self):
         """Join the fused pass with the 3-row CoM mask stack."""
-        p: CoMParams = self.params.com_params
-        cy, cx = self._center()
-        stack = com_masks(self.meta.sig_shape, cy, cx, p.r, p.ri)
         return {
             "mode": "masks",
-            "operand": stack.reshape(3, -1).astype(np.float32),
+            "operand": self._stack().reshape(3, -1).astype(np.float32),
             "name": "raw_mask_result",
         }

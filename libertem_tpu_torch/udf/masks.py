@@ -3,15 +3,40 @@
 
 The mask factories are evaluated once into a dense ``(n_masks, *sig)``
 stack; on the fused path its flattened rows join the fused pass's
-mask operand.
+mask operand, on the generic path each tile is projected on it with a
+float32 matmul (``torch.matmul``, full fp32: the runner keeps TF32
+off).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from .base import UDF
+
+
+class TileOperand:
+    """The columns of a (n, *sig) mask stack under the current sig
+    tile, as a (pixels of the tile, n) float32 tensor on the run's
+    device: the generic path's matmul operand, made once per tile and
+    device."""
+
+    def __init__(self):
+        self._key = None
+        self._op = None
+
+    def get(self, make_stack, meta) -> torch.Tensor:
+        sl = meta.sig_slice
+        key = (meta.sig_shape, sl.origin, tuple(sl.shape), str(meta.device))
+        if key != self._key:
+            sub = make_stack()[(slice(None),) + sl.get()]
+            self._op = torch.from_numpy(np.ascontiguousarray(
+                sub.reshape(sub.shape[0], -1).T, dtype=np.float32
+            )).to(meta.device)
+            self._key = key
+        return self._op
 
 
 class MaskContainer:
@@ -91,6 +116,7 @@ class ApplyMasksUDF(UDF):
         self._container = MaskContainer(
             mask_factories, dtype=mask_dtype, count=mask_count,
         )
+        self._operand = TileOperand()
 
     def get_preferred_input_dtype(self):
         if self._kwargs.get("dtype") is not None:
@@ -125,6 +151,23 @@ class ApplyMasksUDF(UDF):
             and np.dtype(d).itemsize >= (8 if np.dtype(d).kind == "f"
                                          else 16)
             for d in dtypes
+        )
+
+    def _real_stack(self) -> np.ndarray:
+        stack = self._container.compute_stack(self.meta.sig_shape)
+        if np.iscomplexobj(stack):
+            raise NotImplementedError("complex masks are not ported yet")
+        return stack
+
+    def process_tile(self, tile):
+        if self._wants_64bit():
+            raise NotImplementedError(
+                "64-bit mask or input dtypes accumulate in 64 bits on "
+                "the JAX package's host engine, which is not ported yet"
+            )
+        flat = tile.reshape(tile.shape[0], -1).to(torch.float32)
+        self.results.intensity += flat @ self._operand.get(
+            self._real_stack, self.meta
         )
 
     def fused_moments_spec(self):

@@ -1,8 +1,10 @@
 """StdDevUDF: per-pixel mean / variance / std in one pass (counterpart
 of ``libertem_tpu/udf/stddev.py``).
 
-Per-partition (count, sum, varsum) states fold with the
-Chan/Golub/LeVeque parallel-variance combine.
+Per-block and per-partition (count, sum, varsum) states fold with
+the Chan/Golub/LeVeque parallel-variance combine; the generic path's
+``process_tile`` counts only the block's valid frames, so zero-padded
+tail rows do not enter the statistics.
 """
 from __future__ import annotations
 
@@ -45,6 +47,28 @@ class StdDevUDF(UDF):
     def fused_moments_spec(self):
         """Consumes the fused pass's colsum/colvar moments."""
         return {"mode": "stats"}
+
+    def process_tile(self, tile):
+        valid = float(self.meta.valid_frames)
+        n1 = torch.full_like(self.results.num_frames, valid)
+        sum1 = tile.sum(dim=0)
+        mean1 = sum1 / max(valid, 1.0)
+        vmask = self.meta.tile_valid.reshape(
+            (-1,) + (1,) * (tile.ndim - 1)
+        )
+        diff = (tile - mean1) * vmask
+        n, s, v = _combine(
+            self.results.num_frames, self.results.sum,
+            self.results.varsum, n1, sum1, (diff * diff).sum(dim=0),
+        )
+        # with a sig-tiled scheme every sig tile sees the same frames:
+        # count them once, on the last tile, so earlier tiles still
+        # read the old count
+        scheme = self.meta.tiling_scheme
+        if scheme is None or self.meta.tiling_scheme_idx == len(scheme) - 1:
+            self.results.num_frames = n
+        self.results.sum = s
+        self.results.varsum = v
 
     def merge(self, dest, src):
         n, s, v = _combine(

@@ -22,6 +22,9 @@ class SumUDF(UDF):
     def get_result_buffers(self):
         return {"intensity": self.buffer(kind="sig", dtype=self._dtype())}
 
+    def process_tile(self, tile):
+        self.results.intensity += tile.sum(dim=0)
+
     def merge(self, dest, src):
         dest.intensity = dest.intensity + src.intensity
 

@@ -17,6 +17,9 @@ class SumSigUDF(UDF):
             ),
         }
 
+    def process_tile(self, tile):
+        self.results.intensity += tile.sum(dim=tuple(range(1, tile.ndim)))
+
     def fused_moments_spec(self):
         """A frame's sig sum is its projection on a ones mask row."""
         if np.dtype(self.meta.input_dtype) != np.float32:

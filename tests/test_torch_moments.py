@@ -47,6 +47,8 @@ def _block(kind, depth, pixels, valid, seed):
         # large mean, narrow spread: the case a raw second moment
         # gets wrong
         x = rng.normal(1000.0, 0.5, (depth, pixels)).astype(np.float32)
+    elif kind == "f64":
+        x = rng.normal(1000.0, 0.5, (depth, pixels))
     else:
         raise ValueError(kind)
     x[valid:] = 0  # the zero-padding contract
@@ -92,6 +94,33 @@ def test_reference_matches_pallas_and_xla(kind, depth, pixels, n_masks,
         _close(mine, q)
     # and the variance against float64 over the valid rows
     xv = x[:valid].astype(np.float64)
+    _close(ours[2], ((xv - xv.mean(axis=0)) ** 2).sum(axis=0))
+
+
+@pytest.mark.parametrize("kind,depth,pixels,n_masks,valid", [
+    # more than one mask group of the CUDA kernel (8 rows a launch)
+    ("u16", 64, 1024, 9, 64),
+    ("u16", 64, 1024, 17, 50),
+    ("u16", 40, 512, 40, 33),
+    # float64 input, computed in float32 like the JAX package's
+    ("f64", 48, 256, 5, 48),
+    ("f64", 48, 256, 12, 30),
+])
+def test_reference_matches_xla_wide(kind, depth, pixels, n_masks, valid):
+    x = _block(kind, depth, pixels, valid, seed=depth + n_masks)
+    masks = np.random.default_rng(8).normal(
+        size=(n_masks, pixels)
+    ).astype(np.float32)
+    ours = _ours(x, masks, valid)
+    xla = _fused_moments_xla(
+        jnp.asarray(x), jnp.asarray(masks), jnp.int32(valid)
+    )
+    assert ours[0].shape == (depth, n_masks)
+    for mine, q in zip(ours, xla):
+        _close(mine, q)
+    # the float64 input enters as its float32 rounding on both sides
+    xv = x[:valid].astype(np.float32).astype(np.float64)
+    _close(ours[1], xv.sum(axis=0))
     _close(ours[2], ((xv - xv.mean(axis=0)) ** 2).sum(axis=0))
 
 

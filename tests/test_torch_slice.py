@@ -177,7 +177,7 @@ def test_blocks_equal_to_jax():
     data = _data()
     ds = MemoryDataSet(data=data, sig_dims=2, num_partitions=3)
     jds = JaxMemoryDataSet(data=data, sig_dims=2, num_partitions=3)
-    scheme = Negotiator().get_scheme(ds.shape, np.float32, 40)
+    scheme = Negotiator().get_scheme([], ds.shape, np.float32, 40)
     jscheme = JaxNegotiator().get_scheme(
         [], JaxShape(NAV + SIG, sig_dims=2), np.float32,
         max_partition_frames=40,
@@ -198,15 +198,60 @@ def test_blocks_equal_to_jax():
     assert n == 9
 
 
-def test_generic_path_raises():
-    class NoSpecUDF(port.udf.UDF):
+def test_udf_without_process_method_raises():
+    """A UDF with no process_* method is refused with TypeError, as
+    the JAX package's UDF.get_method refuses it."""
+    class NoProcessUDF(port.udf.UDF):
         def get_result_buffers(self):
             return {"x": self.buffer(kind="nav")}
 
     ctx = port.Context(device="cpu")
     ds = ctx.load("memory", data=_data(), sig_dims=2)
-    with pytest.raises(NotImplementedError, match="generic path"):
-        ctx.run_udf(ds, [port.SumUDF(), NoSpecUDF()])
+    with pytest.raises(TypeError, match="process_tile"):
+        ctx.run_udf(ds, [port.SumUDF(), NoProcessUDF()])
+    with pytest.raises(TypeError, match="process_tile"):
+        JaxContext(executor=InlineJobExecutor()).run_udf(
+            JaxMemoryDataSet(data=_data(), sig_dims=2),
+            [libertem_tpu.udf.SumUDF(), _jax_no_process_udf()],
+        )
+
+
+def _jax_no_process_udf():
+    class NoProcessUDF(libertem_tpu.udf.base.UDF):
+        def get_result_buffers(self):
+            return {"x": self.buffer(kind="nav")}
+
+    return NoProcessUDF()
+
+
+@pytest.mark.parametrize("fmt", ["memory", "raw"])
+@pytest.mark.parametrize("max_bytes", [None, 48 * 1024])
+def test_partitions_like_jax(tmp_path, monkeypatch, fmt, max_bytes):
+    """Context.load without num_partitions: at least 4 partitions and
+    otherwise the byte rule, partition for partition as the JAX
+    package's Context.load (here also with a partition size of 48 KiB,
+    so the byte rule decides: 256 frames of 2 KiB make 11)."""
+    import libertem_tpu.io.dataset.base as jax_base
+    import libertem_tpu_torch.io.dataset.base as port_base
+
+    if max_bytes is not None:
+        monkeypatch.setattr(jax_base, "MAX_PARTITION_SIZE", max_bytes)
+        monkeypatch.setattr(port_base, "MAX_PARTITION_SIZE", max_bytes)
+    data = _data()
+    if fmt == "memory":
+        kw = dict(data=data, sig_dims=2)
+    else:
+        path = tmp_path / "scan.raw"
+        data.tofile(path)
+        kw = dict(path=str(path), dtype="uint16", nav_shape=NAV,
+                  sig_shape=SIG)
+    ours = port.Context(device="cpu").load(fmt, **kw)
+    theirs = JaxContext(executor=InlineJobExecutor()).load(fmt, **kw)
+    spans = [(p.start_frame, p.num_frames) for p in ours.get_partitions()]
+    assert spans == [
+        (p.start_frame, p.num_frames) for p in theirs.get_partitions()
+    ]
+    assert len(spans) == (4 if max_bytes is None else 11)
 
 
 def test_default_device_raises_without_cuda():
