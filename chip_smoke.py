@@ -32,7 +32,25 @@ from the root of the repository.  Phases, each fatal on failure:
        per block (two groups of mask rows);
    (b) the generic path with a roi: LogsumUDF, FEMUDF and SumUDF over
        half the scan, then PickUDF over 5 frames (bit for bit); no
-       fused kernel launches.
+       fused kernel launches;
+7. the fifth slice's paths on the same scan, each with the launch
+   counts set to 0 just before and read just after, checked against
+   float64 / complex128 numpy oracles and traced once more:
+   (a) sparse virtual detectors, fused: the BF disk and 16 small disks
+       (``sparse_circular_multi_stack``), M = 17, whose compaction plan
+       keeps 45 of 128 pixel blocks; the run compacts where that pays
+       on the card.  The kernel is held against its plain version on a
+       gathered block; the gather, the kernel there and on the whole
+       frame are timed apart, and a fill sweep times compaction against
+       the whole frame for the kernel and for the generic path's
+       matmul;
+   (b) both engines in one read pass: Sum + StdDev + ApplyMasks (BF),
+       fused, beside a numpy UDF (per-frame and per-pixel maxima, numpy
+       in-place merge) on the host engine, exact;
+   (c) the generic path with a roi of half the scan: ApplyMasks (BF)
+       with per-frame shifts as aux data, 16 complex ring-harmonic
+       masks, and a device UDF with preprocess and postprocess.
+   No library UDF may run on the host engine in any phase.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -60,6 +78,7 @@ FP32_FLOP_PER_S = 67e12
 # float64 oracle: relative 1e-5, with an absolute floor of 1e-5 of the
 # largest magnitude for entries near zero
 RTOL = 1e-5
+CRTOL = 1e-4
 # results derived from centres of mass (differences com - c): their
 # absolute floor follows the centres' magnitude, not their own
 FROM_COM = ("raw_shifts", "field", "magnitude", "divergence", "curl")
@@ -74,11 +93,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def max_err(got, want, scale=None) -> tuple[float, bool]:
+def max_err(got, want, scale=None, rtol=RTOL) -> tuple[float, bool]:
     """(max abs error, within tolerance) of two arrays or tensors;
-    ``scale`` sets the absolute floor (default: want's magnitude)."""
-    got = np.asarray(got, dtype=np.float64)
-    want = np.asarray(want, dtype=np.float64)
+    ``scale`` sets the absolute floor (default: want's magnitude).
+    Complex arrays compare their real and imaginary parts."""
+    got, want = np.asarray(got), np.asarray(want)
+    if np.iscomplexobj(got) or np.iscomplexobj(want):
+        got = np.stack([got.real, got.imag])
+        want = np.stack([want.real, want.imag])
+    got = got.astype(np.float64)
+    want = want.astype(np.float64)
     if got.shape != want.shape:
         return float("inf"), False
     if scale is None:
@@ -86,7 +110,7 @@ def max_err(got, want, scale=None) -> tuple[float, bool]:
     scale = max(scale, 1.0)
     err = np.abs(got - want)
     ok = bool(np.all(
-        (err <= RTOL * np.abs(want) + RTOL * scale)
+        (err <= rtol * np.abs(want) + rtol * scale)
         | (np.isnan(got) & np.isnan(want))
     ))
     return float(np.nanmax(err, initial=0.0)), ok
@@ -237,6 +261,179 @@ def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None) -> dict:
     }
 
 
+DISK_CENTRES = [46, 58, 70, 82]
+
+
+def sparse_stack(lt) -> np.ndarray:
+    """The BF disk and 16 disks of radius 4 on a grid: (17, h, w)."""
+    h, w = SIG
+    disks = lt.masks.sparse_circular_multi_stack(
+        np.arange(16), np.repeat(DISK_CENTRES, 4), np.tile(DISK_CENTRES, 4),
+        w, h, 4,
+    )
+    return np.concatenate([lt.masks.circular(64, 64, w, h, 16)[None],
+                           np.asarray(disks)]).astype(np.float64)
+
+
+def sparse_udfs(lt):
+    h, w = SIG
+    return [
+        lt.ApplyMasksUDF(mask_factories=[
+            lambda: lt.masks.circular(64, 64, w, h, 16)]),
+        lt.ApplyMasksUDF(mask_factories=lambda: sparse_stack(lt)[1:],
+                         mask_count=16),
+    ]
+
+
+def mixed_udfs(lt):
+    """Sum, StdDev and BF (fused, on the device) beside a numpy UDF."""
+    h, w = SIG
+
+    class FrameAndPixelMaxUDF(lt.udf.UDF):
+        def get_backends(self):
+            return (self.BACKEND_NUMPY,)
+
+        def get_result_buffers(self):
+            return {"frame_max": self.buffer(kind="nav", dtype="float32"),
+                    "pixel_max": self.buffer(kind="sig", dtype="float32")}
+
+        def process_tile(self, tile):
+            self.results.frame_max[:] = tile.max(axis=(1, 2))
+            np.maximum(self.results.pixel_max, tile.max(axis=0),
+                       out=self.results.pixel_max)
+
+        def merge(self, dest, src):
+            # a custom merge writes the nav buffers too
+            dest.frame_max[:] = src.frame_max
+            np.maximum(dest.pixel_max, src.pixel_max, out=dest.pixel_max)
+
+    return [lt.SumUDF(), lt.StdDevUDF(),
+            lt.ApplyMasksUDF(mask_factories=[
+                lambda: lt.masks.circular(64, 64, w, h, 16)]),
+            FrameAndPixelMaxUDF()]
+
+
+def ring_harmonics(lt) -> np.ndarray:
+    """4 rings of width 16 around the centre x orders 0..3 of
+    exp(i phi): (16, h, w) complex64."""
+    h, w = SIG
+    r, phi = lt.masks.polar_map(64, 64, w, h)
+    rings = np.stack([(r >= lo) & (r < lo + 16) for lo in (0, 16, 32, 48)])
+    orders = np.arange(4)[:, None, None]
+    return (rings[:, None] * np.exp(1j * orders * phi)).reshape(
+        16, h, w).astype(np.complex64)
+
+
+def frame_shifts() -> np.ndarray:
+    """Per-frame integer (dy, dx) in [-3, 3], from the seed."""
+    return np.random.default_rng(SEED + 6).integers(
+        -3, 4, (int(np.prod(NAV)), 2))
+
+
+def spot_stack(lt) -> np.ndarray:
+    """4 disks of radius 3 around the centre: rows 58-70, a fill of 13
+    of 128 blocks, where compaction pays for the generic path's matmul
+    on the card: (4, h, w)."""
+    h, w = SIG
+    return np.asarray(lt.masks.sparse_circular_multi_stack(
+        np.arange(4), [61, 61, 67, 67], [61, 67, 61, 67], w, h, 3))
+
+
+def generic_aux_udfs(lt):
+    h, w = SIG
+    harmonics = ring_harmonics(lt)
+
+    class ScaledSumSigUDF(lt.udf.UDF):
+        """preprocess sets the scale process_tile uses; postprocess
+        doubles the partition's rows back."""
+
+        def get_backends(self):
+            return (self.BACKEND_TORCH,)
+
+        def get_result_buffers(self):
+            return {"intensity": self.buffer(kind="nav", dtype="float32")}
+
+        def preprocess(self):
+            self._scale = 0.5
+
+        def process_tile(self, tile):
+            self.results.intensity += tile.sum(dim=(1, 2)) * self._scale
+
+        def postprocess(self):
+            self.results.intensity[:] *= 2
+
+    return [
+        lt.ApplyMasksUDF(
+            mask_factories=[lambda: lt.masks.circular(64, 64, w, h, 16)],
+            shifts=lt.udf.UDF.aux_data(frame_shifts(), kind="nav",
+                                       extra_shape=(2,), dtype=np.int64)),
+        lt.ApplyMasksUDF(mask_factories=lambda: harmonics, mask_count=16),
+        ScaledSumSigUDF(),
+        lt.ApplyMasksUDF(mask_factories=lambda: spot_stack(lt),
+                         mask_count=4),
+    ]
+
+
+def projections64(data, operand, ids) -> np.ndarray:
+    """float64 ``frames @ operand.T`` over the frames ``ids``, in
+    chunks; ``operand`` (k, pixels)."""
+    flat = data.reshape(-1, SIG[0] * SIG[1])
+    out = np.empty((len(ids), operand.shape[0]))
+
+    def part(lo, chunk):
+        out[lo:lo + len(chunk)] = flat[chunk].astype(np.float64) @ operand.T
+
+    in_chunks(ids, part)
+    return out
+
+
+def shifted_masks(mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The 49 shifts (dy, dx) in [-3, 3]^2 and ``mask`` moved by each,
+    zero-filled: projecting a frame moved by (-dy, -dx) on ``mask`` is
+    projecting the frame on ``mask`` moved by (dy, dx)."""
+    h, w = mask.shape
+    shifts = np.array([(dy, dx) for dy in range(-3, 4)
+                       for dx in range(-3, 4)])
+    out = np.zeros((len(shifts), h, w))
+    for k, (dy, dx) in enumerate(shifts):
+        out[k, max(0, dy):min(h, h + dy), max(0, dx):min(w, w + dx)] = \
+            mask[max(0, -dy):min(h, h - dy), max(0, -dx):min(w, w - dx)]
+    return shifts, out
+
+
+def oracle_generic_aux(lt, data, roi) -> dict:
+    """float64 / complex128 answers of ``generic_aux_udfs`` over the
+    roi's frames: one projection per frame on 49 shifted BF disks, the
+    16 harmonics (real and imaginary rows), a ones row and the 4
+    spots."""
+    h, w = SIG
+    shifts, moved = shifted_masks(
+        lt.masks.circular(64, 64, w, h, 16).astype(np.float64))
+    harm = ring_harmonics(lt).astype(np.complex128).reshape(16, -1)
+    operand = np.concatenate([moved.reshape(49, -1), harm.real, harm.imag,
+                              np.ones((1, h * w)),
+                              spot_stack(lt).reshape(4, -1)])
+    sel = np.flatnonzero(roi.reshape(-1))
+    proj = projections64(data, operand, sel)
+    fs = frame_shifts()[sel]
+    which = (fs[:, 0] + 3) * 7 + (fs[:, 1] + 3)
+    nan = np.full(int(np.prod(NAV)), np.nan)
+
+    def full(rows):
+        out = np.full((int(np.prod(NAV)),) + rows.shape[1:], np.nan,
+                      dtype=rows.dtype)
+        out[sel] = rows
+        return out.reshape(NAV + rows.shape[1:])
+
+    nan[sel] = proj[np.arange(len(sel)), which]
+    return {
+        (0, "intensity"): nan.reshape(NAV + (1,)),
+        (1, "intensity"): full(proj[:, 49:65] + 1j * proj[:, 65:81]),
+        (2, "intensity"): full(proj[:, 81]),
+        (3, "intensity"): full(proj[:, 82:86]),
+    }
+
+
 def generic_udfs(lt):
     return [lt.LogsumUDF(),
             lt.FEMUDF(center=(64, 64), rad_in=20, rad_out=50),
@@ -278,7 +475,10 @@ def check_results(label, res, want, failures, shift_floor=False) -> None:
         scale = None
         if shift_floor and ui == 1 and name in FROM_COM:
             scale = float(np.abs(want[(1, "raw_com")]).max())
-        e, ok = max_err(got, ref, scale)
+        # complex64 sums against complex128: relative 1e-4 of the
+        # largest magnitude
+        e, ok = max_err(got, ref, scale,
+                        CRTOL if np.iscomplexobj(ref) else RTOL)
         if name in ("divergence", "curl") and not shift_floor:
             field_scale = float(np.abs(want[(1, "field")]).max())
             ok = bool(np.all(
@@ -291,6 +491,16 @@ def check_results(label, res, want, failures, shift_floor=False) -> None:
         finite = np.array_equal(np.isfinite(got), np.isfinite(ref))
         if not ok or not finite:
             failures.append(f"{label} result {ui}/{name}: max err {e}")
+
+
+def check_engines(label, ctx, host, failures) -> None:
+    """The engine each UDF of the last run ran on: the host engine for
+    the UDFs flagged in ``host`` (numpy UDFs) and for no other."""
+    engines = ctx.run_info["engines"]
+    want = ["host" if h else "device" for h in host]
+    print(f"  {label} engines: {engines}")
+    if engines != want:
+        failures.append(f"{label} engines {engines}, expected {want}")
 
 
 def device_busy(prof) -> dict:
@@ -378,6 +588,73 @@ def bound(depth, pixels, n_masks, itemsize) -> tuple[float, str]:
     return flops_ms, "operations"
 
 
+SWEEP_FILLS = (4, 16, 45)  # support blocks (of 128) in the fill sweep
+SWEEP_MASKS = (1, 17)
+
+
+def fill_sweep(u16_blocks, f32_blocks, depth, at) -> None:
+    """Compaction against the whole frame on the card.  For contiguous
+    supports of ``SWEEP_FILLS`` of the frame's 128-pixel blocks and
+    ``SWEEP_MASKS`` masks (random on the support, zero elsewhere): the
+    gather plus the product on the gathered block against the product
+    on the whole frame, for the fused kernel (u16 blocks, the fused
+    path) and for the float32 matmul of ApplyMasks' generic path.
+    Prints each pair and, per product, the largest fill up to which the
+    compacted side won at every mask count, beside the limit the port
+    uses on the card (``CUDA_MAX_FILL``)."""
+    import torch
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.ops.sparse_masks import (
+        CUDA_MAX_FILL,
+        gather_blocks,
+    )
+
+    dev = u16_blocks[0].device
+    pixels = u16_blocks[0].shape[1]
+    nb = pixels // 128
+    rng = np.random.default_rng(SEED + 7)
+    wins = {"fused_moments": {}, "matmul": {}}
+    for s in SWEEP_FILLS:
+        lo, hi = (nb - s) // 2 * 128, ((nb - s) // 2 + s) * 128
+        support = torch.arange(lo // 128, hi // 128, device=dev)
+        for m in SWEEP_MASKS:
+            masks = np.zeros((m, pixels), np.float32)
+            masks[:, lo:hi] = rng.normal(size=(m, hi - lo))
+            whole = torch.from_numpy(masks).to(dev)
+            comp = whole[:, lo:hi].contiguous()
+            op_whole, op_comp = whole.T.contiguous(), comp.T.contiguous()
+            routes = {
+                "fused_moments": (
+                    u16_blocks,
+                    lambda x: fused_moments(x, whole, depth,
+                                            compute_var=False),
+                    lambda x: fused_moments(gather_blocks(x, support), comp,
+                                            depth, compute_var=False),
+                ),
+                "matmul": (
+                    f32_blocks,
+                    lambda x: x @ op_whole,
+                    lambda x: gather_blocks(x, support) @ op_comp,
+                ),
+            }
+            for route, (blocks, on_whole, on_comp) in routes.items():
+                w_ms, _ = time_ms(on_whole, [(b,) for b in blocks])
+                c_ms, _ = time_ms(on_comp, [(b,) for b in blocks])
+                wins[route].setdefault(s, []).append(c_ms < w_ms)
+                print(f"fill sweep, {route}: {s} of {nb} blocks, M={m}: "
+                      f"whole frame {w_ms:.4f} ms, gather + compacted "
+                      f"{c_ms:.4f} ms ({c_ms / w_ms:.2f}x) {at}")
+    for route, by_fill in wins.items():
+        pays = 0.0
+        for s in SWEEP_FILLS:
+            if not all(by_fill[s]):
+                break
+            pays = s / nb
+        print(f"fill sweep, {route}: compaction won at every mask count "
+              f"up to a fill of {pays:.4f}; the port compacts on the card "
+              f"up to {CUDA_MAX_FILL[route]:.4f} {at}")
+
+
 def main() -> int:
     import torch
 
@@ -390,6 +667,11 @@ def main() -> int:
         MASK_GROUP,
         fused_moments,
         fused_moments_reference,
+    )
+    from libertem_tpu_torch.ops.sparse_masks import (
+        CUDA_MAX_FILL,
+        compaction_pays,
+        gather_blocks,
     )
     from libertem_tpu_torch.udf.base import UDFRunner
 
@@ -541,9 +823,10 @@ def main() -> int:
             lt.masks.ring(64, 64, SIG[1], SIG[0], 60, 40),
         ])
         t0 = time.perf_counter()
-        want = oracle(data, bf_adf)
+        want = want4 = oracle(data, bf_adf)
         print(f"oracle: {time.perf_counter() - t0:.1f} s (float64 numpy)")
         check_results("main", res, want, failures)
+        check_engines("main", ctx, [False] * 5, failures)
 
         # steady-state rerun, for timing only
         t0 = time.perf_counter()
@@ -561,18 +844,19 @@ def main() -> int:
         ]
         f32_blocks = [corrected_block(SEED + 10 + i) for i in range(4)]
 
-        def library(x, m, valid):
+        def library(x, m, valid, compute_var):
             xf = x.float()
             return xf @ m.T, torch.var_mean(xf, dim=0, correction=0)
 
-        def timed(label, blocks, m, valid):
-            inputs = [(b, m, valid) for b in blocks]
+        def timed(label, blocks, m, valid, compute_var=True, lib=library):
+            inputs = [(b, m, valid, compute_var) for b in blocks]
             k_ms, k_eager_ms = time_ms(fused_moments, inputs)
             p_ms, p_eager_ms = time_ms(fused_moments_reference, inputs)
-            l_ms, _ = time_ms(library, inputs)
+            l_ms, _ = time_ms(lib, inputs)
             itemsize = blocks[0].element_size()
-            b_ms, b_by = bound(depth, pixels, m.shape[0], itemsize)
-            x_bytes = depth * pixels * itemsize
+            npix = blocks[0].shape[1]
+            b_ms, b_by = bound(depth, npix, m.shape[0], itemsize)
+            x_bytes = depth * npix * itemsize
             print(f"kernel fused_moments, {label}: {k_ms:.4f} ms per block "
                   f"({x_bytes / k_ms / 1e6:.1f} GB/s of input), bound "
                   f"{b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%} of it); "
@@ -608,7 +892,10 @@ def main() -> int:
         # -- 6. the second slice's paths ------------------------------------
         def report(label, secs, nbytes, stats):
             print(f"{label}: {secs:.3f} s wall for {nbytes} bytes read = "
-                  f"{nbytes / secs / 1e9:.2f} GB/s; feed_stats "
+                  f"{nbytes / secs / 1e9:.2f} GB/s; reader "
+                  f"{stats['read_s'] / secs:.1%} of the wall, consumer "
+                  f"waited {stats['wait_s'] / secs:.1%}, host engine "
+                  f"{stats['host_s'] / secs:.1%}; feed_stats "
                   f"{json.dumps(stats)} {at}")
 
         # (a) fused, corrected, 12 mask rows
@@ -620,6 +907,7 @@ def main() -> int:
         corr_launches = fused_moments.launches
         report("6a fused + corrections, M=12", corr_s, total_bytes,
                ctx.feed_stats)
+        check_engines("6a", ctx, [False] * 5, failures)
         if corr_launches != n_blocks * groups:
             failures.append(
                 f"6a launched fused_moments {corr_launches} times, "
@@ -650,12 +938,14 @@ def main() -> int:
         n_sel = int(roi.sum())
         report("6b generic, roi of half the scan", gen_s,
                n_sel * pixels * 2, ctx.feed_stats)
+        check_engines("6b", ctx, [False] * 3, failures)
         t0 = time.perf_counter()
         pick = ctx.run_udf(ds, lt.PickUDF(), roi=pick_roi.reshape(NAV))
         torch.cuda.synchronize()
         pick_s = time.perf_counter() - t0
         report("6b PickUDF, roi of 5 frames", pick_s, 5 * pixels * 2,
                ctx.feed_stats)
+        check_engines("6b PickUDF", ctx, [False], failures)
         if fused_moments.launches != 0:
             failures.append(f"6b launched fused_moments "
                             f"{fused_moments.launches} times, expected 0")
@@ -674,6 +964,150 @@ def main() -> int:
             print("  6b result pick: 5 frames bit for bit, uint16")
         traced_run(ctx, ds, generic_udfs(lt), at, roi=roi)
 
+        # -- 7. the fifth slice's paths -------------------------------------
+        # (a) sparse virtual detectors: fused, on the support blocks
+        # where compaction pays on the card
+        sp_groups = -(-17 // MASK_GROUP)
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, sparse_udfs(lt))
+        torch.cuda.synchronize()
+        sp_s = time.perf_counter() - t0
+        sp_launches = fused_moments.launches
+        report("7a fused, sparse stack M=17", sp_s, total_bytes,
+               ctx.feed_stats)
+        check_engines("7a", ctx, [False, False], failures)
+        # the plan of the run just timed, used or not
+        comp = ctx.run_info["compaction"]
+        sp_compacted = compaction_pays(comp, dev, "fused_moments")
+        print(f"  7a plan: fused {ctx.run_info['fused']}, support "
+              f"{None if comp is None else comp['support'].size} of "
+              f"{None if comp is None else comp['n_blocks']} blocks, "
+              f"used: {sp_compacted} (the port compacts the fused pass "
+              f"up to a fill of {CUDA_MAX_FILL['fused_moments']}), "
+              f"compacted_blocks {ctx.run_info['compacted_blocks']}")
+        if comp is None or comp["support"].size != 45:
+            failures.append(f"7a did not plan 45 support blocks: "
+                            f"{ctx.run_info}")
+            comp = None
+        elif ctx.run_info["compacted_blocks"] != (
+                45 if sp_compacted else None):
+            failures.append(f"7a compacted_blocks "
+                            f"{ctx.run_info['compacted_blocks']}, the "
+                            f"plan used: {sp_compacted}")
+        if sp_launches != n_blocks * sp_groups:
+            failures.append(f"7a launched fused_moments {sp_launches} "
+                            f"times, expected {n_blocks} blocks x "
+                            f"{sp_groups} mask groups")
+        t0 = time.perf_counter()
+        proj = projections64(data, sparse_stack(lt).reshape(17, -1),
+                             np.arange(int(np.prod(NAV))))
+        print(f"oracle 7a: {time.perf_counter() - t0:.1f} s (float64 numpy)")
+        check_results("7a", res, {
+            (0, "intensity"): proj[:, :1].reshape(NAV + (1,)),
+            (1, "intensity"): proj[:, 1:].reshape(NAV + (16,)),
+        }, failures)
+        traced_run(ctx, ds, sparse_udfs(lt), at)
+
+        def matmul_only(x, m, valid, compute_var):
+            return x.float() @ m.T
+
+        comp_t = None
+        full_t = timed("u16 M=17 whole frame (7a)", u16_blocks,
+                       torch.from_numpy(sparse_stack(lt).reshape(
+                           17, -1).astype(np.float32)).to(dev),
+                       depth, compute_var=False, lib=matmul_only)
+        if comp is not None:
+            n_sup = comp["support"].size
+            support_t = torch.from_numpy(
+                comp["support"].astype(np.int64)).to(dev)
+            masks_c = torch.from_numpy(np.ascontiguousarray(
+                comp["operand_c"].T)).to(dev)
+            gathered = [gather_blocks(b, support_t) for b in u16_blocks]
+            want_g = u16_blocks[0].cpu().numpy().reshape(
+                depth, -1, 128)[:, comp["support"]].reshape(depth, -1)
+            if not np.array_equal(gathered[0].cpu().numpy(), want_g):
+                failures.append("7a gather is not the support blocks")
+            label = f"u16 compacted M=17 P={n_sup}x128"
+            _, e = checks[label] = case("compacted", gathered[0], depth,
+                                        compute_var=False, masks=masks_c)
+            kernel_max_err = max(kernel_max_err, e)
+            print(f"  kernel fused_moments vs plain, {label}: max abs err "
+                  f"{e:.3g}")
+            g_ms, g_eager_ms = time_ms(
+                gather_blocks, [(b, support_t) for b in u16_blocks])
+            g_bound = 2 * depth * n_sup * 128 * 2 / HBM_BYTES_PER_S * 1e3
+            print(f"gather of the support blocks: {g_ms:.4f} ms per block "
+                  f"(one by one {g_eager_ms:.4f} ms), bound {g_bound:.4f} "
+                  f"ms by bytes (read and write {n_sup} of "
+                  f"{comp['n_blocks']} blocks) {at}")
+            comp_t = timed(label, gathered, masks_c, depth,
+                           compute_var=False, lib=matmul_only)
+            comp_t["gather_ms"] = g_ms
+        fill_sweep(u16_blocks, f32_blocks, depth, at)
+
+        # (b) both engines in one read pass
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, mixed_udfs(lt))
+        torch.cuda.synchronize()
+        mix_s = time.perf_counter() - t0
+        mix_launches = fused_moments.launches
+        stats = dict(ctx.feed_stats)
+        report("7b fused + host engine", mix_s, total_bytes, stats)
+        check_engines("7b", ctx, [False, False, False, True], failures)
+        if not ctx.run_info["fused"] or mix_launches != n_blocks:
+            failures.append(f"7b: fused {ctx.run_info['fused']}, "
+                            f"{mix_launches} launches, expected {n_blocks}")
+        print(f"  7b host engine held each slot "
+              f"{stats['host_s'] / stats['blocks'] * 1e3:.2f} ms on "
+              f"average ({stats['blocks']} blocks) {at}")
+        check_results("7b", res, {
+            (0, "intensity"): want4[(2, "intensity")],
+            **{(1, k): want4[(4, k)]
+               for k in ("num_frames", "sum", "mean", "var", "std")},
+            (2, "intensity"): want4[(0, "intensity")][..., :1],
+        }, failures)
+        frame_max = data.max(axis=(2, 3)).astype(np.float32)
+        pixel_max = data.max(axis=(0, 1)).astype(np.float32)
+        if not (np.array_equal(res[3]["frame_max"].data, frame_max)
+                and np.array_equal(res[3]["pixel_max"].data, pixel_max)):
+            failures.append("7b numpy UDF maxima are not exact")
+        else:
+            print("  7b result 3/frame_max, 3/pixel_max: exact")
+        traced_run(ctx, ds, mixed_udfs(lt), at)
+
+        # (c) generic, roi of half the scan: shifts, complex, hooks and
+        # a small-support stack, compacted before its matmul
+        aux_udfs = generic_aux_udfs(lt)
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, aux_udfs, roi=roi)
+        torch.cuda.synchronize()
+        aux_s = time.perf_counter() - t0
+        aux_launches = fused_moments.launches
+        report("7c generic + shifts + complex + hooks + spots, roi of "
+               "half the scan", aux_s, n_sel * pixels * 2, ctx.feed_stats)
+        check_engines("7c", ctx, [False] * 4, failures)
+        if ctx.run_info["fused"] or aux_launches != 0:
+            failures.append(f"7c: fused {ctx.run_info['fused']}, "
+                            f"{aux_launches} launches, expected 0")
+        spots = aux_udfs[3]
+        spots_plan = spots.masks.get_compaction(SIG, np.float32)
+        print(f"  7c spots: {spots_plan['support'].size} of "
+              f"{spots_plan['n_blocks']} blocks, compacted: "
+              f"{spots._compact_op is not None}")
+        if (spots._compact_op is not None) != compaction_pays(
+                spots_plan, dev, "matmul"):
+            failures.append("7c: the spots' compaction does not follow "
+                            "CUDA_MAX_FILL")
+        t0 = time.perf_counter()
+        want = oracle_generic_aux(lt, data, roi)
+        print(f"oracle 7c: {time.perf_counter() - t0:.1f} s (float64 / "
+              f"complex128 numpy)")
+        check_results("7c", res, want, failures)
+        traced_run(ctx, ds, generic_aux_udfs(lt), at, roi=roi)
+
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -681,6 +1115,18 @@ def main() -> int:
     cases.append(dict(
         case=f"f32 corrected M={n_ring_masks} (path 6a)",
         launches_per_2GiB_run=corr_launches, **corr_t,
+    ))
+    # the 7a run went through one of these two: the other is on no
+    # path of this run and has no launch count
+    cases.append(dict(
+        case="u16 compacted M=17 P=45x128 (7a where compaction pays)",
+        launches_per_2GiB_run=sp_launches if sp_compacted else None,
+        **comp_t,
+    ))
+    cases.append(dict(
+        case="u16 M=17 whole frame (7a where compaction does not pay)",
+        launches_per_2GiB_run=None if sp_compacted else sp_launches,
+        **full_t,
     ))
     print(json.dumps({"kernels": [dict(
         name="fused_moments",
@@ -695,6 +1141,10 @@ def main() -> int:
             "main (phase 4)": launches,
             "fused + corrections, M=12 (phase 6a)": corr_launches,
             "generic + roi (phase 6b)": gen_launches,
+            "fused, sparse stack M=17 (phase 7a)": sp_launches,
+            "fused + host engine (phase 7b)": mix_launches,
+            "generic + shifts + complex + hooks + spots (phase 7c)":
+                aux_launches,
         },
         cases=cases,
     )]}))

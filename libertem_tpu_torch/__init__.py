@@ -7,6 +7,9 @@ in one fused pass, carried by a hand-written CUDA kernel
 (``csrc/fused_moments.cu``); any other UDF set (LogsumUDF, PickUDF,
 FEMUDF, CrystallinityUDF, a user's own) on the generic path.  Both
 take a roi and detector corrections (``io.corrections.CorrectionSet``).
+UDFs written with numpy run on a host engine beside them, in the same
+read pass; aux data (per-frame mask shifts), complex data and masks,
+and block-compacted sparse mask stacks are supported.
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the

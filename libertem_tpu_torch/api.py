@@ -2,6 +2,7 @@
 ``libertem_tpu/api.py``)."""
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -39,8 +40,11 @@ class Context:
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        # host feed timings of the last run (HostFeed.stats)
+        # host feed timings of the last run (HostFeed.stats, with the
+        # host engine's time in "host_s") and what it ran
+        # (UDFRunner.run_info: engines, fused, compacted blocks)
         self.feed_stats: Optional[dict] = None
+        self.run_info: Optional[dict] = None
 
     def load(self, filetype: str, *args, **kwargs) -> DataSet:
         """``load("memory", data=..., ...)`` or ``load("raw", path=...,
@@ -62,15 +66,22 @@ class Context:
         self,
         dataset: DataSet,
         udf: Union[UDF, Sequence[UDF]],
-        roi: Optional[np.ndarray] = None,
+        roi=None,
         corrections: Optional[CorrectionSet] = None,
+        backends=None,
     ):
         """Run one or more UDFs over a dataset in a single pass.
 
-        ``roi``: a bool array over the nav positions (nav-shaped or
-        flat) selecting the frames to process; nav results hold nan
-        (0 for integers) elsewhere.  ``corrections``: dark frame, gain
-        map and excluded pixels applied to every frame on the device.
+        ``roi`` selects the frames to process: a bool array over the
+        nav positions (nav-shaped or flat; another dtype is cast, with
+        a warning), a scipy.sparse or ``.todense()`` mask, one
+        coordinate tuple ``(y, x)``, an iterable of ``(coord, value)``
+        pairs with one truth value (``False`` selects every position
+        except those), or an iterable of coordinate tuples; nav results
+        hold nan (0 for integers) elsewhere.  ``corrections``: dark
+        frame, gain map and excluded pixels applied to every frame.
+        ``backends`` restricts the engines for this run (``("numpy",)``
+        sends every UDF that can run there to the host engine).
 
         Returns a dict of result buffers for a single UDF, or a list of
         dicts for a sequence of UDFs."""
@@ -78,12 +89,62 @@ class Context:
         udfs = [udf] if single else list(udf)
         if not udfs:
             raise ValueError("empty list of UDFs - nothing to do!")
-        runner = UDFRunner(udfs)
+        runner = UDFRunner(udfs, backends=backends)
         results = runner.run_for_dataset(
-            dataset, self.device, roi=roi, corrections=corrections,
+            dataset, self.device, roi=self._normalize_roi(roi, dataset),
+            corrections=corrections,
         )
         self.feed_stats = runner.feed_stats
+        self.run_info = runner.run_info
         wrapped = [
             SingleUDFResults(b, results.damage) for b in results.buffers
         ]
         return wrapped[0] if single else wrapped
+
+    @staticmethod
+    def _normalize_roi(roi, dataset) -> Optional[np.ndarray]:
+        """Any of ``run_udf``'s roi forms as a flat bool array."""
+        if roi is None:
+            return None
+        if hasattr(roi, "toarray"):  # scipy.sparse
+            roi = np.asarray(roi.toarray())
+        elif hasattr(roi, "todense"):
+            roi = np.asarray(roi.todense())
+        if isinstance(roi, np.ndarray):
+            if roi.dtype != np.dtype(bool):
+                warnings.warn(
+                    f"ROI dtype is {roi.dtype}, expected bool. "
+                    "Attempting cast to bool."
+                )
+            return roi.astype(bool).reshape(-1)
+        nav_shape = tuple(dataset.shape.nav)
+        entries = list(roi)
+        if not entries:
+            # an empty coordinate iterable selects nothing
+            return np.zeros(int(np.prod(nav_shape)), dtype=bool)
+        if all(isinstance(e, (int, np.integer)) for e in entries):
+            # one coordinate
+            entries = [(tuple(entries), True)]
+        else:
+            norm = []
+            for e in entries:
+                e = tuple(e)
+                if len(e) == 2 and isinstance(e[-1], (bool, np.bool_)):
+                    coord = e[0]
+                    if isinstance(coord, (int, np.integer)):
+                        coord = (coord,)
+                    norm.append((tuple(coord), bool(e[1])))
+                else:
+                    norm.append((e, True))
+            entries = norm
+        values = {v for _, v in entries}
+        if len(values) > 1:
+            raise ValueError(
+                "cannot cast iterable roi coords with more than one "
+                f"truth value {values}"
+            )
+        val = values.pop()
+        mask = np.full(nav_shape, not val, dtype=bool)
+        for coord, v in entries:
+            mask[coord] = v
+        return mask.reshape(-1)

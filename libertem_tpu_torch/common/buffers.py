@@ -205,3 +205,45 @@ class ArrayWithMask:
         self.mask = np.broadcast_to(
             np.asarray(mask, dtype=bool), self.arr.shape
         )
+
+
+class AuxBufferWrapper(BufferWrapper):
+    """Per-frame auxiliary *input* data of a UDF, declared with
+    :meth:`UDF.aux_data` and passed as a constructor argument: the
+    runner hands out the rows of the frames being processed as
+    ``self.params.<name>`` (a tensor on the device engine, a numpy
+    array on the host engine).  ``data`` holds one row per nav
+    position of the whole dataset (flat nav, plus ``extra_shape``)."""
+
+    def __init__(self, kind, extra_shape=(), dtype="float32", data=None):
+        super().__init__(kind, extra_shape, dtype)
+        self._aux_data: Optional[np.ndarray] = None
+        if data is not None:
+            self.set_buffer(data)
+
+    def set_buffer(self, data) -> None:
+        data = np.ascontiguousarray(data, dtype=self._dtype)
+        self._aux_data = data.reshape((-1,) + self._extra_shape)
+        self._data = self._aux_data
+
+    @property
+    def aux_data(self) -> Optional[np.ndarray]:
+        return self._aux_data
+
+    @property
+    def raw_data(self) -> Optional[np.ndarray]:
+        """The rows of the bound roi's frames (all rows without one)."""
+        if self._aux_data is None or self._roi is None:
+            return self._aux_data
+        return self._aux_data[self._roi]
+
+    @property
+    def data(self) -> Optional[np.ndarray]:
+        if self._aux_data is None or self._ds_shape is None:
+            return self._aux_data
+        prev = self._data
+        self._data = self.raw_data
+        try:
+            return super().data
+        finally:
+            self._data = prev

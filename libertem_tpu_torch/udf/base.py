@@ -5,20 +5,39 @@ A run streams the dataset (the frames of its roi, when it has one) as
 fixed-depth, zero-padded ``(depth, pixels)`` blocks of raw-dtype
 frames; with corrections, each block is dark-subtracted, gain-scaled
 and repaired on the device first (``UDFRunner._apply_corrections``).
-Then one of two paths:
+Each UDF runs on one of two engines, chosen once per run in
+``_prepare`` and kept for the whole run:
 
-* **fused**: when every UDF of the set declares a
-  ``fused_moments_spec`` (ApplyMasks, CoM, Sum, SumSig, StdDev, NoOp),
-  the whole pass is one fused moments op per block
-  (:func:`libertem_tpu_torch.ops.moments.fused_moments`), and its
-  three outputs are distributed into each UDF's state;
-* **generic**: otherwise every UDF runs its own ``process_*`` method
-  on the block, eagerly: ``process_tile`` and ``process_partition``
-  once per sig tile of the scheme, ``process_frame`` under
-  ``torch.func.vmap`` when the UDF writes only nav buffers, else as a
-  loop over the block's valid frames.
+* the **device engine** (``get_backends()`` includes ``"torch"``, the
+  default): torch operations on the block on the run's device, on one
+  of two paths:
 
-State lives on the device:
+  - **fused**: when every device UDF of the set declares a
+    ``fused_moments_spec`` (ApplyMasks, CoM, Sum, SumSig, StdDev,
+    NoOp), the whole pass is one fused moments op per block
+    (:func:`libertem_tpu_torch.ops.moments.fused_moments`), and its
+    three outputs are distributed into each UDF's state; a masks-only
+    pass whose stack touches few 128-pixel blocks gathers those
+    blocks first (``ops/sparse_masks.py``);
+  - **generic**: otherwise every device UDF runs its own
+    ``process_*`` method on the block, eagerly: ``process_tile`` and
+    ``process_partition`` once per sig tile of the scheme,
+    ``process_frame`` under ``torch.func.vmap`` when the UDF writes
+    only nav buffers, else as a loop over the block's valid frames;
+
+* the **host engine** (``udf/host.py``): UDFs that declare only
+  numpy-like backends, and UDFs whose ``process_*`` or ``merge`` the
+  device engine cannot run (probed on meta tensors, with a warning),
+  process the pinned host copy of the same block with numpy and
+  mutable-view semantics.
+
+Per partition, every UDF's ``preprocess`` runs before its first block
+and ``postprocess`` after its last, before the merge; ``cleanup`` runs
+at the end of the run, after the results are wrapped.  Aux buffers
+(``UDF.aux_data``) are roi-compressed and handed out per block as
+``self.params.<name>``.
+
+Device state:
 
 * ``kind='nav'`` buffers: one tensor each, roi-compressed, with
   ``depth`` pad rows so every block has a full-depth view.  A UDF gets
@@ -32,8 +51,7 @@ Results come back to the host once, at the end, where
 ``UDF.get_results`` post-processes them with numpy; nav results are
 expanded from the roi to the full nav shape there.
 
-Not ported yet: aux buffers, the host engine (numpy UDFs and UDFs that
-``vmap`` cannot take), pre/postprocess hooks, partial results and the
+Not ported yet: partial results, progress, parameter patches and the
 sharded loop.
 """
 from __future__ import annotations
@@ -43,13 +61,14 @@ import enum
 import queue
 import threading
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..common.buffers import ArrayWithMask, BufferWrapper
+from ..common.buffers import ArrayWithMask, AuxBufferWrapper, BufferWrapper
 from ..common.shape import Shape
 from ..common.slice import Slice
 from ..io.corrections import CorrectionSet
@@ -63,6 +82,11 @@ from ..io.tiling import (
     TilingScheme,
 )
 from ..ops.moments import fused_moments
+from ..ops.sparse_masks import (
+    compaction_pays,
+    gather_blocks,
+    plan_compaction,
+)
 
 
 class UDFData:
@@ -87,16 +111,27 @@ class UDFData:
 
 
 class UDFParams:
-    """Attribute access to a UDF's constructor arguments."""
+    """Attribute access to a UDF's constructor arguments; while a UDF
+    processes frames, its aux arguments resolve to the rows of those
+    frames (``aux_views``)."""
 
-    def __init__(self, kwargs: dict):
+    def __init__(self, kwargs: dict, aux_views: Optional[dict] = None):
         object.__setattr__(self, "_kwargs", kwargs)
+        object.__setattr__(self, "_aux_views", aux_views or {})
 
     def __getattr__(self, k):
+        aux_views = object.__getattribute__(self, "_aux_views")
+        if k in aux_views:
+            return aux_views[k]
         try:
             return object.__getattribute__(self, "_kwargs")[k]
         except KeyError:
             raise AttributeError(k) from None
+
+    def get(self, k, default=None):
+        if k in self._aux_views:
+            return self._aux_views[k]
+        return self._kwargs.get(k, default)
 
 
 class UDFMethod(str, enum.Enum):
@@ -119,9 +154,12 @@ class UDFMeta:
     ``process_frame``), ``tile_valid`` ((depth,) bool tensor),
     ``valid_frames`` (int), ``global_offset`` (int: the block's first
     frame in the roi-compressed nav order), ``sig_slice`` (the sig
-    tile, a :class:`Slice`) and ``tiling_scheme_idx``.  During
-    ``get_task_data``, ``coordinates`` holds the numpy coordinates of
-    every frame of the run.
+    tile, a :class:`Slice`) and ``tiling_scheme_idx``.  On the host
+    engine the same fields hold numpy arrays over the block's valid
+    frames, and ``array_backend`` is ``"numpy"`` (``"torch"`` on the
+    device engine).  During ``get_task_data``, ``coordinates`` holds
+    the numpy coordinates of every frame of the run (of the partition,
+    when the engine calls it again per partition).
     """
 
     def __init__(self, dataset_shape: Shape, dataset_dtype, input_dtype,
@@ -134,6 +172,7 @@ class UDFMeta:
         self._roi = roi
         self.tiling_scheme = tiling_scheme
         self.device = torch.device("cpu") if device is None else device
+        self.array_backend = "torch"
         self.coordinates = None
         self.tile_valid = None
         self.valid_frames = None
@@ -167,6 +206,12 @@ class UDF:
     Inside ``process_*``, update buffers by assignment
     (``self.results.x = self.results.x + v``) or in place
     (``self.results.x += v``); a nav buffer holds the block's rows.
+
+    A UDF written with numpy declares ``get_backends() ->
+    (self.BACKEND_NUMPY,)`` and runs on the host engine, where its
+    buffers are mutable numpy views (``self.results.x[:] += v``).
+    ``self.xp`` is ``torch`` on the device engine and ``numpy`` on the
+    host engine.
     """
 
     USE_NATIVE_DTYPE = np.bool_  # result_type(bool, x) == x
@@ -175,12 +220,42 @@ class UDF:
     TILE_DEPTH_DEFAULT = TILE_DEPTH_DEFAULT
     TILE_DEPTH_MAX = TILE_DEPTH_MAX
 
+    # the device engine's spelling; the JAX package's is "jax"
+    BACKEND_TORCH = "torch"
+    BACKEND_NUMPY = "numpy"
+    # further backend spellings of UDFs written for other engines:
+    # the sparse ones run on the host engine like numpy (it converts
+    # the dense host block), the CUDA ones on the device engine
+    BACKEND_CUPY = "cupy"
+    BACKEND_CUDA = "cuda"
+    BACKEND_SPARSE_COO = "sparse.COO"
+    BACKEND_SPARSE_GCXS = "sparse.GCXS"
+    BACKEND_SPARSE_DOK = "sparse.DOK"
+    BACKEND_SCIPY_COO = "scipy.sparse.coo_matrix"
+    BACKEND_SCIPY_CSR = "scipy.sparse.csr_matrix"
+    BACKEND_SCIPY_CSC = "scipy.sparse.csc_matrix"
+    BACKEND_SCIPY_COO_ARRAY = "scipy.sparse.coo_array"
+    BACKEND_SCIPY_CSR_ARRAY = "scipy.sparse.csr_array"
+    BACKEND_SCIPY_CSC_ARRAY = "scipy.sparse.csc_array"
+    BACKEND_CUPY_SCIPY_COO = "cupyx.scipy.sparse.coo_matrix"
+    BACKEND_CUPY_SCIPY_CSR = "cupyx.scipy.sparse.csr_matrix"
+    BACKEND_CUPY_SCIPY_CSC = "cupyx.scipy.sparse.csc_matrix"
+    BACKEND_ALL = (
+        BACKEND_TORCH, BACKEND_NUMPY, BACKEND_CUPY, BACKEND_CUDA,
+        BACKEND_SPARSE_COO, BACKEND_SPARSE_GCXS, BACKEND_SPARSE_DOK,
+        BACKEND_SCIPY_COO, BACKEND_SCIPY_CSR, BACKEND_SCIPY_CSC,
+        BACKEND_SCIPY_COO_ARRAY, BACKEND_SCIPY_CSR_ARRAY,
+        BACKEND_SCIPY_CSC_ARRAY, BACKEND_CUPY_SCIPY_COO,
+        BACKEND_CUPY_SCIPY_CSR, BACKEND_CUPY_SCIPY_CSC,
+    )
+
     def __init__(self, **kwargs):
         self._kwargs = kwargs
         self.params = UDFParams(kwargs)
         self.results: Optional[UDFData] = None
         self.meta: Optional[UDFMeta] = None
         self.task_data: Optional[UDFData] = None
+        self._host_mode = False
 
     def get_result_buffers(self) -> dict:
         raise NotImplementedError()
@@ -188,6 +263,11 @@ class UDF:
     @staticmethod
     def buffer(kind, extra_shape=(), dtype="float32", use=None):
         return BufferWrapper(kind, extra_shape, dtype, use)
+
+    @classmethod
+    def aux_data(cls, data, kind="nav", extra_shape=(), dtype="float32"):
+        """Per-frame input data, passed as a constructor argument."""
+        return AuxBufferWrapper(kind, extra_shape, dtype, data=data)
 
     @staticmethod
     def with_mask(data, mask):
@@ -202,6 +282,40 @@ class UDF:
 
     def get_results(self) -> dict:
         return {}
+
+    def preprocess(self):
+        """Called per partition before its first block."""
+
+    def postprocess(self):
+        """Called per partition after its last block, before the
+        merge, with the partition's buffers bound as numpy arrays."""
+
+    def cleanup(self):
+        """Called after the run (and before ``get_task_data`` is called
+        again per partition): release task_data resources here."""
+
+    def on_params_updated(self):
+        """Drop caches derived from the parameters or the dataset's sig
+        shape (called when an instance is reused on another sig
+        shape)."""
+
+    def get_backends(self):
+        return (self.BACKEND_TORCH,)
+
+    @property
+    def xp(self):
+        return np if self._host_mode else torch
+
+    def forbuf(self, arr, target):
+        """``arr`` as the array type of ``target`` (a buffer view)."""
+        if isinstance(target, torch.Tensor):
+            return torch.as_tensor(arr, device=target.device)
+        if isinstance(arr, torch.Tensor):
+            return arr.cpu().numpy()
+        return arr
+
+    def _has_custom_merge(self) -> bool:
+        return type(self).merge is not UDF.merge
 
     def get_preferred_input_dtype(self):
         return np.float32
@@ -271,12 +385,14 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 def _state_dtype(dtype) -> torch.dtype:
-    """Device state dtype of a declared buffer: 64-bit floats run in
-    32 bits on the device, as in the JAX package; the result is cast
-    back to the declared dtype on the host."""
+    """Device state dtype of a declared buffer: 64-bit floats (and
+    complex128) run in 32 bits on the device, as in the JAX package;
+    the result is cast back to the declared dtype on the host."""
     dtype = np.dtype(dtype)
     if dtype == np.float64:
         dtype = np.dtype(np.float32)
+    elif dtype == np.complex128:
+        dtype = np.dtype(np.complex64)
     return _torch_dtype(dtype)
 
 
@@ -301,11 +417,28 @@ def _full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-class _UDFPlanEntry:
-    """Per-UDF static plan: declarations split by residency, and the
-    ``process_*`` method the UDF runs through."""
+# backend spellings each engine serves
+_HOST_LIKE = frozenset({
+    UDF.BACKEND_NUMPY, UDF.BACKEND_SPARSE_COO, UDF.BACKEND_SPARSE_GCXS,
+    UDF.BACKEND_SPARSE_DOK, UDF.BACKEND_SCIPY_COO, UDF.BACKEND_SCIPY_CSR,
+    UDF.BACKEND_SCIPY_CSC, UDF.BACKEND_SCIPY_COO_ARRAY,
+    UDF.BACKEND_SCIPY_CSR_ARRAY, UDF.BACKEND_SCIPY_CSC_ARRAY,
+})
+_DEVICE_LIKE = frozenset({
+    UDF.BACKEND_TORCH, UDF.BACKEND_CUPY, UDF.BACKEND_CUDA,
+    UDF.BACKEND_CUPY_SCIPY_COO, UDF.BACKEND_CUPY_SCIPY_CSR,
+    UDF.BACKEND_CUPY_SCIPY_CSC,
+})
 
-    def __init__(self, udf: UDF, decls: dict):
+
+class _UDFPlanEntry:
+    """Per-UDF static plan: declarations split by residency, the
+    ``process_*`` method the UDF runs through, and its engine
+    (``host``): the host engine when its backends, narrowed by the
+    run's restriction (``Context.run_udf(backends=...)``) and the
+    instance's own (``_backend_restriction``), are host-like only."""
+
+    def __init__(self, udf: UDF, decls: dict, run_restriction=None):
         self.udf = udf
         self.decls = decls
         self.nav_names = [
@@ -332,6 +465,37 @@ class _UDFPlanEntry:
                 f"{self.method!r} but process_{self.method} is not "
                 f"implemented"
             )
+        backends = udf.get_backends()
+        if isinstance(backends, str):
+            backends = (backends,)
+        restriction = getattr(udf, "_backend_restriction", None)
+        if run_restriction is not None:
+            restriction = (
+                tuple(set(restriction) & set(run_restriction))
+                if restriction is not None else tuple(run_restriction)
+            )
+        if restriction is not None:
+            allowed = set(backends) & set(restriction)
+            if not allowed:
+                raise ValueError(
+                    f"{type(udf).__name__} supports backends {backends}, "
+                    f"none of which are in the requested restriction "
+                    f"{restriction}"
+                )
+            backends = tuple(b for b in backends if b in allowed)
+        bset = set(backends)
+        if not bset & (_HOST_LIKE | _DEVICE_LIKE):
+            raise ValueError(
+                f"{type(udf).__name__} declares backends {backends}, none "
+                f"of which this engine can provide (torch/numpy or "
+                f"another spelling of either)"
+            )
+        self.host = bool(bset & _HOST_LIKE) and UDF.BACKEND_TORCH not in bset
+        # the host block's format: the first host-like spelling in the
+        # UDF's declared order
+        self.host_array_backend = next(
+            (b for b in backends if b in _HOST_LIKE), UDF.BACKEND_NUMPY
+        )
         # frame-mode UDFs that only write nav buffers can be vmapped
         self.frame_navonly = self.method == "frame" and not self.part_names
 
@@ -346,12 +510,18 @@ class FusedPlan:
     specs:   one dict per UDF: ``ui`` (index in the UDF list),
              ``mode`` (masks | sumsig | colsum | stats | noop) and, by
              mode, ``name``, ``off``, ``n``
+    compaction: for a masks-only pass whose stack's union support is
+             at most half the frame, ``ops.sparse_masks.plan_compaction``
+             of ``masks_t`` (``support``, ``n_blocks``, ``block``,
+             ``operand_c`` (S*block, M), ``fill``), else None; a run
+             uses it where ``compaction_pays`` on its device
     """
 
     masks_t: np.ndarray
     specs: list
     need_var: bool
     need_colsum: bool
+    compaction: Optional[dict] = None
 
 
 class HostFeed:
@@ -372,17 +542,26 @@ class HostFeed:
       consumer has released the slot.
 
     On the CPU the host buffers are the blocks themselves.  Each item
-    is usable until the consumer asks for the next one.
+    is usable until the consumer asks for the next one: ``Block.data``
+    is the pinned host slot itself, which the host engine reads in
+    place (with ``host_reads``, the consumer also waits on the host for
+    the slot's copy, so what the host engine does to the slot cannot
+    reach the device).  Without ``to_device`` (no UDF runs on the
+    device engine) nothing is copied and the device block is None.
     """
 
     SLOTS = 3
 
-    def __init__(self, block_shape: tuple, dtype, device: torch.device):
+    def __init__(self, block_shape: tuple, dtype, device: torch.device,
+                 to_device: bool = True, host_reads: bool = False):
         self._device = device
-        self._cuda = device.type == "cuda"
+        self._cuda = device.type == "cuda" and to_device
+        self._to_device = to_device
+        self._host_reads = host_reads
         tdtype = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
         self._host = [
-            torch.empty(block_shape, dtype=tdtype, pin_memory=self._cuda)
+            torch.empty(block_shape, dtype=tdtype,
+                        pin_memory=self._cuda)
             for _ in range(self.SLOTS)
         ]
         if self._cuda:
@@ -477,8 +656,10 @@ class HostFeed:
                     torch.cuda.current_stream(self._device).wait_event(
                         self._copied[slot]
                     )
+                    if self._host_reads:
+                        self._copied[slot].synchronize()
                 self.stats["blocks"] += 1
-                yield pi, self._dev[slot], block
+                yield pi, self._dev[slot] if self._to_device else None, block
                 if self._cuda:
                     self._consumed[slot].record(
                         torch.cuda.current_stream(self._device)
@@ -494,21 +675,47 @@ class _FeedStopped(Exception):
 
 
 class UDFRunner:
-    """Runs a set of UDFs over a dataset in one pass: fused when every
-    UDF can join the fused moments op, else generic."""
+    """Runs a set of UDFs over a dataset in one read pass: the device
+    UDFs fused when each can join the fused moments op, else generic;
+    the host UDFs on the host engine, on the same blocks."""
 
-    def __init__(self, udfs: Sequence[UDF]):
+    def __init__(self, udfs: Sequence[UDF], backends=None):
         self._udfs = list(udfs)
+        self._backends = (
+            None if backends is None
+            else (backends,) if isinstance(backends, str)
+            else tuple(backends)
+        )
         self.feed_stats: Optional[dict] = None
+        # what the last run did: each UDF's engine ("device" or "host"),
+        # whether the device UDFs ran fused, on how many 128-pixel
+        # blocks when the fused pass ran compacted (else None), and the
+        # fused pass's compaction plan, used or not (else None)
+        self.run_info: Optional[dict] = None
 
     def run_for_dataset(self, dataset: DataSet, device: torch.device,
                         roi: Optional[np.ndarray] = None,
                         corrections: Optional[CorrectionSet] = None,
                         ) -> UDFResults:
         prep = self._prepare(dataset, device, roi, corrections)
-        with _full_fp32_matmul():
-            state = self._run_loop(prep, dataset)
-        return self._wrap_results(prep, state)
+        fused = prep["fused"]
+        self.run_info = {
+            "engines": ["host" if e.host else "device" for e in prep["plan"]],
+            "fused": fused is not None,
+            "compacted_blocks": (
+                None if prep["support"] is None
+                else int(prep["support"].numel())
+            ),
+            "compaction": None if fused is None else fused.compaction,
+        }
+        try:
+            with _full_fp32_matmul():
+                state, host_global = self._run_loop(prep, dataset)
+            # get_results may read task_data, which cleanup releases
+            return self._wrap_results(prep, state, host_global)
+        finally:
+            for udf in self._udfs:
+                udf.cleanup()
 
     # -- preparation ---------------------------------------------------
 
@@ -525,15 +732,23 @@ class UDFRunner:
                     f"roi size {roi.size} != nav size "
                     f"{meta0.shape.nav.size}"
                 )
+        # an instance reused on a dataset of another sig shape drops
+        # its shape-derived caches (mask stacks, operands)
+        sig_key = tuple(meta0.shape.sig)
+        for u in udfs:
+            prev = getattr(u, "_prepared_sig_shape", None)
+            if prev is not None and prev != sig_key:
+                u.on_params_updated()
+            u._prepared_sig_shape = sig_key
         input_dtype = _get_input_dtype(udfs, meta0.native_dtype)
-        if input_dtype.kind == "c":
-            raise NotImplementedError("complex data is not ported yet")
-        # the device computes in float32, as the JAX package does
+        # the device computes in 32 bits, as the JAX package does
         if input_dtype == np.float64:
             input_dtype = np.dtype(np.float32)
+        elif input_dtype == np.complex128:
+            input_dtype = np.dtype(np.complex64)
         if corrections is not None and not corrections.have_corrections():
             corrections = None
-        if corrections is not None and input_dtype.kind != "f":
+        if corrections is not None and input_dtype.kind not in "fc":
             # dark subtraction and gain in integer arithmetic would
             # wrap around and truncate
             input_dtype = np.dtype(np.float32)
@@ -572,12 +787,14 @@ class UDFRunner:
         plan = []
         try:
             for udf in udfs:
-                decls = dict(udf.get_result_buffers())
-                for b in decls.values():
-                    b.set_shape_ds(meta0.shape, roi)
-                entry = _UDFPlanEntry(udf, decls)
-                if (udf.requires_custom_merge(decls)
-                        and type(udf).merge is UDF.merge):
+                # aux arguments bind to the dataset before the buffer
+                # declarations, which may read their shape
+                for v in udf._kwargs.values():
+                    if isinstance(v, AuxBufferWrapper):
+                        v.set_shape_ds(meta0.shape, roi)
+                entry = self._plan_entry(udf, meta0.shape, roi)
+                if (udf.requires_custom_merge(entry.decls)
+                        and not udf._has_custom_merge()):
                     raise NotImplementedError(
                         f"{type(udf).__name__} declares non-nav buffers "
                         f"and must implement merge()"
@@ -586,16 +803,44 @@ class UDFRunner:
                 plan.append(entry)
         finally:
             meta.coordinates = None
+        self._auto_host_fallback(plan, meta, scheme, input_dtype,
+                                 min(scheme.depth, max(1, max_part_frames)))
+        # the 64-bit clamp above is for the device; a run whose UDFs
+        # all ended up on the host engine keeps 64-bit precision
+        raw_dtype = _get_input_dtype(udfs, meta0.native_dtype)
+        if corrections is not None and raw_dtype.kind not in "fc":
+            raw_dtype = np.dtype(np.float32)
+        if raw_dtype != input_dtype and plan and all(e.host for e in plan):
+            input_dtype = raw_dtype
+            meta.input_dtype = np.dtype(raw_dtype)
+            # declarations may follow meta.input_dtype: rebuild them,
+            # keeping the engines chosen
+            for i, entry in enumerate(plan):
+                plan[i] = self._plan_entry(entry.udf, meta0.shape, roi)
+                plan[i].host = entry.host
+        aux, aux_host = self._build_aux(udfs, roi, n_nav, scheme, device)
         fused = self._build_fused_plan(plan, meta)
+        masks_t = support = None
+        if fused is not None:
+            comp = fused.compaction
+            if not compaction_pays(comp, device, "fused_moments"):
+                comp = None
+            masks_t = torch.from_numpy(np.ascontiguousarray(
+                fused.masks_t if comp is None else comp["operand_c"].T
+            )).to(device)
+            if comp is not None:
+                support = torch.from_numpy(
+                    comp["support"].astype(np.int64)
+                ).to(device)
         return {
             "fused": fused,
-            "masks_t": (
-                None if fused is None
-                else torch.from_numpy(fused.masks_t).to(device)
-            ),
+            "masks_t": masks_t,
+            "support": support,
             "corr_plan": self._device_corr_plan(
                 corrections, meta0.shape.sig, device
             ),
+            "corrections": corrections,
+            "input_dtype": input_dtype,
             "input_tdtype": _torch_dtype(input_dtype),
             "meta": meta,
             "plan": plan,
@@ -604,7 +849,146 @@ class UDFRunner:
             "roi": roi,
             "n_nav": n_nav,
             "device": device,
+            "aux": aux,
+            "aux_host": aux_host,
         }
+
+    def _plan_entry(self, udf, ds_shape, roi) -> _UDFPlanEntry:
+        decls = dict(udf.get_result_buffers())
+        for b in decls.values():
+            b.set_shape_ds(ds_shape, roi)
+        return _UDFPlanEntry(udf, decls, run_restriction=self._backends)
+
+    def _auto_host_fallback(self, plan, meta, scheme, input_dtype,
+                            valid: int):
+        """UDFs written with numpy semantics often declare no backends:
+        probe each device entry with the default ``get_backends`` on
+        meta tensors (no data, no device: ``np.asarray``, ``.item()``
+        and data-dependent Python control flow raise there, on any
+        machine), and route the ones the device engine cannot run to
+        the host engine, with a warning.  Declared backends are
+        trusted."""
+        for entry in plan:
+            if entry.host:
+                continue
+            udf = entry.udf
+            if type(udf).get_backends is not UDF.get_backends:
+                continue
+            what = None
+            if not self._probe_traceable(entry, meta, scheme, input_dtype,
+                                         valid):
+                what = f"process_{entry.method}"
+            elif not self._probe_merge_traceable(entry, meta):
+                what = "merge"
+            if what is not None:
+                warnings.warn(
+                    f"{type(udf).__name__}.{what} cannot run on the "
+                    f"device engine (torch tensors on the device); "
+                    f"running it on the HOST engine with numpy "
+                    f"semantics. Declare get_backends() explicitly to "
+                    f"silence this warning."
+                )
+                entry.host = True
+
+    _ON_META = {"device": torch.device("meta")}
+
+    def _probe_merge_traceable(self, entry, meta) -> bool:
+        """Run a custom merge as ``_merge`` calls it, on meta tensors of
+        the sig/single buffers' shapes."""
+        udf = entry.udf
+        if not udf._has_custom_merge() or not entry.part_names:
+            return True
+
+        def part():
+            return UDFData(self._init_part_state_one(self._ON_META, entry))
+
+        try:
+            udf.merge(part(), part())
+            return True
+        except Exception:
+            return False
+
+    def _probe_traceable(self, entry, meta, scheme, input_dtype,
+                         valid: int) -> bool:
+        """One ``process_*`` call through ``_run_udf_on_tile``, as the
+        device engine makes it, on meta tensors of the real shapes: a
+        block of ``valid`` frames, or of one frame for
+        ``process_frame`` (whose calls do not depend on the block)."""
+        udf = entry.udf
+        depth = scheme.depth
+        if entry.method == "frame":
+            depth = valid = 1
+        sig = tuple(meta.dataset_shape.sig)
+        state_u = {
+            n: self._zeros(self._ON_META, entry.decls[n],
+                           (depth,) + entry.decls[n].extra_shape)
+            for n in entry.nav_names
+        }
+        aux = {
+            k: torch.zeros(
+                (depth,) + v.extra_shape, dtype=_torch_dtype(v.dtype),
+                device="meta",
+            )
+            for k, v in udf._kwargs.items()
+            if isinstance(v, AuxBufferWrapper)
+        }
+        block = torch.zeros(
+            (depth,) + sig, dtype=_torch_dtype(input_dtype), device="meta"
+        )
+        coords = torch.zeros((depth, meta.dataset_shape.nav.dims),
+                             dtype=torch.int32, device="meta")
+        part_u = self._init_part_state_one(self._ON_META, entry)
+        valid_mask = torch.ones(depth, dtype=torch.bool, device="meta")
+        device = meta.device
+        meta.device = torch.device("meta")
+        try:
+            self._run_udf_on_tile(
+                entry, block, 0, Slice.from_shape(sig, sig_dims=len(sig)),
+                meta, state_u, part_u, 0, coords, valid_mask, valid, depth,
+                aux,
+            )
+            return True
+        except Exception:
+            return False
+        finally:
+            meta.device = device
+            udf.results = None
+            udf.params = UDFParams(udf._kwargs)
+            meta.coordinates = None
+            meta.tile_valid = None
+            meta.valid_frames = None
+            meta.global_offset = None
+            # drop what the UDF cached from meta tensors during the
+            # probe
+            udf.on_params_updated()
+
+    @staticmethod
+    def _build_aux(udfs, roi, n_nav, scheme, device):
+        """Per UDF, its aux arguments' rows, roi-compressed and padded
+        by one block depth of zeros (so the last block's slice is full
+        depth): as tensors on the device and as host numpy arrays."""
+        aux, aux_host = [], []
+        for udf in udfs:
+            dev, host = {}, {}
+            for k, v in udf._kwargs.items():
+                if not isinstance(v, AuxBufferWrapper):
+                    continue
+                data = v.aux_data
+                if data is None:
+                    raise ValueError(f"aux buffer {k} has no data")
+                if roi is not None:
+                    data = data[roi]
+                if data.shape[0] != n_nav:
+                    raise ValueError(
+                        f"aux buffer {k}: {data.shape[0]} rows != "
+                        f"{n_nav} selected frames"
+                    )
+                pad = np.zeros((scheme.depth,) + data.shape[1:], data.dtype)
+                host[k] = np.concatenate([data, pad], axis=0)
+                dev[k] = torch.from_numpy(host[k]).to(device)
+            aux.append(dev)
+            aux_host.append(host)
+        return aux, aux_host
 
     @staticmethod
     def _device_corr_plan(corrections, sig_shape, device) -> Optional[dict]:
@@ -634,9 +1018,13 @@ class UDFRunner:
         }
 
     def _build_fused_plan(self, plan, meta) -> Optional[FusedPlan]:
-        """Collapse the UDF set into one fused moments pass, or None
-        when some UDF cannot join it."""
+        """Collapse the device UDFs into one fused moments pass, or None
+        when some device UDF cannot join it (or there is none).  Host
+        entries do not take part and do not switch fusion off."""
         if np.dtype(meta.input_dtype).kind not in "fiu":
+            return None
+        device_entries = [(ui, e) for ui, e in enumerate(plan) if not e.host]
+        if not device_entries:
             return None
         pixels = int(np.prod(meta.sig_shape))
         mask_rows = []
@@ -644,7 +1032,7 @@ class UDFRunner:
         need_var = False
         need_colsum = False
         col_off = 0
-        for ui, entry in enumerate(plan):
+        for ui, entry in device_entries:
             spec_fn = getattr(entry.udf, "fused_moments_spec", None)
             s = None if spec_fn is None else spec_fn()
             if s is None:
@@ -678,7 +1066,8 @@ class UDFRunner:
                 specs.append({"ui": ui, "mode": "noop"})
             else:
                 return None
-        if any(s["mode"] == "sumsig" for s in specs):
+        sumsig = any(s["mode"] == "sumsig" for s in specs)
+        if sumsig:
             mask_rows.append(np.ones((1, pixels), dtype=np.float32))
             for s in specs:
                 if s["mode"] == "sumsig":
@@ -687,9 +1076,15 @@ class UDFRunner:
         if col_off == 0:
             # one zero row, so the op always has a mask operand
             mask_rows.append(np.zeros((1, pixels), dtype=np.float32))
+        masks_t = np.concatenate(mask_rows, axis=0)
+        # a masks-only pass has a compaction plan when the stack's union
+        # support is small; _prepare uses it where it pays on the device
+        compaction = None
+        if not need_var and not need_colsum and not sumsig:
+            compaction = plan_compaction(masks_t)
         return FusedPlan(
-            masks_t=np.concatenate(mask_rows, axis=0),
-            specs=specs, need_var=need_var, need_colsum=need_colsum,
+            masks_t=masks_t, specs=specs, need_var=need_var,
+            need_colsum=need_colsum, compaction=compaction,
         )
 
     # -- state -----------------------------------------------------------
@@ -700,24 +1095,28 @@ class UDFRunner:
         )
 
     def _init_state(self, prep) -> list:
-        """Per UDF a dict name -> tensor.  Nav buffers get ``depth``
-        pad rows past the roi-compressed nav, so the last block has a
-        full-depth view too."""
+        """Per device UDF a dict name -> tensor (host UDFs: empty).  Nav
+        buffers get ``depth`` pad rows past the roi-compressed nav, so
+        the last block has a full-depth view too."""
         depth = prep["scheme"].depth
         state = []
         for e in prep["plan"]:
-            bufs = {
-                n: self._zeros(
-                    prep, e.decls[n],
-                    (prep["n_nav"] + depth,) + e.decls[n].extra_shape,
-                )
-                for n in e.nav_names
-            }
-            bufs.update(self._init_part_state_one(prep, e))
+            bufs = {}
+            if not e.host:
+                bufs = {
+                    n: self._zeros(
+                        prep, e.decls[n],
+                        (prep["n_nav"] + depth,) + e.decls[n].extra_shape,
+                    )
+                    for n in e.nav_names
+                }
+                bufs.update(self._init_part_state_one(prep, e))
             state.append(bufs)
         return state
 
     def _init_part_state_one(self, prep, entry) -> dict:
+        if entry.host:
+            return {}
         return {
             n: self._zeros(prep, entry.decls[n], entry.decls[n].shape)
             for n in entry.part_names
@@ -725,6 +1124,76 @@ class UDFRunner:
 
     def _init_part_state(self, prep) -> list:
         return [self._init_part_state_one(prep, e) for e in prep["plan"]]
+
+    # -- per-partition hooks ---------------------------------------------
+
+    def _refresh_task_data(self, prep, partition, roi) -> None:
+        """``cleanup`` and ``get_task_data`` again per partition, with
+        the partition's coordinates, where it shows: for host UDFs and
+        UDFs that override pre- or postprocess (others keep the
+        once-per-run task data of ``_prepare``)."""
+        meta = prep["meta"]
+        nav_shape = tuple(meta.dataset_shape.nav)
+        for entry in prep["plan"]:
+            udf = entry.udf
+            if type(udf).get_task_data is UDF.get_task_data:
+                continue
+            if not (entry.host
+                    or type(udf).postprocess is not UDF.postprocess
+                    or type(udf).preprocess is not UDF.preprocess):
+                continue
+            meta.coordinates = np.stack(
+                np.unravel_index(partition.local_frame_ids(roi), nav_shape),
+                axis=-1,
+            ).astype(np.int32)
+            try:
+                udf.cleanup()
+                udf.task_data = UDFData(udf.get_task_data() or {})
+            finally:
+                meta.coordinates = None
+
+    @staticmethod
+    def _bind_device_postprocess(prep, state, part_state, goff0, n_sel):
+        """Host copies of the partition's rows of a device UDF's nav
+        state and of its partition buffers, bound as ``udf.results``
+        for an overridden ``postprocess``."""
+        bound = []
+        for ui, entry in enumerate(prep["plan"]):
+            udf = entry.udf
+            if entry.host or type(udf).postprocess is UDF.postprocess:
+                bound.append(False)
+                continue
+            views = {
+                n: state[ui][n][goff0:goff0 + n_sel].cpu().numpy().copy()
+                for n in entry.nav_names
+            }
+            views.update({
+                n: part_state[ui][n].cpu().numpy().copy()
+                for n in entry.part_names
+            })
+            udf.results = UDFData(views)
+            bound.append(True)
+        return bound
+
+    @staticmethod
+    def _writeback_device_postprocess(prep, state, part_state, goff0,
+                                      n_sel, bound) -> None:
+        """The bound copies, as ``postprocess`` left them, back into the
+        device state (every bound buffer: numpy mutation is not
+        observable)."""
+        for ui, entry in enumerate(prep["plan"]):
+            if not bound[ui]:
+                continue
+            res = entry.udf.results
+            for n in entry.nav_names:
+                state[ui][n][goff0:goff0 + n_sel] = _as_state(
+                    np.asarray(res._get(n)), state[ui][n]
+                )
+            for n in entry.part_names:
+                part_state[ui][n] = _as_state(
+                    np.asarray(res._get(n)), part_state[ui][n]
+                ).reshape(part_state[ui][n].shape)
+            entry.udf.results = None
 
     # -- the step ----------------------------------------------------------
 
@@ -752,16 +1221,22 @@ class UDFRunner:
 
     def _fused_step(self, prep, state, part_state, block, goff: int,
                     valid: int) -> None:
-        """One fused op on a block, then each UDF's share of its
+        """One fused op on a block (on its support blocks, when the
+        run uses the compaction plan), then each UDF's share of its
         outputs into the state.  Updates the state tensors in place:
-        nav rows of different blocks never overlap, and the per-
-        partition sums are private to this run."""
+        nav rows of different blocks never overlap, and the
+        per-partition sums are private to this run."""
         from .stddev import _combine
 
         fused: FusedPlan = prep["fused"]
         sig_shape = tuple(prep["meta"].dataset_shape.sig)
         if prep["corr_plan"] is not None:
             block = self._apply_corrections(block, prep, valid)
+        if prep["support"] is not None:
+            block = gather_blocks(
+                block.reshape(block.shape[0], -1), prep["support"],
+                fused.compaction["block"],
+            )
         y, colsum, colvar = fused_moments(
             block, prep["masks_t"], valid, compute_var=fused.need_var,
         )
@@ -789,8 +1264,8 @@ class UDFRunner:
 
     def _generic_step(self, prep, state, part_state, block, goff: int,
                       coords, valid: int) -> None:
-        """Every UDF's own ``process_*`` on a (corrected) block, one sig
-        tile of the scheme after another."""
+        """Every device UDF's own ``process_*`` on a (corrected) block,
+        one sig tile of the scheme after another."""
         meta = prep["meta"]
         scheme = prep["scheme"]
         depth = scheme.depth
@@ -799,21 +1274,28 @@ class UDFRunner:
             block.reshape((depth,) + sig_shape), prep, valid
         )
         valid_mask = torch.arange(depth, device=block.device) < valid
+        # the block's rows of each UDF's aux arguments
+        aux = [
+            {k: arr[goff:goff + depth] for k, arr in a.items()}
+            for a in prep["aux"]
+        ]
         for k, sig_slice in scheme.slices:
             tile = (
                 block if len(scheme) == 1
                 else block[(slice(None),) + sig_slice.get()]
             )
             for ui, entry in enumerate(prep["plan"]):
+                if entry.host:
+                    continue
                 self._run_udf_on_tile(
                     entry, tile, k, sig_slice, meta, state[ui],
                     part_state[ui], goff, coords, valid_mask, valid,
-                    depth,
+                    depth, aux[ui],
                 )
 
     def _run_udf_on_tile(self, entry, tile, scheme_idx, sig_slice, meta,
                          state_u, part_u, goff, coords, valid_mask, valid,
-                         depth) -> None:
+                         depth, aux_views) -> None:
         udf = entry.udf
         decls = entry.decls
         whole_sig = tuple(sig_slice.shape) == tuple(meta.dataset_shape.sig)
@@ -857,6 +1339,7 @@ class UDFRunner:
             views.update({n: part_view(n) for n in entry.part_names})
             views.update(ro_views)
             udf.results = UDFData(views)
+            udf.params = UDFParams(udf._kwargs, aux_views)
             meta.coordinates = coords
             if entry.method == "tile":
                 udf.process_tile(tile)
@@ -871,8 +1354,9 @@ class UDFRunner:
             # every frame on its own: vmap over the block's frames
             # (counterpart of jax.vmap); the per-frame rows come in as
             # vmapped arguments, so in-place updates stay per frame
-            def per_frame(frame, coord, olds):
+            def per_frame(frame, coord, olds, auxr):
                 udf.results = UDFData(dict(olds, **ro_views))
+                udf.params = UDFParams(udf._kwargs, auxr)
                 meta.coordinates = coord
                 udf.process_frame(frame)
                 return {
@@ -880,14 +1364,7 @@ class UDFRunner:
                     for n in entry.nav_names
                 }
 
-            try:
-                out = torch.func.vmap(per_frame)(tile, coords, nav_old)
-            except RuntimeError as e:
-                raise NotImplementedError(
-                    f"{type(udf).__name__}.process_frame cannot run "
-                    f"under torch.func.vmap ({e}); the host engine that "
-                    f"runs such UDFs frame by frame is not ported yet"
-                ) from e
+            out = torch.func.vmap(per_frame)(tile, coords, nav_old, aux_views)
             for n in entry.nav_names:
                 nav_writeback(n, out[n])
         else:
@@ -899,6 +1376,9 @@ class UDFRunner:
                 views.update(carry)
                 views.update(ro_views)
                 udf.results = UDFData(views)
+                udf.params = UDFParams(
+                    udf._kwargs, {k: v[i] for k, v in aux_views.items()}
+                )
                 meta.coordinates = coords[i]
                 udf.process_frame(tile[i])
                 res = udf.results
@@ -911,12 +1391,13 @@ class UDFRunner:
             for n in entry.part_names:
                 part_writeback(n, carry[n])
         udf.results = None
+        udf.params = UDFParams(udf._kwargs)
 
     def _merge(self, prep, state, part_state) -> None:
         """Fold a partition's sig/single state into the run's state
-        with each UDF's ``merge``."""
+        with each device UDF's ``merge``."""
         for ui, entry in enumerate(prep["plan"]):
-            if not entry.part_names:
+            if not entry.part_names or entry.host:
                 continue
             dest = UDFData({n: state[ui][n] for n in entry.part_names})
             src = UDFData({n: part_state[ui][n] for n in entry.part_names})
@@ -927,59 +1408,133 @@ class UDFRunner:
 
     # -- main loop -------------------------------------------------------
 
-    def _run_loop(self, prep, dataset) -> list:
+    def _run_loop(self, prep, dataset):
+        """Returns the device state and the host engine's buffers (by
+        UDF index)."""
+        from .host import HostUDFRunner
+
         scheme = prep["scheme"]
         device = prep["device"]
+        plan = prep["plan"]
+        roi = prep["roi"]
         pixels = int(np.prod(prep["meta"].sig_shape))
+        on_device = any(not e.host for e in plan)
+        host_entries = [(ui, e) for ui, e in enumerate(plan) if e.host]
+        host = HostUDFRunner(host_entries, prep) if host_entries else None
+        host_global = host.init_global() if host else {}
         feed = HostFeed(
             (scheme.depth, pixels), dataset.meta.native_dtype, device,
+            to_device=on_device, host_reads=host is not None,
         )
+        feed.stats["host_s"] = 0.0
         state = self._init_state(prep)
-        part_state = None
-        current = None
         fused = prep["fused"] is not None
+        part = {}
+
+        def start(pi):
+            partition = prep["partitions"][pi]
+            part.update(
+                partition=partition,
+                goff0=partition.roi_offset(roi),
+                n_sel=partition.frames_in_roi(roi),
+                state=self._init_part_state(prep),
+                host=host.init_partition() if host else None,
+            )
+            self._refresh_task_data(prep, partition, roi)
+            # preprocess sees the partition's views on the host engine
+            if host:
+                host.bind_partition_views(
+                    host_global, part["host"], part["goff0"], part["n_sel"]
+                )
+            for udf in self._udfs:
+                udf.preprocess()
+            if host:
+                host.unbind_views()
+                part["host_init"] = host.snapshot_init(
+                    host_global, part["goff0"], part["n_sel"]
+                )
+
+        def finish():
+            goff0, n_sel = part["goff0"], part["n_sel"]
+            if host:
+                host.bind_partition_views(
+                    host_global, part["host"], goff0, n_sel
+                )
+            bound = self._bind_device_postprocess(
+                prep, state, part["state"], goff0, n_sel
+            )
+            for udf in self._udfs:
+                udf.postprocess()
+            self._writeback_device_postprocess(
+                prep, state, part["state"], goff0, n_sel, bound
+            )
+            if host:
+                host.unbind_views()
+            self._merge(prep, state, part["state"])
+            if host:
+                host.merge_partition(
+                    host_global, part["host"], goff0, n_sel,
+                    init_rows=part["host_init"],
+                )
+
+        current = None
         with contextlib.closing(
-            feed.run(prep["partitions"], scheme, prep["roi"])
+            feed.run(prep["partitions"], scheme, roi)
         ) as blocks:
             for pi, block_t, block in blocks:
                 if pi != current:
-                    if part_state is not None:
-                        self._merge(prep, state, part_state)
-                    part_state = self._init_part_state(prep)
+                    if current is not None:
+                        finish()
+                    start(pi)
                     current = pi
                 if fused:
                     self._fused_step(
-                        prep, state, part_state, block_t,
+                        prep, state, part["state"], block_t,
                         block.global_offset, block.valid,
                     )
-                else:
+                elif on_device:
                     coords = torch.from_numpy(block.coords).to(device)
                     self._generic_step(
-                        prep, state, part_state, block_t,
+                        prep, state, part["state"], block_t,
                         block.global_offset, coords, block.valid,
                     )
-        if part_state is not None:
-            self._merge(prep, state, part_state)
+                if host:
+                    # the pinned host slot itself, done with before the
+                    # feed refills it
+                    t0 = time.perf_counter()
+                    host.process_block(
+                        host_global, part["host"], block.data,
+                        block.global_offset, block.coords, block.valid,
+                    )
+                    feed.stats["host_s"] += time.perf_counter() - t0
+        if current is not None:
+            finish()
         self.feed_stats = feed.stats
-        return state
+        return state, host_global
 
     # -- results -----------------------------------------------------------
 
-    def _wrap_results(self, prep, state) -> UDFResults:
-        """Device state -> host numpy -> ``get_results`` -> one dict of
-        BufferWrappers per UDF."""
+    def _wrap_results(self, prep, state, host_global) -> UDFResults:
+        """Device state -> host numpy (host UDFs: their numpy buffers)
+        -> ``get_results`` -> one dict of BufferWrappers per UDF."""
         meta = prep["meta"]
         n_nav = prep["n_nav"]
         damage_host = np.ones(n_nav, dtype=bool)
         buffers = []
         for ui, entry in enumerate(prep["plan"]):
-            raw = {
-                n: state[ui][n][:n_nav].cpu().numpy()
-                for n in entry.nav_names
-            }
-            raw.update({
-                n: state[ui][n].cpu().numpy() for n in entry.part_names
-            })
+            if entry.host:
+                raw = {
+                    n: np.array(host_global[ui][n], copy=True)
+                    for n in entry.nav_names + entry.part_names
+                }
+            else:
+                raw = {
+                    n: state[ui][n][:n_nav].cpu().numpy()
+                    for n in entry.nav_names
+                }
+                raw.update({
+                    n: state[ui][n].cpu().numpy() for n in entry.part_names
+                })
             buffers.append(
                 self._wrap_one(entry, raw, damage_host, meta, prep["roi"])
             )
@@ -995,7 +1550,13 @@ class UDFRunner:
         udf.results = UDFData(
             dict(raw, **{n: None for n in entry.result_only_names})
         )
-        derived = udf.get_results() or {}
+        # results are wrapped on the host with numpy: self.xp is numpy
+        # in get_results, whichever engine ran the UDF
+        udf._host_mode = True
+        try:
+            derived = udf.get_results() or {}
+        finally:
+            udf._host_mode = False
         for name in derived:
             if name not in entry.decls:
                 raise KeyError(

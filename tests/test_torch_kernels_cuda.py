@@ -160,8 +160,8 @@ def _ring_udfs(lt, n_rings=10):
 def test_fused_run_any_dtype_on_card(card, dtype):
     """Datasets of wide and half-width dtypes go to the card at their
     own width and through the kernel (14 mask rows: two groups).  On
-    float64 data ApplyMasksUDF asks for 64-bit sums, which the JAX
-    package runs on its host engine: that run leaves it out (4 mask
+    float64 data ApplyMasksUDF asks for 64-bit sums, which run on the
+    host engine, not through the kernel: that run leaves it out (4 mask
     rows: one group)."""
     import libertem_tpu_torch as lt
 
@@ -237,3 +237,161 @@ def test_generic_run_with_roi_and_corrections_on_card(card):
         assert fused_moments.launches == before
     _compare_runs(*runs)
     assert np.all(np.isnan(runs[0][4]["m"].data[~roi]))
+
+
+# -- block-compacted operands (sparse mask stacks) ------------------------------
+
+def _disk_stack(n_pix_side=128):
+    import libertem_tpu_torch as lt
+    c = [46, 58, 70, 82]
+    s = n_pix_side
+    disks = lt.masks.sparse_circular_multi_stack(
+        np.arange(16), np.repeat(c, 4), np.tile(c, 4), s, s, 4)
+    return np.concatenate([lt.masks.circular(64, 64, s, s, 16)[None],
+                           np.asarray(disks)]).reshape(17, -1).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [1024, 999])
+def test_fused_moments_on_compacted_operand(card, valid):
+    """The (depth, S*128) u16 block that a compacted masks-only pass
+    gives the kernel: the kernel against its plain version on it, and
+    its projections against the full frame's (the dropped blocks are
+    zero in every mask)."""
+    from libertem_tpu_torch.ops.sparse_masks import (
+        gather_blocks, plan_compaction)
+
+    stack = _disk_stack()
+    plan = plan_compaction(stack)
+    assert plan["support"].size == 45
+    rng = np.random.default_rng(valid)
+    x = rng.poisson(8.0, (1024, 128 * 128)).astype(np.uint16)
+    x[valid:] = 0
+    x = torch.from_numpy(x).to(card)
+    gathered = gather_blocks(x, torch.from_numpy(plan["support"]).to(card))
+    assert gathered.shape == (1024, 45 * 128)
+    assert gathered.dtype == torch.uint16
+    masks_c = torch.from_numpy(
+        np.ascontiguousarray(plan["operand_c"].T)).to(card)
+    before = fused_moments.launches
+    got = fused_moments(gathered, masks_c, valid, compute_var=False)
+    assert fused_moments.launches == before + 3
+    want = fused_moments_reference(gathered, masks_c, valid,
+                                   compute_var=False)
+    for a, b in zip(got, want):
+        _close(a, b)
+    full = fused_moments(x, torch.from_numpy(stack).to(card), valid)[0]
+    _close(got[0], full)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,pixels", [
+    (torch.uint16, 16384), (torch.float32, 16384), (torch.uint16, 1000),
+    (torch.complex64, 4096),
+])
+def test_gather_blocks_on_card(card, dtype, pixels):
+    """The gather on the card moves the same bits as on the CPU."""
+    from libertem_tpu_torch.ops.sparse_masks import gather_blocks
+
+    rng = np.random.default_rng(pixels)
+    x = torch.from_numpy(rng.poisson(8.0, (64, pixels)).astype(np.int32))
+    x = x.to(dtype)
+    nb = -(-pixels // 128)
+    support = np.sort(rng.choice(nb, 4, replace=False))
+    support[-1] = nb - 1
+    got = gather_blocks(x.to(card), torch.from_numpy(support).to(card))
+    assert torch.equal(got.cpu(), gather_blocks(x, support))
+
+
+@pytest.mark.cuda
+def test_slice5_runs_on_card(card):
+    """A numpy UDF beside a sparse fused pass, and the generic path
+    with aux shifts, complex masks and pre/postprocess hooks, with a
+    roi: the card's runs against the CPU's."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.ops.sparse_masks import compaction_pays
+    from libertem_tpu_torch.udf import UDF
+
+    class NumpyMax(UDF):
+        def get_backends(self):
+            return (self.BACKEND_NUMPY,)
+
+        def get_result_buffers(self):
+            return {"m": self.buffer(kind="nav", dtype="float32")}
+
+        def process_tile(self, tile):
+            self.results.m[:] = tile.max(axis=(1, 2))
+
+    class Hooked(UDF):
+        def get_backends(self):
+            return (self.BACKEND_TORCH,)
+
+        def get_result_buffers(self):
+            return {"s": self.buffer(kind="nav", dtype="float32")}
+
+        def preprocess(self):
+            self._scale = 0.5
+
+        def process_tile(self, tile):
+            self.results.s += tile.sum(dim=(1, 2)) * self._scale
+
+        def postprocess(self):
+            self.results.s[:] *= 4
+
+    rng = np.random.default_rng(5)
+    data = rng.poisson(8.0, (12, 10, 128, 128)).astype(np.uint16)
+    roi = rng.random((12, 10)) > 0.4
+    shifts = rng.integers(-3, 4, (120, 2))
+    stack = _disk_stack().reshape(17, 128, 128)
+    r, phi = lt.masks.polar_map(64, 64, 128, 128)
+    harm = ((r < 40)[None] * np.exp(1j * np.arange(4)[:, None, None] * phi)
+            ).astype(np.complex64)
+    # 13 of 128 blocks: compacted before the generic matmul on both
+    spots = lt.masks.sparse_circular_multi_stack(
+        np.arange(4), [61, 61, 67, 67], [61, 67, 61, 67], 128, 128, 3)
+
+    def udfs():
+        return [
+            lt.ApplyMasksUDF(mask_factories=lambda: stack, mask_count=17),
+            NumpyMax(),
+        ], [
+            lt.ApplyMasksUDF(
+                mask_factories=[lambda: stack[0]],
+                shifts=UDF.aux_data(shifts, kind="nav", extra_shape=(2,),
+                                    dtype=np.int64)),
+            lt.ApplyMasksUDF(mask_factories=lambda: harm, mask_count=4),
+            Hooked(),
+            lt.ApplyMasksUDF(mask_factories=lambda: spots, mask_count=4),
+        ]
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=data, sig_dims=2, num_partitions=3)
+        first, second = udfs()
+        before = fused_moments.launches
+        a = ctx.run_udf(ds, first)
+        info = ctx.run_info
+        assert info["engines"] == ["device", "host"] and info["fused"]
+        # the plan is the same on both devices; whether a run uses it
+        # follows the device
+        assert info["compaction"]["support"].size == 45
+        assert info["compacted_blocks"] == (
+            45 if compaction_pays(info["compaction"], device,
+                                  "fused_moments") else None)
+        launched = fused_moments.launches - before
+        b = ctx.run_udf(ds, second, roi=roi)
+        assert not ctx.run_info["fused"]
+        assert second[3]._compact_op is not None
+        runs.append((a + b, launched))
+    (cuda_res, cuda_launched), (cpu_res, cpu_launched) = runs
+    # 3 partitions of 40 frames, one block each, 3 mask groups
+    assert (cuda_launched, cpu_launched) == (9, 0)
+    for a, b in zip(cuda_res, cpu_res):
+        for name in b:
+            x, y = np.asarray(a[name].data), np.asarray(b[name].data)
+            assert x.dtype == y.dtype, name
+            scale = max(float(np.nanmax(np.abs(y), initial=0.0)), 1.0)
+            np.testing.assert_allclose(x, y, rtol=RTOL, atol=RTOL * scale,
+                                       err_msg=name)

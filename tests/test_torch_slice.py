@@ -281,6 +281,11 @@ def test_import_leaves_jax_out():
         "       k.startswith(('jax.', 'libertem_tpu.'))\n"
         "       or k == 'libertem_tpu']\n"
         "assert not bad, bad\n"
+        "walked = {'udf.host', 'ops.sparse_masks', 'common.sparse',\n"
+        "          'udf.masks', 'masks', 'common.buffers', 'api'}\n"
+        "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
+        "           not in sys.modules}\n"
+        "assert not missing, missing\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run(
