@@ -50,7 +50,22 @@ from the root of the repository.  Phases, each fatal on failure:
    (c) the generic path with a roi of half the scan: ApplyMasks (BF)
        with per-frame shifts as aux data, 16 complex ring-harmonic
        masks, and a device UDF with preprocess and postprocess.
-   No library UDF may run on the host engine in any phase.
+   No library UDF may run on the host engine in any phase;
+8. live partial results on the same scan: the main path's five UDFs
+   through ``Context.run_udf_iter`` with a counting progress reporter,
+   the launch count set to 0 just before and read just after; every
+   partial's merged nav rows against the float64 oracle; after the
+   second partial ApplyMasks is patched to another ring, and the final
+   result is held against the old masks' oracle before the patch and
+   the new masks' after it; then a second iterator is abandoned after
+   its first partial, and its reader thread must have ended;
+9. the stage ablation of the fused-moments kernel
+   (``ops/ablation.py``): every stage held against its plain version on
+   the card and the full stage bit for bit against ``fused_moments`` at
+   three shapes (the main path's block, M = 40, and the compacted
+   P = 5760, M = 17), each stage timed there with the launch count set
+   to 0 just before and read just after; then the entry point
+   ``python -m libertem_tpu_torch.ops.ablation`` once.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -60,9 +75,11 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -655,6 +672,213 @@ def fill_sweep(u16_blocks, f32_blocks, depth, at) -> None:
               f"up to {CUDA_MAX_FILL[route]:.4f} {at}")
 
 
+def readers_alive() -> list:
+    return [t for t in threading.enumerate()
+            if t.name == "HostFeed-reader" and t.is_alive()]
+
+
+def partial_results(ctx, ds, lt, data, want4, failures) -> dict:
+    """Phase 8: ``run_udf_iter`` over the scan with a parameter patch
+    after the second partial, checked partial by partial; then an
+    abandoned iterator.  Returns its launch count and times."""
+    import torch
+    from libertem_tpu_torch.common.progress import ProgressReporter
+    from libertem_tpu_torch.ops.moments import fused_moments
+
+    h, w = SIG
+    n = int(np.prod(NAV))
+    new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
+                          lt.masks.ring(64, 64, w, h, 30, 10)])
+
+    class Frames(ProgressReporter):
+        def __init__(self):
+            self.updates = 0
+            self.last = None
+
+        def update(self, state):
+            self.updates += 1
+
+        def end(self, state):
+            self.last = state
+
+    reporter = Frames()
+    partials = []
+    fused_moments.launches = 0
+    t0 = time.perf_counter()
+    gen = ctx.run_udf_iter(ds, make_udfs(lt), progress=reporter)
+    for i, res in enumerate(gen):
+        # the merged rows' nav results, copied before the run goes on
+        partials.append((np.array(res.damage.data).reshape(-1), {
+            (ui, name): np.array(res.buffers[ui][name].data)
+            for ui, name in ((0, "intensity"), (1, "raw_com"),
+                             (1, "raw_shifts"), (1, "field"),
+                             (1, "magnitude"), (3, "intensity"))
+        }))
+        if i == 1:
+            gen.update_parameters_experimental([
+                {"mask_factories": [lambda m=m: m for m in new_masks]},
+                {}, {}, {}, {},
+            ])
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t0
+    launches = fused_moments.launches
+    final = res
+    print(f"8 run_udf_iter: {len(partials)} partials, {launches} launches, "
+          f"{reporter.updates} progress updates, end state "
+          f"{tuple(reporter.last) if reporter.last else None}; fused "
+          f"{ctx.run_info['fused']}")
+    if len(partials) != 4:
+        failures.append(f"8: {len(partials)} partials, expected 4")
+    if reporter.last is None or reporter.last.num_frames_complete != n:
+        failures.append(f"8: the reporter counted {reporter.last}, "
+                        f"expected {n} frames")
+    # the patched oracle: old masks before the patch (2 partitions of
+    # n / 4 frames), the new masks after it
+    cut = n // 2
+    t0 = time.perf_counter()
+    patched = want4[(0, "intensity")].reshape(n, 2).copy()
+    patched[cut:] = projections64(data, new_masks.reshape(2, -1),
+                                  np.arange(cut, n))
+    print(f"oracle 8: {time.perf_counter() - t0:.1f} s (float64 numpy)")
+    wants = {
+        (0, "intensity"): patched,
+        **{(1, k): want4[(1, k)].reshape(n, -1)
+           for k in ("raw_com", "raw_shifts", "field")},
+        (1, "magnitude"): want4[(1, "magnitude")].reshape(n, 1),
+        (3, "intensity"): want4[(3, "intensity")].reshape(n, 1),
+    }
+    for k, (damage, bufs) in enumerate(partials):
+        expect = np.arange(n) < (k + 1) * n // 4
+        if not np.array_equal(damage, expect):
+            failures.append(f"8 partial {k}: damage covers "
+                            f"{int(damage.sum())} frames, expected "
+                            f"{int(expect.sum())}")
+            continue
+        errs = []
+        for key, ref in wants.items():
+            got = bufs[key].reshape(n, -1)[damage]
+            scale = (float(np.abs(wants[(1, "raw_com")]).max())
+                     if key[0] == 1 else None)
+            e, ok = max_err(got, ref[damage], scale)
+            errs.append(e)
+            if not ok:
+                failures.append(f"8 partial {k} {key}: max err {e}")
+        print(f"  8 partial {k}: {int(damage.sum())} merged frames, nav "
+              f"results max abs err {max(errs):.3g} vs float64")
+    want = {
+        (0, "intensity"): patched.reshape(NAV + (2,)),
+        **{key: ref for key, ref in want4.items() if key[0] != 0},
+    }
+    check_results("8 final", [final.buffers[ui] for ui in range(5)], want,
+                  failures)
+    # abandon a second iterator after its first partial
+    gen = ctx.run_udf_iter(ds, make_udfs(lt))
+    next(gen)
+    alive_before = len(readers_alive())
+    gen.close()
+    del gen
+    alive = readers_alive()
+    print(f"  8 abandoned iterator: {alive_before} reader thread(s) alive "
+          f"before close, {len(alive)} after")
+    if alive:
+        failures.append(f"8: reader threads alive after close: {alive}")
+    return {"launches": launches, "iter_s": iter_s}
+
+
+def stage_ablation(u16_blocks, masks_t, depth, dev, at, failures) -> dict:
+    """Phase 9: every stage against its plain version and the full stage
+    against fused_moments at three shapes, then every stage timed."""
+    import torch
+    from libertem_tpu_torch.ops.ablation import (
+        STAGES,
+        fused_moments_stage,
+        fused_moments_stage_reference,
+        measure,
+    )
+    from libertem_tpu_torch.ops.moments import fused_moments
+
+    rng = np.random.default_rng(SEED + 9)
+
+    def rand_masks(m, p):
+        return torch.from_numpy(rng.normal(size=(m, p)).astype(
+            np.float32)).to(dev)
+
+    # 8 blocks of 11.25 MiB: more than the 50 MB L2 in all
+    compacted = [torch.from_numpy(np.random.default_rng(SEED + 20 + i)
+                                  .poisson(8.0, (depth, 45 * 128))
+                                  .astype(np.uint16)).to(dev)
+                 for i in range(8)]
+    shapes = {
+        "u16 M=6 P=16384 (main path)": (u16_blocks, masks_t),
+        "u16 M=40 P=16384": (u16_blocks,
+                             rand_masks(40, u16_blocks[0].shape[1])),
+        "u16 M=17 P=5760 (compacted)": (compacted, rand_masks(17, 45 * 128)),
+    }
+    max_abs = 0.0
+    for label, (blocks, masks) in shapes.items():
+        x = blocks[0]
+        tail = x.cpu().numpy()
+        tail[depth - 37:] = 0
+        tail = torch.from_numpy(tail).to(dev)
+        for stage in STAGES:
+            for name, block, valid in (("", x, depth),
+                                       (" tail", tail, depth - 37)):
+                got = fused_moments_stage(block, masks, valid, stage)
+                want = fused_moments_stage_reference(block, masks, valid,
+                                                     stage)
+                for part, g, w in zip(("y", "colsum", "colvar"), got, want):
+                    e, ok = max_err(g.cpu(), w.cpu())
+                    max_abs = max(max_abs, e)
+                    if not ok:
+                        failures.append(f"9 {label} {stage}{name} {part}: "
+                                        f"max err {e}")
+        for a, b in zip(fused_moments_stage(x, masks, depth, "full"),
+                        fused_moments(x, masks, depth)):
+            if not torch.equal(a, b):
+                failures.append(f"9 {label}: full stage is not "
+                                f"fused_moments bit for bit")
+    torch.cuda.synchronize()
+    print(f"9 stages vs plain: max abs err {max_abs:.3g} (rtol {RTOL}); "
+          f"full stage bit for bit against fused_moments")
+    cases = []
+    fused_moments_stage.launches = 0
+    for label, (blocks, masks) in shapes.items():
+        rows = measure(blocks, masks, depth,
+                       timer=lambda fn, inputs: time_ms(fn, inputs)[0])
+        prev = None
+        for row in rows:
+            step = "" if prev is None else (
+                f", +{row['ms'] - prev:.4f} ms over the stage before")
+            lib = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+            print(f"stage {row['stage']:8s} {label}: {row['ms']:.4f} ms"
+                  f"{step}; bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}; plain {row['plain_ms']:.4f} ms; "
+                  f"library {lib} {at}")
+            prev = row["ms"]
+            cases.append(dict(case=f"{label}, stage {row['stage']}", **row))
+    launches = fused_moments_stage.launches
+    if launches == 0:
+        failures.append("9: the stage ablation launched no kernel")
+    # the entry point a user calls, once
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "libertem_tpu_torch.ops.ablation"],
+        capture_output=True, text=True, timeout=600,
+    )
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    print(f"9 entry point: exit {out.returncode}, {len(lines)} stage lines "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for ln in lines:
+        print("  " + json.dumps(ln))
+    if out.returncode != 0 or [next(iter(ln)) for ln in lines] != list(
+            STAGES):
+        failures.append(f"9 entry point: exit {out.returncode}, "
+                        f"{out.stderr[-2000:]}")
+    return {"launches": launches, "max_abs_err": max_abs, "cases": cases}
+
+
 def main() -> int:
     import torch
 
@@ -690,9 +914,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     log = build.BUILD_DIR / "fused_moments.log"
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        text = log.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
+        print(f"  ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, {spills} bytes "
+              f"spilled in all")
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- 2. data -----------------------------------------------------------
@@ -1108,6 +1336,22 @@ def main() -> int:
         check_results("7c", res, want, failures)
         traced_run(ctx, ds, generic_aux_udfs(lt), at, roi=roi)
 
+        # -- 8. live partial results ------------------------------------------
+        p8 = partial_results(ctx, ds, lt, data, want4, failures)
+        if p8["launches"] != n_blocks:
+            failures.append(f"8 launched fused_moments {p8['launches']} "
+                            f"times, expected {n_blocks} blocks x 1 mask "
+                            f"group")
+        t0 = time.perf_counter()
+        ctx.run_udf(ds, make_udfs(lt))
+        torch.cuda.synchronize()
+        print(f"8 wall: run_udf_iter with 4 partials and a patch "
+              f"{p8['iter_s']:.3f} s, run_udf right after "
+              f"{time.perf_counter() - t0:.3f} s, on the same scan {at}")
+
+    # -- 9. the stage ablation ------------------------------------------------
+    p9 = stage_ablation(u16_blocks, masks_t, depth, dev, at, failures)
+
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -1145,8 +1389,20 @@ def main() -> int:
             "fused + host engine (phase 7b)": mix_launches,
             "generic + shifts + complex + hooks + spots (phase 7c)":
                 aux_launches,
+            "partial results with a patch (phase 8)": p8["launches"],
         },
         cases=cases,
+    ), dict(
+        name="fused_moments_ablation",
+        route="cuda",
+        source="libertem_tpu_torch/csrc/fused_moments.cu",
+        replaces="benchmarks/bench_kernel_ablation.py:48",
+        launches=p9["launches"],
+        max_abs_err=p9["max_abs_err"],
+        # the top-level numbers: the ring alone at the main path's block
+        **{k: v for k, v in p9["cases"][0].items() if k != "case"},
+        launches_by_path={"stage ablation (phase 9)": p9["launches"]},
+        cases=p9["cases"],
     )]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

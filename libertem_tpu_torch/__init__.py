@@ -17,6 +17,7 @@ caller passes ``device="cpu"``.
 """
 from . import masks
 from .api import Context
+from .common.exceptions import UDFException
 from .io.corrections import CorrectionSet
 from .udf import (
     ApplyMasksUDF,
@@ -34,5 +35,5 @@ from .udf import (
 __all__ = [
     "Context", "CorrectionSet", "masks", "ApplyMasksUDF", "CoMUDF",
     "StdDevUDF", "SumSigUDF", "SumUDF", "LogsumUDF", "PickUDF", "FEMUDF",
-    "CrystallinityUDF", "NoOpUDF",
+    "CrystallinityUDF", "NoOpUDF", "UDFException",
 ]

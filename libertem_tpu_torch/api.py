@@ -33,6 +33,51 @@ class SingleUDFResults(dict):
             raise AttributeError(k) from None
 
 
+class ResultGenerator:
+    """Iterator of partial results (``UDFResults``, one per merged
+    partition; the last is the final result) of
+    :meth:`Context.run_udf_iter`, with mid-run parameter patches."""
+
+    def __init__(self, gen, runner: UDFRunner, ctx: "Context"):
+        self._gen = gen
+        self._runner = runner
+        self._ctx = ctx
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._gen)
+        finally:
+            self._ctx.feed_stats = self._runner.feed_stats
+            self._ctx.run_info = self._runner.run_info
+
+    def update_parameters_experimental(self, patches):
+        """One dict of constructor arguments per UDF (``{}`` for no
+        change), applied from the next partition on."""
+        self._runner.update_parameters_experimental(patches)
+
+    def throw(self, *args):
+        return self._gen.throw(*args)
+
+    def close(self):
+        """Abandon the run: stops the host feed's reader, releases its
+        slots and runs the UDFs' cleanup."""
+        self._gen.close()
+
+
+def _not_ported(plots, sync) -> None:
+    if plots:
+        raise NotImplementedError(
+            "plots are not ported yet: they come with the visualisation "
+            "layer (ROADMAP queue 1, item 10)")
+    if not sync:
+        raise NotImplementedError(
+            "sync=False is not ported yet: it comes with the executors "
+            "(ROADMAP queue 1, item 9)")
+
+
 class Context:
     """Loads datasets and runs UDFs on one device: the CUDA card by
     default (raising when there is none), or the CPU when asked for
@@ -68,7 +113,10 @@ class Context:
         udf: Union[UDF, Sequence[UDF]],
         roi=None,
         corrections: Optional[CorrectionSet] = None,
+        progress=False,
         backends=None,
+        plots=None,
+        sync: bool = True,
     ):
         """Run one or more UDFs over a dataset in a single pass.
 
@@ -82,17 +130,18 @@ class Context:
         frame, gain map and excluded pixels applied to every frame.
         ``backends`` restricts the engines for this run (``("numpy",)``
         sends every UDF that can run there to the host engine).
+        ``progress``: True for a tqdm bar, or a
+        ``common.progress.ProgressReporter``.  ``plots`` and
+        ``sync=False`` are not ported yet and raise.
 
         Returns a dict of result buffers for a single UDF, or a list of
         dicts for a sequence of UDFs."""
-        single = isinstance(udf, UDF)
-        udfs = [udf] if single else list(udf)
-        if not udfs:
-            raise ValueError("empty list of UDFs - nothing to do!")
+        _not_ported(plots, sync)
+        udfs, single = self._normalize_udfs(udf)
         runner = UDFRunner(udfs, backends=backends)
         results = runner.run_for_dataset(
             dataset, self.device, roi=self._normalize_roi(roi, dataset),
-            corrections=corrections,
+            corrections=corrections, progress=progress,
         )
         self.feed_stats = runner.feed_stats
         self.run_info = runner.run_info
@@ -100,6 +149,55 @@ class Context:
             SingleUDFResults(b, results.damage) for b in results.buffers
         ]
         return wrapped[0] if single else wrapped
+
+    def run_udf_iter(
+        self,
+        dataset: DataSet,
+        udf: Union[UDF, Sequence[UDF]],
+        roi=None,
+        corrections: Optional[CorrectionSet] = None,
+        progress=False,
+        backends=None,
+        plots=None,
+        sync: bool = True,
+    ) -> ResultGenerator:
+        """Live partial results: a :class:`ResultGenerator` of
+        ``UDFResults`` (``.buffers``, one dict per UDF, and
+        ``.damage``), one after every merged partition, the last of them
+        the final result.  Its ``update_parameters_experimental`` patches
+        the UDFs' arguments from the next partition on; ``close()``
+        abandons the run.  Arguments as :meth:`run_udf`."""
+        _not_ported(plots, sync)
+        udfs, _ = self._normalize_udfs(udf)
+        runner = UDFRunner(udfs, backends=backends)
+        gen = runner.run_for_dataset_iter(
+            dataset, self.device, roi=self._normalize_roi(roi, dataset),
+            corrections=corrections, progress=progress,
+        )
+        return ResultGenerator(gen, runner, self)
+
+    def inspect_udf(self, udf: UDF, dataset: DataSet, roi=None):
+        """The result buffers ``udf`` declares on ``dataset`` (kind,
+        dtype, extra shape), from zero state, without reading data."""
+        results = UDFRunner([udf]).dry_run(
+            dataset, self._normalize_roi(roi, dataset))
+        return SingleUDFResults(results.buffers[0], results.damage)
+
+    def display(self, dataset: DataSet, udf: UDF, roi=None):
+        """A summary of what ``udf`` would produce, as text and as an
+        HTML table (``_repr_html_``) for notebooks."""
+        rows = [(name, buf.kind, buf.dtype, buf.extra_shape)
+                for name, buf in self.inspect_udf(udf, dataset, roi).items()]
+        return _UDFDisplay(f"{type(udf).__name__} on {dataset}:", rows)
+
+    @staticmethod
+    def _normalize_udfs(udf) -> tuple[list, bool]:
+        if isinstance(udf, UDF):
+            return [udf], True
+        udfs = list(udf)
+        if not udfs:
+            raise ValueError("empty list of UDFs - nothing to do!")
+        return udfs, False
 
     @staticmethod
     def _normalize_roi(roi, dataset) -> Optional[np.ndarray]:
@@ -148,3 +246,29 @@ class Context:
         for coord, v in entries:
             mask[coord] = v
         return mask.reshape(-1)
+
+
+class _UDFDisplay:
+    """``Context.display``'s result."""
+
+    def __init__(self, title, rows):
+        self._title = title
+        self._rows = rows
+
+    def __str__(self):
+        return "\n".join([self._title] + [
+            f"  {name}: kind={kind} dtype={dtype} extra_shape={extra}"
+            for name, kind, dtype, extra in self._rows
+        ])
+
+    __repr__ = __str__
+
+    def _repr_html_(self):
+        cells = "".join(
+            f"<tr><td>{name}</td><td>{kind}</td><td>{dtype}</td>"
+            f"<td>{extra}</td></tr>"
+            for name, kind, dtype, extra in self._rows
+        )
+        return (f"<p>{self._title}</p><table><tr><th>name</th><th>kind"
+                f"</th><th>dtype</th><th>extra_shape</th></tr>{cells}"
+                f"</table>")

@@ -62,8 +62,33 @@
 // The launch allocates nothing (the caller passes outputs and
 // scratch), runs on the caller's stream and returns
 // cudaGetLastError().
+//
+// Stage ablation.  `moments_partials` takes a compile-time STAGE; the
+// production kernel is STAGE_FULL, and each lower stage drops the
+// pieces above it (`if constexpr`), so the cost of a piece is the
+// difference between successive stages of the code the main path
+// runs.  `fused_moments_ablation_launch` replaces the TPU kernel
+// `ablated` (benchmarks/bench_kernel_ablation.py:48), a stage
+// ablation of `_fused_moments_pallas`:
+//   load_min  the cp.async ring moves every byte; the first and last
+//             row of each 64-row chunk enter colsum
+//   load      + the raw widen: an integer colsum per chunk (float
+//             input: the f32 colsum)
+//   cast      + to_float and the f32 colsum of the production code
+//   dot       + the M-column fp32 FMA projections and their
+//             shuffle/shared reduction into y
+//   var       + the shifted moments with row masking: the production
+//             partials kernel
+//   full      + moments_combine: fused_moments itself
+// The JAX stages `dec` and `dot2` (the bf16 two-term split and the
+// second MXU pass) have no counterpart: the port's product is one
+// fp32 FMA pass.  Each launch also runs the combine (stages below dot
+// with M = 0, below var with the variance off) unless told to skip it,
+// so every stage's outputs can be held against a plain version; the
+// ablation takes u8, u16 and f32 input.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -80,6 +105,15 @@ constexpr int RING_BYTES = 32 * 1024;    // cp.async ring per CTA
 constexpr int COMBINE_THREADS = 256;
 constexpr int LANES = 8;                 // combine lanes per output
 constexpr int MASK_GROUP = 8;            // mask rows per partials launch
+
+// stages of the partials kernel (see the header); `var` launches the
+// STAGE_FULL partials and skips the combine
+constexpr int STAGE_LOAD_MIN = 0;
+constexpr int STAGE_LOAD = 1;
+constexpr int STAGE_CAST = 2;
+constexpr int STAGE_DOT = 3;
+constexpr int STAGE_VAR = 4;
+constexpr int STAGE_FULL = 5;
 
 // 8 raw elements: one thread's pixels of one row
 template <typename T>
@@ -121,6 +155,31 @@ __device__ __forceinline__ __half zero_of<__half>() {
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
+}
+
+// the load stage's accumulator: exact integer sums of a 64-row chunk
+// for 1- and 2-byte integers, float otherwise
+template <typename T>
+using Widen = typename std::conditional<
+    std::is_integral<T>::value && sizeof(T) <= 2, int, float>::type;
+
+template <typename T>
+__device__ __forceinline__ Widen<T> widen(T v) {
+  if constexpr (std::is_integral<T>::value && sizeof(T) <= 2)
+    return static_cast<int>(v);
+  else
+    return to_float(v);
+}
+
+// 8 elements folded into one word: the lower stages
+// fold rows they do not otherwise use into a sink, so that element
+// loads (the ragged edge) are not dropped as dead code
+template <typename T>
+__device__ __forceinline__ unsigned fold_bits(const Raw8<T>& r) {
+  unsigned b = 0;
+#pragma unroll
+  for (int i = 0; i < PX; ++i) b ^= __float_as_uint(to_float(r.v[i]));
+  return b;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -198,16 +257,18 @@ struct WarpSum {
   }
 };
 
-template <typename T, int MB>
+template <typename T, int MB, int STAGE = STAGE_FULL>
 __global__ void __launch_bounds__(THREADS)
 moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
                  int D, int P, int M, int valid, int vec_ok,
                  int compute_var, int moments, float* __restrict__ ypart,
                  float* __restrict__ psum, float* __restrict__ pshift,
                  float* __restrict__ pm1, float* __restrict__ pm2) {
+  constexpr bool kDot = STAGE >= STAGE_DOT;
+  constexpr bool kVar = STAGE >= STAGE_VAR;
   constexpr int RR = kRingRows<T>;
   __shared__ Raw8<T> ring[RR][THREADS];
-  __shared__ float red[WARPS][ROWS][MB];
+  __shared__ float red[WARPS][kDot ? ROWS : 1][MB];
   const int pc = blockIdx.x;
   const int rc = blockIdx.y;
   const int tid = threadIdx.x;
@@ -217,21 +278,28 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
   const int r0 = rc * ROWS;
   const int rows = min(ROWS, D - r0);
   const int nvar =
-      compute_var && moments ? max(0, min(rows, valid - r0)) : 0;
+      kVar && compute_var && moments ? max(0, min(rows, valid - r0)) : 0;
   const int npx = max(0, min(PX, P - p0));
   // aligned rows and a whole chunk: the cp.async ring (CTA-uniform)
   const bool fast = kRing<T> && vec_ok && (pc + 1) * CHUNK_PX <= P;
 
   float mk[MB][PX];
+  if constexpr (kDot) {
 #pragma unroll
-  for (int m = 0; m < MB; ++m)
+    for (int m = 0; m < MB; ++m)
 #pragma unroll
-    for (int i = 0; i < PX; ++i)
-      mk[m][i] = (m < M && i < npx) ? masks[(size_t)m * P + p0 + i] : 0.f;
+      for (int i = 0; i < PX; ++i)
+        mk[m][i] =
+            (m < M && i < npx) ? masks[(size_t)m * P + p0 + i] : 0.f;
+  }
 
   float s[PX], c[PX], s1[PX], s2[PX];
 #pragma unroll
   for (int i = 0; i < PX; ++i) s[i] = c[i] = s1[i] = s2[i] = 0.f;
+  Widen<T> ws[PX];  // the load stage's colsum
+#pragma unroll
+  for (int i = 0; i < PX; ++i) ws[i] = 0;
+  unsigned sink = 0;
 
   // The ring holds RG groups of GROUP rows.  Group q is copied RG - 1
   // groups ahead of use, one commit group per row group, into the
@@ -268,12 +336,48 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
         wait_async<RG - 1>();  // the group of rows r .. r + GROUP - 1
       }
     }
+    if constexpr (STAGE < STAGE_CAST) {
+      // element loads of the group's rows first, all in flight at
+      // once as in the production loop below
+      Raw8<T> raw[GROUP];
+      if (!fast) {
+#pragma unroll
+        for (int u = 0; u < GROUP; ++u) {
+          const int row = r + u;
+          raw[u] = load_part(xcol + (size_t)row * P, row < rows ? npx : 0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GROUP; ++u) {
+        const int row = r + u;
+        // load_min reads the chunk's first and last rows
+        const bool used =
+            moments && row < rows &&
+            (STAGE == STAGE_LOAD || row == 0 || row == rows - 1);
+        if (used) {
+          if (fast) raw[u] = ring[row % RR][tid];
+#pragma unroll
+          for (int i = 0; i < PX; ++i) {
+            if constexpr (STAGE == STAGE_LOAD)
+              ws[i] += widen(raw[u].v[i]);
+            else
+              s[i] += to_float(raw[u].v[i]);
+          }
+        } else if (!fast) {
+          sink ^= fold_bits(raw[u]);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int u = 0; u < GROUP; ++u) {
       const int row = r + u;
       const Raw8<T> raw =
           fast ? ring[row % RR][tid]
                : load_part(xcol + (size_t)row * P, row < rows ? npx : 0);
+      if constexpr (!kDot) {
+        if (!moments && !fast) sink ^= fold_bits(raw);
+      }
 #pragma unroll
       for (int i = 0; i < PX; ++i)
         xg[u][i] = row < rows ? to_float(raw.v[i]) : 0.f;
@@ -290,9 +394,11 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
 #pragma unroll
       for (int i = 0; i < PX; ++i) {
         if (moments) s[i] += xg[u][i];
+        if constexpr (kDot) {
 #pragma unroll
-        for (int m = 0; m < MB; ++m)
-          acc[u * MB + m] = fmaf(xg[u][i], mk[m][i], acc[u * MB + m]);
+          for (int m = 0; m < MB; ++m)
+            acc[u * MB + m] = fmaf(xg[u][i], mk[m][i], acc[u * MB + m]);
+        }
       }
       if (r + u < nvar) {
 #pragma unroll
@@ -305,18 +411,29 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     }
     // red[warp][r + u][m] for the group's rows (rows past `rows`
     // store zeros that are never read)
-    WarpSum<GROUP * MB, 16, 0>::run(acc, lane, 0, &red[warp][r][0]);
+    if constexpr (kDot)
+      WarpSum<GROUP * MB, 16, 0>::run(acc, lane, 0, &red[warp][r][0]);
   }
-  __syncthreads();
-  for (int t = tid; t < rows * M; t += THREADS) {
-    const int rr = t / M;
-    const int m = t - rr * M;
-    float v = 0.f;
+  if constexpr (kDot) {
+    __syncthreads();
+    for (int t = tid; t < rows * M; t += THREADS) {
+      const int rr = t / M;
+      const int m = t - rr * M;
+      float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += red[w][rr][m];
-    ypart[((size_t)pc * D + r0 + rr) * M + m] = v;
+      for (int w = 0; w < WARPS; ++w) v += red[w][rr][m];
+      ypart[((size_t)pc * D + r0 + rr) * M + m] = v;
+    }
+  } else {
+    // never true (the launch refuses valid < 0): keeps the sink's
+    // loads alive
+    if (valid < 0) ypart[0] = __uint_as_float(sink);
   }
   if (!moments) return;
+  if constexpr (STAGE == STAGE_LOAD) {
+#pragma unroll
+    for (int i = 0; i < PX; ++i) s[i] = static_cast<float>(ws[i]);
+  }
   const size_t base = (size_t)rc * P + p0;
   const float n = static_cast<float>(max(nvar, 1));
   float m1[PX], m2[PX];
@@ -329,7 +446,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     float4* q = reinterpret_cast<float4*>(psum + base);
     q[0] = make_float4(s[0], s[1], s[2], s[3]);
     q[1] = make_float4(s[4], s[5], s[6], s[7]);
-    if (compute_var) {
+    if (kVar && compute_var) {
       q = reinterpret_cast<float4*>(pshift + base);
       q[0] = make_float4(c[0], c[1], c[2], c[3]);
       q[1] = make_float4(c[4], c[5], c[6], c[7]);
@@ -345,7 +462,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     for (int i = 0; i < PX; ++i) {
       if (i >= npx) break;
       psum[base + i] = s[i];
-      if (compute_var) {
+      if (kVar && compute_var) {
         pshift[base + i] = c[i];
         pm1[base + i] = m1[i];
         pm2[base + i] = m2[i];
@@ -443,7 +560,7 @@ moments_combine(const float* __restrict__ ypart,
   }
 }
 
-template <typename T, int MB>
+template <typename T, int MB, int STAGE>
 void launch_partials(const void* x, const float* masks, int D, int P,
                      int M, int valid, int compute_var, int moments,
                      float* ypart,
@@ -453,7 +570,7 @@ void launch_partials(const void* x, const float* masks, int D, int P,
       P % PX == 0 &&
       reinterpret_cast<uintptr_t>(x) % (sizeof(T) * PX) == 0;
   const dim3 grid((P + CHUNK_PX - 1) / CHUNK_PX, (D + ROWS - 1) / ROWS);
-  moments_partials<T, MB><<<grid, THREADS, 0, stream>>>(
+  moments_partials<T, MB, STAGE><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), masks, D, P, M, valid, vec_ok,
       compute_var, moments, ypart, psum, pshift, pm1, pm2);
 }
@@ -461,7 +578,7 @@ void launch_partials(const void* x, const float* masks, int D, int P,
 // One partials launch per group of at most MASK_GROUP mask rows; the
 // first group also takes the column moments.  Returns cudaGetLastError
 // of the first launch that fails, else cudaSuccess.
-template <typename T>
+template <typename T, int STAGE = STAGE_FULL>
 cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
                           int M, int valid, int compute_var, float* ypart,
                           float* psum, float* pshift, float* pm1,
@@ -475,21 +592,36 @@ cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
     // the group's width rounds up to the next instantiated one; the
     // extra mask rows are zeros in registers and never written out
     if (mg <= 2)
-      launch_partials<T, 2>(x, mk, D, P, mg, valid, compute_var, first, yp,
-                            psum, pshift, pm1, pm2, s);
+      launch_partials<T, 2, STAGE>(x, mk, D, P, mg, valid, compute_var,
+                                   first, yp, psum, pshift, pm1, pm2, s);
     else if (mg <= 4)
-      launch_partials<T, 4>(x, mk, D, P, mg, valid, compute_var, first, yp,
-                            psum, pshift, pm1, pm2, s);
+      launch_partials<T, 4, STAGE>(x, mk, D, P, mg, valid, compute_var,
+                                   first, yp, psum, pshift, pm1, pm2, s);
     else if (mg <= 6)
-      launch_partials<T, 6>(x, mk, D, P, mg, valid, compute_var, first, yp,
-                            psum, pshift, pm1, pm2, s);
+      launch_partials<T, 6, STAGE>(x, mk, D, P, mg, valid, compute_var,
+                                   first, yp, psum, pshift, pm1, pm2, s);
     else
-      launch_partials<T, 8>(x, mk, D, P, mg, valid, compute_var, first, yp,
-                            psum, pshift, pm1, pm2, s);
+      launch_partials<T, 8, STAGE>(x, mk, D, P, mg, valid, compute_var,
+                                   first, yp, psum, pshift, pm1, pm2, s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// One combine launch over every pixel (colsum, colvar) and, for
+// M > 0, every y[d, m].
+int combine(const float* ypart, const float* psum, const float* pshift,
+            const float* pm1, const float* pm2, int D, int P, int M,
+            int n_pc, int n_rc, int valid, int compute_var, float* y,
+            float* colsum, float* colvar, cudaStream_t s) {
+  const long threads = ((long)P + (long)D * M) * LANES;
+  const int blocks =
+      static_cast<int>((threads + COMBINE_THREADS - 1) / COMBINE_THREADS);
+  moments_combine<<<blocks, COMBINE_THREADS, 0, s>>>(
+      ypart, psum, pshift, pm1, pm2, D, P, M, n_pc, n_rc, valid, compute_var,
+      y, colsum, colvar);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -550,17 +682,77 @@ int fused_moments_launch(int dtype, const void* x, const float* masks,
   }
 #undef FM_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long threads = ((long)P + (long)D * M) * LANES;
-  const int blocks =
-      static_cast<int>((threads + COMBINE_THREADS - 1) / COMBINE_THREADS);
-  moments_combine<<<blocks, COMBINE_THREADS, 0, s>>>(
-      ypart, psum, pshift, pm1, pm2, D, P, M, n_pc, n_rc, valid, compute_var,
-      y, colsum, colvar);
-  return static_cast<int>(cudaGetLastError());
+  return combine(ypart, psum, pshift, pm1, pm2, D, P, M, n_pc, n_rc, valid,
+                 compute_var, y, colsum, colvar, s);
+}
+
+// The stage ablation: `stage` 0 load_min, 1 load, 2 cast, 3 dot,
+// 4 var, 5 full (see the header), then the combine unless
+// `skip_combine`; the other arguments as fused_moments_launch.  Stages
+// below dot leave y as it is (the caller zeroes it), stages below var
+// give a zero colvar; var and full are the production launch.  Takes
+// u8, u16 and f32 input; returns a cudaError_t, or -1 for another
+// dtype, stage or M < 1.
+int fused_moments_ablation_launch(int stage, int skip_combine, int dtype,
+                                  const void* x, const float* masks, int D,
+                                  int P, int M, int valid, int compute_var,
+                                  float* scratch, float* y, float* colsum,
+                                  float* colvar, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
+  const int n_rc = (D + ROWS - 1) / ROWS;
+  float* ypart = scratch;
+  float* psum = ypart + ypart_floats(D, P, M);
+  float* pshift = psum + (size_t)n_rc * P;
+  float* pm1 = pshift + (size_t)n_rc * P;
+  float* pm2 = pm1 + (size_t)n_rc * P;
+  if (M < 1 || stage < STAGE_LOAD_MIN || stage > STAGE_FULL) return -1;
+  cudaError_t err = cudaSuccess;
+#define FM_STAGE(code, T)                                                   \
+  case code:                                                                \
+    switch (stage) {                                                        \
+      case STAGE_LOAD_MIN:                                                  \
+        err = launch_groups<T, STAGE_LOAD_MIN>(x, masks, D, P, M, valid,    \
+                                               compute_var, ypart, psum,    \
+                                               pshift, pm1, pm2, s);        \
+        break;                                                              \
+      case STAGE_LOAD:                                                      \
+        err = launch_groups<T, STAGE_LOAD>(x, masks, D, P, M, valid,        \
+                                           compute_var, ypart, psum,        \
+                                           pshift, pm1, pm2, s);            \
+        break;                                                              \
+      case STAGE_CAST:                                                      \
+        err = launch_groups<T, STAGE_CAST>(x, masks, D, P, M, valid,        \
+                                           compute_var, ypart, psum,        \
+                                           pshift, pm1, pm2, s);            \
+        break;                                                              \
+      case STAGE_DOT:                                                       \
+        err = launch_groups<T, STAGE_DOT>(x, masks, D, P, M, valid,         \
+                                          compute_var, ypart, psum, pshift, \
+                                          pm1, pm2, s);                     \
+        break;                                                              \
+      default:                                                              \
+        err = launch_groups<T>(x, masks, D, P, M, valid, compute_var,       \
+                               ypart, psum, pshift, pm1, pm2, s);           \
+    }                                                                       \
+    break;
+  switch (dtype) {
+    FM_STAGE(0, uint8_t)
+    FM_STAGE(2, uint16_t)
+    FM_STAGE(6, float)
+    default:
+      return -1;
+  }
+#undef FM_STAGE
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (skip_combine) return static_cast<int>(cudaSuccess);
+  return combine(ypart, psum, pshift, pm1, pm2, D, P,
+                 stage >= STAGE_DOT ? M : 0, n_pc, n_rc, valid,
+                 stage >= STAGE_VAR ? compute_var : 0, y, colsum, colvar, s);
 }
 
 const char* fused_moments_error_string(int code) {
-  if (code == -1) return "unsupported dtype or mask count";
+  if (code == -1) return "unsupported dtype, mask count or stage";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

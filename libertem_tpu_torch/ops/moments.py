@@ -80,12 +80,14 @@ def _library():
     return lib
 
 
-def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
+def check_inputs(x, masks_t, valid_count, dtypes=_DTYPE_CODES) -> int:
+    """Raise on what the CUDA kernel does not take (``dtypes``: the
+    input dtypes it takes); returns ``valid_count`` as an int."""
     if x.dim() != 2 or masks_t.dim() != 2:
         raise ValueError("x must be (depth, pixels), masks_t (M, pixels)")
     depth, pixels = x.shape
     n_masks = masks_t.shape[0]
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in dtypes:
         raise TypeError(f"the CUDA kernel does not take {x.dtype} input")
     if masks_t.dtype != torch.float32 or masks_t.shape[1] != pixels:
         raise ValueError(
@@ -103,6 +105,13 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
         raise ValueError(f"valid_count {valid_count} not in [0, {depth}]")
     if depth == 0 or pixels == 0:
         raise ValueError(f"empty block {tuple(x.shape)}")
+    return valid_count
+
+
+def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
+    valid_count = check_inputs(x, masks_t, valid_count)
+    depth, pixels = x.shape
+    n_masks = masks_t.shape[0]
     y = torch.empty((depth, n_masks), dtype=torch.float32, device=x.device)
     colsum = torch.empty(pixels, dtype=torch.float32, device=x.device)
     colvar = torch.empty(pixels, dtype=torch.float32, device=x.device)

@@ -1,5 +1,6 @@
 """The UDFs of the port: the five of the fused main path, and the
 ones that run on the generic path."""
+from ..common.exceptions import UDFException
 from .base import NoOpUDF, UDF, UDFData, UDFMeta, UDFResults, UDFRunner
 from .com import CoMParams, CoMUDF, RegressionOptions
 from .crystallinity import CrystallinityUDF
@@ -15,5 +16,5 @@ __all__ = [
     "UDF", "UDFData", "UDFMeta", "UDFResults", "UDFRunner", "NoOpUDF",
     "CoMParams", "CoMUDF", "RegressionOptions", "ApplyMasksUDF",
     "MaskContainer", "StdDevUDF", "SumUDF", "SumSigUDF", "LogsumUDF",
-    "PickUDF", "FEMUDF", "CrystallinityUDF",
+    "PickUDF", "FEMUDF", "CrystallinityUDF", "UDFException",
 ]

@@ -47,12 +47,15 @@ Device state:
   from zeros; at the end of the partition ``UDF.merge`` folds them
   into the run's state.
 
-Results come back to the host once, at the end, where
+Results come back to the host at the end, or after every merged
+partition for live partial results (``run_for_dataset_iter``, with a
+damage mask of the nav positions merged so far), where
 ``UDF.get_results`` post-processes them with numpy; nav results are
-expanded from the roi to the full nav shape there.
+expanded from the roi to the full nav shape there.  A parameter patch
+(``update_parameters_experimental``) applies from the next partition
+on; progress goes to a ``common.progress.ProgressReporter``.
 
-Not ported yet: partial results, progress, parameter patches and the
-sharded loop.
+Not ported yet: the sharded loop.
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ import numpy as np
 import torch
 
 from ..common.buffers import ArrayWithMask, AuxBufferWrapper, BufferWrapper
+from ..common.exceptions import UDFException
 from ..common.shape import Shape
 from ..common.slice import Slice
 from ..io.corrections import CorrectionSet
@@ -275,7 +279,7 @@ class UDF:
         return ArrayWithMask(data, mask)
 
     def merge(self, dest: UDFData, src: UDFData):
-        raise NotImplementedError(
+        raise UDFException(
             f"{type(self).__name__} declares non-nav buffers and must "
             f"implement merge(dest, src)"
         )
@@ -454,13 +458,13 @@ class _UDFPlanEntry:
         ]
         method = udf.get_method()
         if method not in tuple(UDFMethod):
-            raise ValueError(
+            raise UDFException(
                 f"{type(udf).__name__}.get_method() returned "
                 f"unrecognized method {method!r}"
             )
         self.method = UDFMethod(method).value
         if not hasattr(udf, f"process_{self.method}"):
-            raise TypeError(
+            raise UDFException(
                 f"{type(udf).__name__}.get_method() chose "
                 f"{self.method!r} but process_{self.method} is not "
                 f"implemented"
@@ -477,7 +481,7 @@ class _UDFPlanEntry:
         if restriction is not None:
             allowed = set(backends) & set(restriction)
             if not allowed:
-                raise ValueError(
+                raise UDFException(
                     f"{type(udf).__name__} supports backends {backends}, "
                     f"none of which are in the requested restriction "
                     f"{restriction}"
@@ -485,7 +489,7 @@ class _UDFPlanEntry:
             backends = tuple(b for b in backends if b in allowed)
         bset = set(backends)
         if not bset & (_HOST_LIKE | _DEVICE_LIKE):
-            raise ValueError(
+            raise UDFException(
                 f"{type(udf).__name__} declares backends {backends}, none "
                 f"of which this engine can provide (torch/numpy or "
                 f"another spelling of either)"
@@ -640,7 +644,8 @@ class HostFeed:
             except BaseException as e:  # handed to the consumer
                 q.put(("error", e))
 
-        thread = threading.Thread(target=worker, daemon=True)
+        thread = threading.Thread(target=worker, daemon=True,
+                                  name="HostFeed-reader")
         thread.start()
         try:
             while True:
@@ -686,20 +691,84 @@ class UDFRunner:
             else (backends,) if isinstance(backends, str)
             else tuple(backends)
         )
+        self._params_patched = False
         self.feed_stats: Optional[dict] = None
         # what the last run did: each UDF's engine ("device" or "host"),
         # whether the device UDFs ran fused, on how many 128-pixel
         # blocks when the fused pass ran compacted (else None), and the
-        # fused pass's compaction plan, used or not (else None)
+        # fused pass's compaction plan, used or not (else None); after
+        # a parameter patch, what the run does from then on
         self.run_info: Optional[dict] = None
+
+    def update_parameters_experimental(self, patches: Sequence[dict]
+                                       ) -> None:
+        """Patch the UDFs' constructor arguments mid-run, one dict per
+        UDF (``{}`` for no change); the patch applies from the next
+        partition on.  Each patched UDF drops its derived caches in
+        ``on_params_updated``."""
+        if len(patches) != len(self._udfs):
+            raise ValueError(
+                f"got {len(patches)} patches for {len(self._udfs)} UDFs "
+                f"- pass one entry per UDF ({{}} for no change)"
+            )
+        for udf, patch in zip(self._udfs, patches):
+            if not patch:
+                continue
+            udf._kwargs.update(patch)
+            udf.params = UDFParams(udf._kwargs)
+            udf.on_params_updated()
+        self._params_patched = True
 
     def run_for_dataset(self, dataset: DataSet, device: torch.device,
                         roi: Optional[np.ndarray] = None,
                         corrections: Optional[CorrectionSet] = None,
-                        ) -> UDFResults:
+                        progress=False) -> UDFResults:
+        gen = self.run_for_dataset_iter(
+            dataset, device, roi=roi, corrections=corrections,
+            progress=progress, yield_partial=False,
+        )
+        result = next(gen)
+        for _ in gen:  # runs the cleanup
+            pass
+        return result
+
+    def run_for_dataset_iter(self, dataset: DataSet, device: torch.device,
+                             roi: Optional[np.ndarray] = None,
+                             corrections: Optional[CorrectionSet] = None,
+                             progress=False, yield_partial: bool = True):
+        """Generator of UDFResults: one after every merged partition,
+        the last of them the final result (only the final one with
+        ``yield_partial=False``).  ``progress``: False, True (a tqdm
+        bar) or a ``ProgressReporter``.  Closing the generator early
+        stops the host feed's reader and releases its slots."""
         prep = self._prepare(dataset, device, roi, corrections)
+        self.run_info = self._run_info(prep)
+        try:
+            yield from self._run_loop(prep, dataset, progress, yield_partial)
+        finally:
+            # the final result is wrapped before this: get_results may
+            # read task_data, which cleanup releases
+            for udf in self._udfs:
+                udf.cleanup()
+
+    def dry_run(self, dataset: DataSet, roi: Optional[np.ndarray] = None
+                ) -> UDFResults:
+        """The result buffers a run would declare, from zero state,
+        without reading data (prepared on the CPU)."""
+        prep = self._prepare(dataset, torch.device("cpu"), roi)
+        try:
+            return self._wrap_results(
+                prep, self._init_state(prep), {},
+                np.zeros(prep["n_nav"], dtype=bool),
+            )
+        finally:
+            for udf in self._udfs:
+                udf.cleanup()
+
+    @staticmethod
+    def _run_info(prep) -> dict:
         fused = prep["fused"]
-        self.run_info = {
+        return {
             "engines": ["host" if e.host else "device" for e in prep["plan"]],
             "fused": fused is not None,
             "compacted_blocks": (
@@ -708,14 +777,6 @@ class UDFRunner:
             ),
             "compaction": None if fused is None else fused.compaction,
         }
-        try:
-            with _full_fp32_matmul():
-                state, host_global = self._run_loop(prep, dataset)
-            # get_results may read task_data, which cleanup releases
-            return self._wrap_results(prep, state, host_global)
-        finally:
-            for udf in self._udfs:
-                udf.cleanup()
 
     # -- preparation ---------------------------------------------------
 
@@ -819,23 +880,8 @@ class UDFRunner:
                 plan[i] = self._plan_entry(entry.udf, meta0.shape, roi)
                 plan[i].host = entry.host
         aux, aux_host = self._build_aux(udfs, roi, n_nav, scheme, device)
-        fused = self._build_fused_plan(plan, meta)
-        masks_t = support = None
-        if fused is not None:
-            comp = fused.compaction
-            if not compaction_pays(comp, device, "fused_moments"):
-                comp = None
-            masks_t = torch.from_numpy(np.ascontiguousarray(
-                fused.masks_t if comp is None else comp["operand_c"].T
-            )).to(device)
-            if comp is not None:
-                support = torch.from_numpy(
-                    comp["support"].astype(np.int64)
-                ).to(device)
         return {
-            "fused": fused,
-            "masks_t": masks_t,
-            "support": support,
+            **self._fused_operands(plan, meta, device),
             "corr_plan": self._device_corr_plan(
                 corrections, meta0.shape.sig, device
             ),
@@ -852,6 +898,42 @@ class UDFRunner:
             "aux": aux,
             "aux_host": aux_host,
         }
+
+    def _fused_operands(self, plan, meta, device) -> dict:
+        """The fused plan (None: the device UDFs run generic), its mask
+        operand on the device and, where compaction pays there, the
+        support blocks."""
+        fused = self._build_fused_plan(plan, meta)
+        masks_t = support = None
+        if fused is not None:
+            comp = fused.compaction
+            if not compaction_pays(comp, device, "fused_moments"):
+                comp = None
+            masks_t = torch.from_numpy(np.ascontiguousarray(
+                fused.masks_t if comp is None else comp["operand_c"].T
+            )).to(device)
+            if comp is not None:
+                support = torch.from_numpy(
+                    comp["support"].astype(np.int64)
+                ).to(device)
+        return {"fused": fused, "masks_t": masks_t, "support": support}
+
+    def _apply_param_patch(self, prep) -> None:
+        """A parameter patch, at a partition boundary: rebuild what
+        derives from the UDFs' arguments -- the fused plan and its
+        operand (which also decide fused or generic) and the aux
+        arrays of both engines."""
+        for udf in self._udfs:
+            for v in udf._kwargs.values():
+                if isinstance(v, AuxBufferWrapper):
+                    v.set_shape_ds(prep["meta"].dataset_shape, prep["roi"])
+        prep.update(self._fused_operands(prep["plan"], prep["meta"],
+                                         prep["device"]))
+        prep["aux"], prep["aux_host"] = self._build_aux(
+            self._udfs, prep["roi"], prep["n_nav"], prep["scheme"],
+            prep["device"],
+        )
+        self.run_info = self._run_info(prep)
 
     def _plan_entry(self, udf, ds_shape, roi) -> _UDFPlanEntry:
         decls = dict(udf.get_result_buffers())
@@ -975,7 +1057,7 @@ class UDFRunner:
                     continue
                 data = v.aux_data
                 if data is None:
-                    raise ValueError(f"aux buffer {k} has no data")
+                    raise UDFException(f"aux buffer {k} has no data")
                 if roi is not None:
                     data = data[roi]
                 if data.shape[0] != n_nav:
@@ -1408,9 +1490,30 @@ class UDFRunner:
 
     # -- main loop -------------------------------------------------------
 
-    def _run_loop(self, prep, dataset):
-        """Returns the device state and the host engine's buffers (by
-        UDF index)."""
+    def _make_progress(self, progress, prep):
+        """A ProgressManager for ``progress`` (False: None; True: a
+        tqdm bar; or a ProgressReporter), with the partitions' frame
+        budgets by partition index."""
+        if not progress:
+            return None
+        from ..common.progress import (
+            ProgressManager,
+            ProgressReporter,
+            TQDMProgressReporter,
+        )
+        reporter = (progress if isinstance(progress, ProgressReporter)
+                    else TQDMProgressReporter())
+        parts = prep["partitions"]
+        return ProgressManager(
+            prep["n_nav"], len(parts), reporter, progress_id=str(id(prep)),
+            task_max={pi: p.frames_in_roi(prep["roi"])
+                      for pi, p in enumerate(parts)},
+        )
+
+    def _run_loop(self, prep, dataset, progress, yield_partial):
+        """Yields the wrapped results after every merged partition but
+        the last (with ``yield_partial``), then the final results once;
+        applies a pending parameter patch before each partition."""
         from .host import HostUDFRunner
 
         scheme = prep["scheme"]
@@ -1427,13 +1530,16 @@ class UDFRunner:
             to_device=on_device, host_reads=host is not None,
         )
         feed.stats["host_s"] = 0.0
+        self.feed_stats = feed.stats
         state = self._init_state(prep)
-        fused = prep["fused"] is not None
+        # the nav positions merged so far (roi-compressed)
+        damage = np.zeros(prep["n_nav"], dtype=bool)
         part = {}
 
         def start(pi):
             partition = prep["partitions"][pi]
             part.update(
+                pi=pi,
                 partition=partition,
                 goff0=partition.roi_offset(roi),
                 n_sel=partition.frames_in_roi(roi),
@@ -1453,6 +1559,8 @@ class UDFRunner:
                 part["host_init"] = host.snapshot_init(
                     host_global, part["goff0"], part["n_sel"]
                 )
+            if pm is not None:
+                pm.partition_start(pi)
 
         def finish():
             goff0, n_sel = part["goff0"], part["n_sel"]
@@ -1476,64 +1584,94 @@ class UDFRunner:
                     host_global, part["host"], goff0, n_sel,
                     init_rows=part["host_init"],
                 )
+            damage[goff0:goff0 + n_sel] = True
+            if pm is not None:
+                pm.partition_done(n_sel, ident=part["pi"])
 
         current = None
-        with contextlib.closing(
-            feed.run(prep["partitions"], scheme, roi)
-        ) as blocks:
-            for pi, block_t, block in blocks:
-                if pi != current:
-                    if current is not None:
-                        finish()
-                    start(pi)
-                    current = pi
-                if fused:
-                    self._fused_step(
-                        prep, state, part["state"], block_t,
-                        block.global_offset, block.valid,
-                    )
-                elif on_device:
-                    coords = torch.from_numpy(block.coords).to(device)
-                    self._generic_step(
-                        prep, state, part["state"], block_t,
-                        block.global_offset, coords, block.valid,
-                    )
-                if host:
-                    # the pinned host slot itself, done with before the
-                    # feed refills it
-                    t0 = time.perf_counter()
-                    host.process_block(
-                        host_global, part["host"], block.data,
-                        block.global_offset, block.coords, block.valid,
-                    )
-                    feed.stats["host_s"] += time.perf_counter() - t0
-        if current is not None:
-            finish()
-        self.feed_stats = feed.stats
-        return state, host_global
+        pm = self._make_progress(progress, prep)
+        try:
+            with contextlib.closing(
+                feed.run(prep["partitions"], scheme, roi)
+            ) as blocks:
+                for pi, block_t, block in blocks:
+                    if pi != current:
+                        if current is not None:
+                            with _full_fp32_matmul():
+                                finish()
+                            if yield_partial:
+                                yield self._wrap_results(
+                                    prep, state, host_global, damage.copy()
+                                )
+                        if self._params_patched:
+                            self._params_patched = False
+                            self._apply_param_patch(prep)
+                        start(pi)
+                        current = pi
+                    with _full_fp32_matmul():
+                        if prep["fused"] is not None:
+                            self._fused_step(
+                                prep, state, part["state"], block_t,
+                                block.global_offset, block.valid,
+                            )
+                        elif on_device:
+                            coords = torch.from_numpy(block.coords).to(
+                                device)
+                            self._generic_step(
+                                prep, state, part["state"], block_t,
+                                block.global_offset, coords, block.valid,
+                            )
+                    if host:
+                        # the pinned host slot itself, done with before
+                        # the feed refills it
+                        t0 = time.perf_counter()
+                        host.process_block(
+                            host_global, part["host"], block.data,
+                            block.global_offset, block.coords, block.valid,
+                        )
+                        feed.stats["host_s"] += time.perf_counter() - t0
+                    if pm is not None:
+                        pm.frames_done(block.valid, ident=pi)
+            if current is not None:
+                with _full_fp32_matmul():
+                    finish()
+            # the last partition's partial, or the only result
+            yield self._wrap_results(prep, state, host_global, damage)
+        finally:
+            if pm is not None:
+                pm.close()
 
     # -- results -----------------------------------------------------------
 
-    def _wrap_results(self, prep, state, host_global) -> UDFResults:
-        """Device state -> host numpy (host UDFs: their numpy buffers)
-        -> ``get_results`` -> one dict of BufferWrappers per UDF."""
+    def _wrap_results(self, prep, state, host_global, damage_host
+                      ) -> UDFResults:
+        """Device state -> host numpy (host UDFs: copies of their numpy
+        buffers, zeros before the run made them) -> ``get_results`` ->
+        one dict of BufferWrappers per UDF; ``damage_host`` marks the
+        nav positions merged so far."""
         meta = prep["meta"]
         n_nav = prep["n_nav"]
-        damage_host = np.ones(n_nav, dtype=bool)
         buffers = []
         for ui, entry in enumerate(prep["plan"]):
             if entry.host:
+                bufs = host_global.get(ui, {})
                 raw = {
-                    n: np.array(host_global[ui][n], copy=True)
+                    n: (np.array(bufs[n], copy=True) if n in bufs
+                        else np.zeros(entry.decls[n].shape,
+                                      entry.decls[n].dtype))
                     for n in entry.nav_names + entry.part_names
                 }
             else:
+                # copies: a partial result must not follow the state
+                # the run goes on updating (on the CPU .cpu() is the
+                # state itself)
                 raw = {
-                    n: state[ui][n][:n_nav].cpu().numpy()
+                    n: state[ui][n][:n_nav].to("cpu", copy=True).numpy()
                     for n in entry.nav_names
                 }
                 raw.update({
-                    n: state[ui][n].cpu().numpy() for n in entry.part_names
+                    n: state[ui][n].to("cpu", copy=True).numpy()
+                    for n in entry.part_names
                 })
             buffers.append(
                 self._wrap_one(entry, raw, damage_host, meta, prep["roi"])
@@ -1563,6 +1701,17 @@ class UDFRunner:
                     f"get_results returned {name!r} which is not "
                     f"declared in get_result_buffers"
                 )
+            if entry.decls[name].use == "private":
+                raise UDFException(
+                    f"get_results must not include the use='private' "
+                    f"buffer {name!r}"
+                )
+        for name in entry.result_only_names:
+            if name not in derived:
+                raise UDFException(
+                    f"don't know how to set use='result_only' buffer "
+                    f"{name!r}; please implement `get_results`"
+                )
         nav_full = tuple(meta.dataset_shape.nav)
         buffers = {}
         for name, decl in entry.decls.items():
@@ -1584,8 +1733,6 @@ class UDFRunner:
                     data = data.reshape(
                         (len(roi),) + decl.extra_shape
                     )[roi]
-            elif decl.use == "result_only":
-                continue
             else:
                 data = raw[name].astype(decl.dtype, copy=False)
             out = BufferWrapper(decl.kind, decl.extra_shape, decl.dtype)

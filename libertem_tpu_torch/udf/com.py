@@ -90,24 +90,36 @@ class CoMUDF(UDF):
             raise NotImplementedError(
                 "CoM regression is not ported yet"
             )
+        # complex data gives complex centres and shifts: the dtype of
+        # result_type(input, float32), complex128 clamped to complex64
+        dtype = np.result_type(self.meta.input_dtype, np.float32)
+        dtype = np.dtype(np.complex64 if dtype.kind == "c" else np.float32)
         return {
             "raw_mask_result": self.buffer(
-                kind="nav", extra_shape=(3,), use="private",
+                kind="nav", extra_shape=(3,), dtype=dtype, use="private",
             ),
             "raw_com": self.buffer(
-                kind="nav", extra_shape=(2,), use="result_only",
+                kind="nav", extra_shape=(2,), dtype=dtype,
+                use="result_only",
             ),
             "raw_shifts": self.buffer(
-                kind="nav", extra_shape=(2,), use="result_only",
+                kind="nav", extra_shape=(2,), dtype=dtype,
+                use="result_only",
             ),
             "field": self.buffer(
-                kind="nav", extra_shape=(2,), use="result_only",
+                kind="nav", extra_shape=(2,), dtype=dtype,
+                use="result_only",
             ),
-            "field_y": self.buffer(kind="nav", use="result_only"),
-            "field_x": self.buffer(kind="nav", use="result_only"),
-            "magnitude": self.buffer(kind="nav", use="result_only"),
-            "divergence": self.buffer(kind="nav", use="result_only"),
-            "curl": self.buffer(kind="nav", use="result_only"),
+            "field_y": self.buffer(kind="nav", dtype=dtype,
+                                   use="result_only"),
+            "field_x": self.buffer(kind="nav", dtype=dtype,
+                                   use="result_only"),
+            "magnitude": self.buffer(kind="nav", dtype=dtype,
+                                     use="result_only"),
+            "divergence": self.buffer(kind="nav", dtype=dtype,
+                                      use="result_only"),
+            "curl": self.buffer(kind="nav", dtype=dtype,
+                                use="result_only"),
             "regression": self.buffer(
                 kind="single", extra_shape=(3, 2), use="result_only",
             ),
@@ -127,44 +139,46 @@ class CoMUDF(UDF):
         return com_masks(self.meta.sig_shape, cy, cx, p.r, p.ri)
 
     def process_tile(self, tile):
-        flat = tile.reshape(tile.shape[0], -1).to(torch.float32)
+        # complex data: complex projections
+        cplx = tile.is_complex()
+        flat = tile.reshape(tile.shape[0], -1).to(
+            torch.complex64 if cplx else torch.float32)
         self.results.raw_mask_result += flat @ self._operand.get(
-            self._stack, self.meta
+            self._stack, self.meta, np.complex64 if cplx else np.float32
         )
 
     def get_results(self):
         p: CoMParams = self.params.com_params
         cy, cx = self._center()
-        raw = np.asarray(self.results.raw_mask_result, dtype=np.float64)
+        raw = np.asarray(self.results.raw_mask_result)
+        is_c = raw.dtype.kind == "c"
+        work_dt = np.complex128 if is_c else np.float64
+        out_dt = np.complex64 if is_c else np.float32
+        raw = raw.astype(work_dt)
         # zero-sum frames report the reference centre (zero shift)
         nz = raw[:, 0] != 0
-        com_y = np.full(raw.shape[0], cy, dtype=np.float64)
-        com_x = np.full(raw.shape[0], cx, dtype=np.float64)
+        com_y = np.full(raw.shape[0], cy, dtype=work_dt)
+        com_x = np.full(raw.shape[0], cx, dtype=work_dt)
         np.divide(raw[:, 1], raw[:, 0], out=com_y, where=nz)
         np.divide(raw[:, 2], raw[:, 0], out=com_x, where=nz)
-        raw_com = np.stack([com_y, com_x], axis=-1).astype(np.float32)
+        raw_com = np.stack([com_y, com_x], axis=-1).astype(out_dt)
         raw_shifts = np.stack(
             [com_y - cy, com_x - cx], axis=-1
-        ).astype(np.float32)
-        # every derived field is a function of the stored float32
-        # shifts
+        ).astype(out_dt)
+        # every derived field is a function of the stored shifts
         y_corr, x_corr = apply_com_correction(
-            raw_shifts[..., 0].astype(np.float64),
-            raw_shifts[..., 1].astype(np.float64),
+            raw_shifts[..., 0].astype(work_dt),
+            raw_shifts[..., 1].astype(work_dt),
             p.scan_rotation, p.flip_y,
         )
         div, curl = self._div_curl(y_corr, x_corr)
         return {
             "raw_com": raw_com,
             "raw_shifts": raw_shifts,
-            "field": np.stack([y_corr, x_corr], axis=-1).astype(
-                np.float32
-            ),
-            "field_y": y_corr.astype(np.float32),
-            "field_x": x_corr.astype(np.float32),
-            "magnitude": np.sqrt(y_corr ** 2 + x_corr ** 2).astype(
-                np.float32
-            ),
+            "field": np.stack([y_corr, x_corr], axis=-1).astype(out_dt),
+            "field_y": y_corr.astype(out_dt),
+            "field_x": x_corr.astype(out_dt),
+            "magnitude": np.sqrt(y_corr ** 2 + x_corr ** 2).astype(out_dt),
             "divergence": div,
             "curl": curl,
             "regression": self.with_mask(
@@ -177,8 +191,10 @@ class CoMUDF(UDF):
         roi-compressed fields are embedded with nan gaps first (so a
         neighbour outside the roi gives nan), and compressed again."""
         nav_shape = tuple(self.meta.dataset_shape.nav)
+        is_c = np.asarray(y_corr).dtype.kind == "c"
+        out_dt = np.complex64 if is_c else np.float32
         if min(nav_shape) < 2:
-            nanbuf = np.full(y_corr.shape[0], np.nan, dtype=np.float32)
+            nanbuf = np.full(y_corr.shape[0], np.nan, dtype=out_dt)
             return nanbuf, nanbuf.copy()
         roi = self.meta.roi
         sel = (
@@ -187,15 +203,16 @@ class CoMUDF(UDF):
         )
 
         def embed(flat):
-            full = np.full(sel.size, np.nan, dtype=np.float64)
+            full = np.full(sel.size, np.nan,
+                           dtype=np.complex128 if is_c else np.float64)
             full[sel] = flat
             return full.reshape(nav_shape)
 
         dy_dy, dy_dx = np.gradient(embed(y_corr))
         dx_dy, dx_dx = np.gradient(embed(x_corr))
-        div = (dy_dy + dx_dx).astype(np.float32).reshape(-1)[sel]
+        div = (dy_dy + dx_dx).astype(out_dt).reshape(-1)[sel]
         # curl_2d = dFy/dx - dFx/dy
-        curl = (dy_dx - dx_dy).astype(np.float32).reshape(-1)[sel]
+        curl = (dy_dx - dx_dy).astype(out_dt).reshape(-1)[sel]
         return div, curl
 
     def fused_moments_spec(self):

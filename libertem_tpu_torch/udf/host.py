@@ -19,6 +19,7 @@ import copy
 
 import numpy as np
 
+from ..common.exceptions import UDFException
 from ..common.slice import Slice
 from ..common.sparse import to_backend
 from .base import UDFData, UDFParams
@@ -143,7 +144,7 @@ class HostUDFRunner:
                                     part_bufs[ui], goff, valid)
                 else:
                     if sig_split:
-                        raise ValueError(
+                        raise UDFException(
                             f"{type(udf).__name__} uses process_frame, "
                             f"which needs whole frames, but the scheme "
                             f"splits the frame into {len(scheme)} sig "

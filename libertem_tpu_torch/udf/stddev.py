@@ -4,7 +4,8 @@ of ``libertem_tpu/udf/stddev.py``).
 Per-block and per-partition (count, sum, varsum) states fold with
 the Chan/Golub/LeVeque parallel-variance combine; the generic path's
 ``process_tile`` counts only the block's valid frames, so zero-padded
-tail rows do not enter the statistics.
+tail rows do not enter the statistics.  Complex data keeps complex
+sums and means; its variance is real, E|x - mean|^2 (``_abs2``).
 """
 from __future__ import annotations
 
@@ -14,13 +15,21 @@ import torch
 from .base import UDF
 
 
+def _abs2(x):
+    """|x|^2: real for complex ``x`` (without the sqrt of abs), x * x
+    for real ``x``."""
+    if x.is_complex():
+        return (x * x.conj()).real
+    return x * x
+
+
 def _combine(n0, sum0, varsum0, n1, sum1, varsum1):
     """Combine two (count, sum, varsum) variance states (tensors)."""
     n = n0 + n1
     mean0 = sum0 / torch.clamp(n0, min=1)
     mean1 = sum1 / torch.clamp(n1, min=1)
     delta = mean1 - mean0
-    corr = delta * delta * (n0 * n1 / torch.clamp(n, min=1))
+    corr = _abs2(delta) * (n0 * n1 / torch.clamp(n, min=1))
     varsum = torch.where(
         n0 == 0, varsum1,
         torch.where(n1 == 0, varsum0, varsum0 + varsum1 + corr),
@@ -32,15 +41,20 @@ class StdDevUDF(UDF):
     """Per-pixel mean / variance / std over all frames."""
 
     def get_result_buffers(self):
+        # complex data: complex64 sums and means, real variance
+        sum_dtype = np.result_type(self.meta.input_dtype, np.float32)
+        sum_dtype = np.dtype(
+            np.complex64 if sum_dtype.kind == "c" else np.float32
+        )
         return {
             "num_frames": self.buffer(kind="single", dtype="float32"),
-            "sum": self.buffer(kind="sig", dtype="float32"),
+            "sum": self.buffer(kind="sig", dtype=sum_dtype),
             "varsum": self.buffer(kind="sig", dtype="float32"),
             "var": self.buffer(kind="sig", dtype="float32",
                                use="result_only"),
             "std": self.buffer(kind="sig", dtype="float32",
                                use="result_only"),
-            "mean": self.buffer(kind="sig", dtype="float32",
+            "mean": self.buffer(kind="sig", dtype=sum_dtype,
                                 use="result_only"),
         }
 
@@ -59,7 +73,7 @@ class StdDevUDF(UDF):
         diff = (tile - mean1) * vmask
         n, s, v = _combine(
             self.results.num_frames, self.results.sum,
-            self.results.varsum, n1, sum1, (diff * diff).sum(dim=0),
+            self.results.varsum, n1, sum1, _abs2(diff).sum(dim=0),
         )
         # with a sig-tiled scheme every sig tile sees the same frames:
         # count them once, on the last tile, so earlier tiles still

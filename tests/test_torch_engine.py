@@ -27,6 +27,7 @@ from libertem_tpu.io.dataset.memory import MemoryDataSet as JaxMemoryDataSet
 from libertem_tpu.udf.base import UDFRunner as JaxUDFRunner
 
 import libertem_tpu_torch as port
+from libertem_tpu_torch.common.exceptions import UDFException
 from libertem_tpu_torch.io.dataset.memory import MemoryDataSet
 from libertem_tpu_torch.udf.base import HostFeed, UDFRunner
 
@@ -501,7 +502,7 @@ def test_backend_restriction_like_jax():
                                  backends=backends)
         _compare(ours, theirs)
     ctx = port.Context(device="cpu")
-    with pytest.raises(ValueError, match="restriction"):
+    with pytest.raises(UDFException, match="restriction"):
         ctx.run_udf(ctx.load("memory", data=data, sig_dims=2),
                     _numpy_sum(PUDF), backends=("torch",))
 

@@ -395,3 +395,135 @@ def test_slice5_runs_on_card(card):
             scale = max(float(np.nanmax(np.abs(y), initial=0.0)), 1.0)
             np.testing.assert_allclose(x, y, rtol=RTOL, atol=RTOL * scale,
                                        err_msg=name)
+
+
+# -- the stage ablation -------------------------------------------------------
+
+STAGE_CASES = [
+    # kind, depth, pixels, masks, valid
+    ("u16", 1024, 16384, 6, 1024),  # the main path's block
+    ("u16", 1024, 16384, 40, 1024),
+    ("u16", 1024, 5760, 17, 1024),  # the compacted shape
+    ("u16", 1024, 16384, 12, 987),  # a tail, two mask groups
+    ("u16", 100, 1000, 7, 77),      # unaligned rows, ragged edge
+    ("u16", 65, 4096, 3, 65),       # a one-row last chunk
+    ("u8", 256, 4096, 12, 200),
+    ("f32", 96, 2048, 5, 96),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,depth,pixels,n_masks,valid", STAGE_CASES)
+def test_fused_moments_stages(card, kind, depth, pixels, n_masks, valid):
+    from libertem_tpu_torch.ops.ablation import (
+        STAGES,
+        fused_moments_stage,
+        fused_moments_stage_reference,
+    )
+
+    rng = np.random.default_rng(depth + n_masks)
+    x = _block(kind, depth, pixels, valid, rng).to(card)
+    masks = torch.from_numpy(
+        rng.normal(size=(n_masks, pixels)).astype(np.float32)
+    ).to(card)
+    for stage in STAGES:
+        before = fused_moments_stage.launches
+        got = fused_moments_stage(x, masks, valid, stage)
+        assert fused_moments_stage.launches == before + -(-n_masks // 8)
+        want = fused_moments_stage_reference(x, masks, valid, stage)
+        for a, b in zip(got, want):
+            if stage in ("load_min", "load") and kind != "f32":
+                assert torch.equal(a, b), stage
+            else:
+                _close(a, b)
+        if stage != "full":
+            # the partials alone, for timing: nothing to read back
+            assert fused_moments_stage(x, masks, valid, stage,
+                                       combine=False) is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,depth,pixels,n_masks,valid", STAGE_CASES)
+def test_full_stage_is_fused_moments_bit_for_bit(card, kind, depth, pixels,
+                                                n_masks, valid):
+    from libertem_tpu_torch.ops.ablation import fused_moments_stage
+
+    rng = np.random.default_rng(depth + pixels + n_masks)
+    x = _block(kind, depth, pixels, valid, rng).to(card)
+    masks = torch.from_numpy(
+        rng.normal(size=(n_masks, pixels)).astype(np.float32)
+    ).to(card)
+    prod = fused_moments(x, masks, valid)
+    for stage in ("var", "full"):
+        for a, b in zip(fused_moments_stage(x, masks, valid, stage), prod):
+            assert torch.equal(a, b), stage
+
+
+@pytest.mark.cuda
+def test_stage_refuses_other_dtypes(card):
+    from libertem_tpu_torch.ops.ablation import fused_moments_stage
+
+    x = torch.zeros((64, 1024), dtype=torch.int16, device=card)
+    with pytest.raises(TypeError):
+        fused_moments_stage(x, torch.ones((1, 1024), device=card), 64, "load")
+
+
+@pytest.mark.cuda
+def test_run_udf_iter_with_patch_on_card(card):
+    """Partial results on the card: the fused kernel runs every block,
+    the patch after the second partial rebuilds the fused plan, and
+    every partial equals the CPU run's."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.common.progress import ProgressReporter
+
+    data = np.random.default_rng(11).poisson(8.0, (16, 8, 32, 32)).astype(
+        np.uint16)
+    old = lt.masks.circular(16, 16, 32, 32, 6)
+    new = lt.masks.ring(16, 16, 32, 32, 12, 4)
+
+    class Frames(ProgressReporter):
+        def end(self, state):
+            self.frames = state.num_frames_complete
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=data, sig_dims=2, num_partitions=4)
+        udfs = [lt.ApplyMasksUDF(mask_factories=[lambda: old]),
+                lt.CoMUDF.with_params(cy=16, cx=16, r=10), lt.SumUDF(),
+                lt.SumSigUDF(), lt.StdDevUDF()]
+        rep = Frames()
+        before = fused_moments.launches
+        gen = ctx.run_udf_iter(ds, udfs, progress=rep)
+        partials = []
+        for i, res in enumerate(gen):
+            assert ctx.run_info["fused"]
+            partials.append((res.damage.data.copy(),
+                             [{k: np.asarray(v.data) for k, v in b.items()}
+                              for b in res.buffers]))
+            if i == 1:
+                gen.update_parameters_experimental(
+                    [{"mask_factories": [lambda: new]}, {}, {}, {}, {}])
+        assert rep.frames == 128
+        runs.append((partials, fused_moments.launches - before))
+    (cuda_parts, cuda_launched), (cpu_parts, cpu_launched) = runs
+    # 4 partitions of 32 frames, one block each, one mask group
+    assert (cuda_launched, cpu_launched) == (4, 0)
+    flat = data.reshape(128, -1).astype(np.float64)
+    want = np.where(np.arange(128) < 64, flat @ old.reshape(-1),
+                    flat @ new.reshape(-1))
+    np.testing.assert_allclose(
+        cuda_parts[-1][1][0]["intensity"].reshape(-1), want, rtol=RTOL,
+        atol=RTOL * np.abs(want).max())
+    for (da, ba), (db, bb) in zip(cuda_parts, cpu_parts):
+        assert np.array_equal(da, db)
+        for a, b in zip(ba, bb):
+            for name in b:
+                scale = max(float(np.nanmax(np.abs(b[name]), initial=0.0)),
+                            16.0 if name in ("raw_shifts", "field",
+                                             "divergence", "curl",
+                                             "magnitude", "field_y",
+                                             "field_x") else 1.0)
+                np.testing.assert_allclose(a[name], b[name], rtol=RTOL,
+                                           atol=RTOL * scale, err_msg=name)

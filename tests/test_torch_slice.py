@@ -282,7 +282,9 @@ def test_import_leaves_jax_out():
         "       or k == 'libertem_tpu']\n"
         "assert not bad, bad\n"
         "walked = {'udf.host', 'ops.sparse_masks', 'common.sparse',\n"
-        "          'udf.masks', 'masks', 'common.buffers', 'api'}\n"
+        "          'udf.masks', 'masks', 'common.buffers', 'api',\n"
+        "          'ops.ablation', 'common.progress',\n"
+        "          'common.exceptions'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
