@@ -13,16 +13,20 @@ from the root of the repository.  Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version on the card at
    the shapes the paths give it, and on the contract cases (tails,
    constant data, variance off, more than 8 mask rows, a corrected
-   float32 block, f64 / i64 / f16 input);
+   float32 block, f64 / i64 / f16 input), and check that three calls
+   and a CUDA-graph replay of captured calls give identical bits;
 4. run the main path through the public API -- ``Context().load("raw",
    ...)`` and ``run_udf`` with ApplyMasksUDF (BF disk + ADF ring),
    CoMUDF, SumUDF, SumSigUDF and StdDevUDF -- with the kernels' launch
    counts set to 0 just before and read just after, and check every
    result against a float64 numpy oracle; trace one more run with
-   torch.profiler for device time by kernel and copy;
+   torch.profiler for device time by kernel and copy, and check that
+   the trace holds one partials and one combine kernel a block;
 5. time the kernel, its plain version and a PyTorch expression of the
    same outputs on the paths' blocks (u16 with 6, 12 and 40 mask rows;
-   the corrected float32 block), and the end-to-end run;
+   the corrected float32 block), beside the earlier design's times and
+   the predicted ones; the kernel at other CTA tiles than the grid
+   plan's (a grid sweep); and the end-to-end run;
 6. the second slice's paths on the same scan, each with the launch
    counts set to 0 just before and read just after, checked against
    float64 numpy oracles and traced once more:
@@ -99,6 +103,43 @@ CRTOL = 1e-4
 # results derived from centres of mass (differences com - c): their
 # absolute floor follows the centres' magnitude, not their own
 FROM_COM = ("raw_shifts", "field", "magnitude", "divergence", "curl")
+# ms a block of the earlier design of fused_moments (64-row CTAs for
+# every block; H100 80GB HBM3 at 700 W, PERF.md section 6), and what
+# the current design (the grid plan) is predicted to take (PERF.md
+# section 6), printed beside this run's times
+EARLIER_MS = {
+    "u16 M=6 (main path)": 0.0265, "u16 M=12": 0.0483, "u16 M=40": 0.1207,
+    "f32 corrected M=12": 0.0620, "u16 M=17 whole frame (7a)": 0.0622,
+    "u16 compacted M=17 P=45x128": 0.0615,
+}
+PREDICTED_MS = {
+    "u16 M=6 (main path)": 0.0265, "u16 M=12": 0.0483, "u16 M=40": 0.1207,
+    "f32 corrected M=12": 0.0620, "u16 M=17 whole frame (7a)": 0.0622,
+    "u16 compacted M=17 P=45x128": 0.0333,
+}
+# the same for the stages load_min .. full of phase 9
+EARLIER_STAGE_MS = {
+    "u16 M=6 P=16384 (main path)":
+        (0.0139, 0.0146, 0.0150, 0.0189, 0.0217, 0.0273),
+    "u16 M=40 P=16384": (0.0387, 0.0392, 0.0496, 0.1025, 0.1115, 0.1205),
+    "u16 M=17 P=5760 (compacted)":
+        (0.0380, 0.0350, 0.0389, 0.0517, 0.0601, 0.0644),
+}
+PREDICTED_STAGE_MS = {
+    "u16 M=6 P=16384 (main path)":
+        (0.0139, 0.0146, 0.0150, 0.0189, 0.0217, 0.0273),
+    "u16 M=40 P=16384": (0.0387, 0.0392, 0.0496, 0.1025, 0.1115, 0.1205),
+    "u16 M=17 P=5760 (compacted)":
+        (0.0191, 0.0188, 0.0216, 0.0274, 0.0336, 0.0413),
+}
+
+
+def beside(ms, earlier, predicted) -> str:
+    """A time with the earlier design's and the predicted one."""
+    if earlier is None:
+        return ""
+    return (f" (earlier design {earlier:.4f} ms, {ms / earlier:.2f}x; "
+            f"predicted {predicted:.4f} ms)")
 
 
 def card_line() -> str:
@@ -531,9 +572,10 @@ def device_busy(prof) -> dict:
     }
 
 
-def traced_run(ctx, ds, udfs, at, **kw) -> None:
+def traced_run(ctx, ds, udfs, at, **kw) -> dict:
     """One more run under torch.profiler: its wall, device activity and
-    idle share, and the eight largest device items."""
+    idle share, and the eight largest device items.  Returns the count
+    of each device item."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -544,6 +586,8 @@ def traced_run(ctx, ds, udfs, at, **kw) -> None:
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     device_us = device_busy(prof)
+    counts = {evt.key: evt.count for evt in prof.key_averages()
+              if evt.key in device_us}
     busy_s = sum(device_us.values()) / 1e6
     print(f"trace: {traced_s:.3f} s wall, device activity "
           f"{busy_s:.4f} s = {busy_s / traced_s:.2%} of it (copies "
@@ -551,6 +595,7 @@ def traced_run(ctx, ds, udfs, at, **kw) -> None:
           f"{1 - busy_s / traced_s:.2%} {at}")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  device {us / 1e3:9.3f} ms  {key[:90]}")
+    return counts
 
 
 def time_ms(fn, inputs, calls=32, replays=8) -> tuple[float, float]:
@@ -670,6 +715,43 @@ def fill_sweep(u16_blocks, f32_blocks, depth, at) -> None:
         print(f"fill sweep, {route}: compaction won at every mask count "
               f"up to a fill of {pays:.4f}; the port compacts on the card "
               f"up to {CUDA_MAX_FILL[route]:.4f} {at}")
+
+
+def grid_sweep(cases, depth, at, failures) -> None:
+    """fused_moments at CTA tiles of other row counts than the grid
+    plan's, per case ``(label, blocks, masks, compute_var)``: each
+    tile held against the plain version once, then timed."""
+    import torch
+    from libertem_tpu_torch.ops.moments import (
+        CHUNK_PX,
+        Grid,
+        _fused_moments_cuda,
+        fused_moments_reference,
+        grid_for,
+    )
+
+    for label, blocks, masks, cv in cases:
+        plan = grid_for(blocks[0])
+        pixels = blocks[0].shape[1]
+        parts = []
+        for rows in sorted({64, 48, 32, 16, plan.rows}, reverse=True):
+            grid = Grid(rows, -(-pixels // CHUNK_PX), -(-depth // rows))
+
+            def call(x, _g=grid):
+                return _fused_moments_cuda(x, masks, depth, cv, _g)
+
+            want = fused_moments_reference(blocks[0], masks, depth, cv)
+            for part, g, w in zip(("y", "colsum", "colvar"),
+                                  call(blocks[0]), want):
+                e, ok = max_err(g.cpu(), w.cpu())
+                if not ok:
+                    failures.append(f"grid sweep {label} {rows} rows "
+                                    f"{part}: max err {e}")
+            ms, _ = time_ms(call, [(b,) for b in blocks])
+            parts.append(f"{rows} rows ({grid.ctas} CTAs) {ms:.4f} ms"
+                         + (" [plan]" if rows == plan.rows else ""))
+        print(f"grid sweep, {label}: " + ", ".join(parts) + f" {at}")
+    torch.cuda.synchronize()
 
 
 def readers_alive() -> list:
@@ -846,7 +928,7 @@ def stage_ablation(u16_blocks, masks_t, depth, dev, at, failures) -> dict:
         rows = measure(blocks, masks, depth,
                        timer=lambda fn, inputs: time_ms(fn, inputs)[0])
         prev = None
-        for row in rows:
+        for k, row in enumerate(rows):
             step = "" if prev is None else (
                 f", +{row['ms'] - prev:.4f} ms over the stage before")
             lib = ("none" if row["library_ms"] is None
@@ -854,7 +936,9 @@ def stage_ablation(u16_blocks, masks_t, depth, dev, at, failures) -> dict:
             print(f"stage {row['stage']:8s} {label}: {row['ms']:.4f} ms"
                   f"{step}; bound {row['bound_ms']:.4f} ms by "
                   f"{row['bound_by']}; plain {row['plain_ms']:.4f} ms; "
-                  f"library {lib} {at}")
+                  f"library {lib}"
+                  + beside(row["ms"], EARLIER_STAGE_MS[label][k],
+                           PREDICTED_STAGE_MS[label][k]) + f" {at}")
             prev = row["ms"]
             cases.append(dict(case=f"{label}, stage {row['stage']}", **row))
     launches = fused_moments_stage.launches
@@ -1023,6 +1107,28 @@ def main() -> int:
             failures.append("kernel const: colvar is not exactly 0")
         if not bool(torch.all(checks["compute_var=False"][0][2] == 0)):
             failures.append("kernel novar: colvar is not 0")
+        # identical bits: three calls, then captured calls replayed
+        # twice
+        x0 = torch.from_numpy(poisson).to(dev)
+        for label, m in (("M=6", masks_t), ("M=17", random_masks(17))):
+            first = fused_moments(x0, m, depth - 37)
+            outs = [fused_moments(x0, m, depth - 37) for _ in range(2)]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = [fused_moments(x0, m, depth - 37)
+                            for _ in range(32)]
+            graph.replay()
+            graph.replay()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for o in outs + captured
+                       for a, b in zip(first, o))
+            del graph, captured
+            print(f"  kernel fused_moments, {label}: 3 calls and 32 "
+                  f"captured calls replayed twice give identical bits: "
+                  f"{same}")
+            if not same:
+                failures.append(f"kernel {label}: calls differ in their "
+                                f"bits")
         kernel_max_err = max(e for _, e in checks.values())
         for name, (_, e) in checks.items():
             print(f"  kernel fused_moments vs plain, {name}: max abs err "
@@ -1062,7 +1168,15 @@ def main() -> int:
         torch.cuda.synchronize()
         e2e2_s = time.perf_counter() - t0
         feed2 = dict(ctx.feed_stats)
-        traced_run(ctx, ds, make_udfs(lt), at)
+        counts = traced_run(ctx, ds, make_udfs(lt), at)
+        traced = sum(c for k, c in counts.items() if "moments_partials" in k)
+        combines = sum(c for k, c in counts.items()
+                       if "moments_combine" in k)
+        print(f"  4 trace: {traced} partials and {combines} combine "
+              f"kernels for {n_blocks} blocks")
+        if traced != n_blocks or combines != n_blocks:
+            failures.append(f"4 trace: {traced} partials and {combines} "
+                            f"combine kernels for {n_blocks} blocks")
 
         # -- 5. timings --------------------------------------------------------
         u16_blocks = [
@@ -1093,6 +1207,9 @@ def main() -> int:
             print(f"  plain version: {p_ms:.4f} ms (one by one "
                   f"{p_eager_ms:.4f} ms); library expression (matmul + "
                   f"var_mean, yardstick only): {l_ms:.4f} ms {at}")
+            print(f"  fused_moments {label}: {k_ms:.4f} ms"
+                  + beside(k_ms, EARLIER_MS.get(label),
+                           PREDICTED_MS.get(label)) + f" {at}")
             return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": l_ms}
 
@@ -1105,6 +1222,17 @@ def main() -> int:
         ]
         corr_t = timed(f"f32 corrected M={n_ring_masks}", f32_blocks,
                        ring_masks_t, depth)
+        # 8 blocks of 11.25 MiB (two column ranges of each u16 block)
+        narrow = [b[:, lo:lo + 45 * 128].contiguous() for b in u16_blocks
+                  for lo in (0, 45 * 128)]
+        grid_sweep([
+            ("u16 M=6 (main path)", u16_blocks, masks_t, True),
+            ("u16 M=40", u16_blocks, random_masks(40), True),
+            (f"f32 corrected M={n_ring_masks}", f32_blocks, ring_masks_t,
+             True),
+            ("u16 M=17 P=5760", narrow, random_masks(17)[:, :45 * 128]
+             .contiguous(), True),
+        ], depth, at, failures)
         total_bytes = data.nbytes
         for label, secs, stats in (("first", e2e_s, feed),
                                    ("second", e2e2_s, feed2)):

@@ -42,7 +42,10 @@
 // CTAs run in no order, so the work is two launches:
 //   1. `moments_partials`, a 2-D grid of (pixel chunks x row chunks),
 //      once per mask group.
-//      Each CTA covers ROWS rows x CHUNK_PX pixels.  Per pixel it keeps
+//      Each CTA covers `rows` rows x CHUNK_PX pixels, `rows` a multiple
+//      of 4 up to MAX_ROWS from the caller's grid plan (ops/moments.py
+//      `plan_grid`: fewer rows a CTA on a block too narrow to fill the
+//      card's SMs with CTAs).  Per pixel it keeps
 //      the row chunk's sum and the sums of (x - c) and (x - c)^2 with
 //      c = the chunk's first row (a shifted two-moment form: exact 0
 //      for constant data, stable for a large mean with a narrow
@@ -59,6 +62,14 @@
 //      digits when the data's mean is large against its spread.
 // No float atomics anywhere: two runs give identical bits.
 //
+// Why two launches.  Folding the combine into the partials kernel (the
+// CTA that draws the last ticket of a chunk combines that chunk) was
+// built and measured on the H100: one CTA then reads a pixel chunk's
+// partials of every row chunk (256 KiB at the main path's block) from
+// L2 alone while the rest of the card idles, and the kernel took
+// 0.042 ms against 0.0265 ms with the combine launch, which spreads
+// the same reads over every SM.
+//
 // The launch allocates nothing (the caller passes outputs and
 // scratch), runs on the caller's stream and returns
 // cudaGetLastError().
@@ -71,7 +82,7 @@
 // `ablated` (benchmarks/bench_kernel_ablation.py:48), a stage
 // ablation of `_fused_moments_pallas`:
 //   load_min  the cp.async ring moves every byte; the first and last
-//             row of each 64-row chunk enter colsum
+//             row of each row chunk enter colsum
 //   load      + the raw widen: an integer colsum per chunk (float
 //             input: the f32 colsum)
 //   cast      + to_float and the f32 colsum of the production code
@@ -99,7 +110,7 @@ constexpr int PX = 8;                    // pixels per thread
 constexpr int THREADS = 128;             // threads per CTA
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK_PX = PX * THREADS;   // pixels per CTA
-constexpr int ROWS = 64;                 // rows per CTA
+constexpr int MAX_ROWS = 64;             // rows per CTA, at most
 constexpr int GROUP = 4;                 // rows reduced together
 constexpr int RING_BYTES = 32 * 1024;    // cp.async ring per CTA
 constexpr int COMBINE_THREADS = 256;
@@ -260,7 +271,8 @@ struct WarpSum {
 template <typename T, int MB, int STAGE = STAGE_FULL>
 __global__ void __launch_bounds__(THREADS)
 moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
-                 int D, int P, int M, int valid, int vec_ok,
+                 int D, int P, int M, int chunk_rows, int valid,
+                 int vec_ok,
                  int compute_var, int moments, float* __restrict__ ypart,
                  float* __restrict__ psum, float* __restrict__ pshift,
                  float* __restrict__ pm1, float* __restrict__ pm2) {
@@ -268,15 +280,15 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
   constexpr bool kVar = STAGE >= STAGE_VAR;
   constexpr int RR = kRingRows<T>;
   __shared__ Raw8<T> ring[RR][THREADS];
-  __shared__ float red[WARPS][kDot ? ROWS : 1][MB];
+  __shared__ float red[WARPS][kDot ? MAX_ROWS : 1][MB];
   const int pc = blockIdx.x;
   const int rc = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int p0 = pc * CHUNK_PX + tid * PX;
-  const int r0 = rc * ROWS;
-  const int rows = min(ROWS, D - r0);
+  const int r0 = rc * chunk_rows;
+  const int rows = min(chunk_rows, D - r0);
   const int nvar =
       kVar && compute_var && moments ? max(0, min(rows, valid - r0)) : 0;
   const int npx = max(0, min(PX, P - p0));
@@ -492,7 +504,8 @@ moments_combine(const float* __restrict__ ypart,
                 const float* __restrict__ pshift,
                 const float* __restrict__ pm1,
                 const float* __restrict__ pm2, int D, int P, int M,
-                int n_pc, int n_rc, int valid, int compute_var,
+                int chunk_rows, int n_pc, int n_rc, int valid,
+                int compute_var,
                 float* __restrict__ y, float* __restrict__ colsum,
                 float* __restrict__ colvar) {
   const long gt = (long)blockIdx.x * COMBINE_THREADS + threadIdx.x;
@@ -510,14 +523,14 @@ moments_combine(const float* __restrict__ ypart,
     // means relative to chunk 0's shift c0; all 0 when compute_var is
     // off or valid == 0
     const int n_var =
-        compute_var ? min(n_rc, (valid + ROWS - 1) / ROWS) : 0;
+        compute_var ? min(n_rc, (valid + chunk_rows - 1) / chunk_rows) : 0;
     const float c0 = n_var > 0 ? pshift[t] : 0.f;
     float n = 0.f, mean = 0.f, m2 = 0.f;
     for (int j = g; j < n_var; j += LANES) {
       const size_t at = (size_t)j * P + t;
-      const int r0 = j * ROWS;
+      const int r0 = j * chunk_rows;
       chan(n, mean, m2,
-           static_cast<float>(min(min(ROWS, D - r0), valid - r0)),
+           static_cast<float>(min(min(chunk_rows, D - r0), valid - r0)),
            (pshift[at] - c0) + pm1[at], pm2[at]);
     }
 #pragma unroll
@@ -562,16 +575,16 @@ moments_combine(const float* __restrict__ ypart,
 
 template <typename T, int MB, int STAGE>
 void launch_partials(const void* x, const float* masks, int D, int P,
-                     int M, int valid, int compute_var, int moments,
+                     int M, int rows, int valid, int compute_var, int moments,
                      float* ypart,
                      float* psum, float* pshift, float* pm1, float* pm2,
                      cudaStream_t stream) {
   const int vec_ok =
       P % PX == 0 &&
       reinterpret_cast<uintptr_t>(x) % (sizeof(T) * PX) == 0;
-  const dim3 grid((P + CHUNK_PX - 1) / CHUNK_PX, (D + ROWS - 1) / ROWS);
+  const dim3 grid((P + CHUNK_PX - 1) / CHUNK_PX, (D + rows - 1) / rows);
   moments_partials<T, MB, STAGE><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), masks, D, P, M, valid, vec_ok,
+      static_cast<const T*>(x), masks, D, P, M, rows, valid, vec_ok,
       compute_var, moments, ypart, psum, pshift, pm1, pm2);
 }
 
@@ -580,7 +593,8 @@ void launch_partials(const void* x, const float* masks, int D, int P,
 // of the first launch that fails, else cudaSuccess.
 template <typename T, int STAGE = STAGE_FULL>
 cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
-                          int M, int valid, int compute_var, float* ypart,
+                          int M, int rows, int valid, int compute_var,
+                          float* ypart,
                           float* psum, float* pshift, float* pm1,
                           float* pm2, cudaStream_t s) {
   const int n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
@@ -592,16 +606,20 @@ cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
     // the group's width rounds up to the next instantiated one; the
     // extra mask rows are zeros in registers and never written out
     if (mg <= 2)
-      launch_partials<T, 2, STAGE>(x, mk, D, P, mg, valid, compute_var,
+      launch_partials<T, 2, STAGE>(x, mk, D, P, mg, rows, valid,
+                                   compute_var,
                                    first, yp, psum, pshift, pm1, pm2, s);
     else if (mg <= 4)
-      launch_partials<T, 4, STAGE>(x, mk, D, P, mg, valid, compute_var,
+      launch_partials<T, 4, STAGE>(x, mk, D, P, mg, rows, valid,
+                                   compute_var,
                                    first, yp, psum, pshift, pm1, pm2, s);
     else if (mg <= 6)
-      launch_partials<T, 6, STAGE>(x, mk, D, P, mg, valid, compute_var,
+      launch_partials<T, 6, STAGE>(x, mk, D, P, mg, rows, valid,
+                                   compute_var,
                                    first, yp, psum, pshift, pm1, pm2, s);
     else
-      launch_partials<T, 8, STAGE>(x, mk, D, P, mg, valid, compute_var,
+      launch_partials<T, 8, STAGE>(x, mk, D, P, mg, rows, valid,
+                                   compute_var,
                                    first, yp, psum, pshift, pm1, pm2, s);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -613,56 +631,75 @@ cudaError_t launch_groups(const void* x, const float* masks, int D, int P,
 // M > 0, every y[d, m].
 int combine(const float* ypart, const float* psum, const float* pshift,
             const float* pm1, const float* pm2, int D, int P, int M,
-            int n_pc, int n_rc, int valid, int compute_var, float* y,
-            float* colsum, float* colvar, cudaStream_t s) {
+            int rows, int n_pc, int n_rc, int valid, int compute_var,
+            float* y, float* colsum, float* colvar, cudaStream_t s) {
   const long threads = ((long)P + (long)D * M) * LANES;
   const int blocks =
       static_cast<int>((threads + COMBINE_THREADS - 1) / COMBINE_THREADS);
   moments_combine<<<blocks, COMBINE_THREADS, 0, s>>>(
-      ypart, psum, pshift, pm1, pm2, D, P, M, n_pc, n_rc, valid, compute_var,
-      y, colsum, colvar);
+      ypart, psum, pshift, pm1, pm2, D, P, M, rows, n_pc, n_rc, valid,
+      compute_var, y, colsum, colvar);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The scratch of one call: the y partials of every pixel chunk, group
+// after group ((n_pc, D, Mg) each, so M floats per pixel chunk and row
+// in all), padded to 256 bytes so that the row-chunk partials after
+// them take float4 stores; then sum, shift, mean and m2 of every row
+// chunk of every pixel.
+struct Scratch {
+  float *ypart, *psum, *pshift, *pm1, *pm2;
+  int n_pc, n_rc;
+};
+
+long ypart_floats(int D, int P, int M) {
+  const long n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
+  return (n_pc * D * M + 63) / 64 * 64;
+}
+
+Scratch split(float* scratch, int D, int P, int M, int rows) {
+  Scratch c;
+  c.n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
+  c.n_rc = (D + rows - 1) / rows;
+  c.ypart = scratch;
+  c.psum = scratch + ypart_floats(D, P, M);
+  c.pshift = c.psum + (size_t)c.n_rc * P;
+  c.pm1 = c.pshift + (size_t)c.n_rc * P;
+  c.pm2 = c.pm1 + (size_t)c.n_rc * P;
+  return c;
+}
+
+bool geometry_ok(int D, int P, int M, int rows) {
+  return D > 0 && P > 0 && M > 0 && rows > 0 && rows <= MAX_ROWS &&
+         rows % GROUP == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// y partials of every pixel chunk, group after group ((n_pc, D, Mg)
-// each, so M floats per pixel chunk and row in all), padded to 256
-// bytes so that the row-chunk partials after them take float4 stores
-static long ypart_floats(int D, int P, int M) {
-  const long n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
-  return (n_pc * D * M + 63) / 64 * 64;
-}
-
-// Floats of scratch a launch needs: the y partials, then sum, shift,
-// mean and m2 of every row chunk of every pixel.
-long fused_moments_scratch_floats(int D, int P, int M) {
-  return ypart_floats(D, P, M) + 4L * ((D + ROWS - 1) / ROWS) * P;
+// Floats of scratch a call needs with `rows` rows a CTA.
+long fused_moments_scratch_floats(int D, int P, int M, int rows) {
+  return ypart_floats(D, P, M) + 4L * ((D + rows - 1) / rows) * P;
 }
 
 // dtype codes: 0 u8, 1 i8, 2 u16, 3 i16, 4 i32, 5 u32, 6 f32, 7 f64,
-// 8 i64, 9 u64, 10 f16, 11 bf16.
-// Returns a cudaError_t, or -1 for an unsupported dtype or M < 1.
+// 8 i64, 9 u64, 10 f16, 11 bf16.  `rows`: rows a partials CTA covers
+// (the caller's grid plan), a multiple of 4 up to 64.
+// Returns a cudaError_t, or -1 for an unsupported dtype, mask count or
+// geometry.
 int fused_moments_launch(int dtype, const void* x, const float* masks,
-                         int D, int P, int M, int valid, int compute_var,
-                         float* scratch, float* y, float* colsum,
-                         float* colvar, void* stream) {
+                         int D, int P, int M, int rows, int valid,
+                         int compute_var, float* scratch, float* y,
+                         float* colsum, float* colvar, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
-  const int n_rc = (D + ROWS - 1) / ROWS;
-  float* ypart = scratch;
-  float* psum = ypart + ypart_floats(D, P, M);
-  float* pshift = psum + (size_t)n_rc * P;
-  float* pm1 = pshift + (size_t)n_rc * P;
-  float* pm2 = pm1 + (size_t)n_rc * P;
-  if (M < 1) return -1;
+  if (!geometry_ok(D, P, M, rows)) return -1;
+  const Scratch c = split(scratch, D, P, M, rows);
   cudaError_t err = cudaSuccess;
-#define FM_CASE(code, T)                                                  \
-  case code:                                                              \
-    err = launch_groups<T>(x, masks, D, P, M, valid, compute_var, ypart, \
-                           psum, pshift, pm1, pm2, s);                   \
+#define FM_CASE(code, T)                                                   \
+  case code:                                                               \
+    err = launch_groups<T>(x, masks, D, P, M, rows, valid, compute_var,    \
+                           c.ypart, c.psum, c.pshift, c.pm1, c.pm2, s);    \
     break;
   switch (dtype) {
     FM_CASE(0, uint8_t)
@@ -682,8 +719,8 @@ int fused_moments_launch(int dtype, const void* x, const float* masks,
   }
 #undef FM_CASE
   if (err != cudaSuccess) return static_cast<int>(err);
-  return combine(ypart, psum, pshift, pm1, pm2, D, P, M, n_pc, n_rc, valid,
-                 compute_var, y, colsum, colvar, s);
+  return combine(c.ypart, c.psum, c.pshift, c.pm1, c.pm2, D, P, M, rows,
+                 c.n_pc, c.n_rc, valid, compute_var, y, colsum, colvar, s);
 }
 
 // The stage ablation: `stage` 0 load_min, 1 load, 2 cast, 3 dot,
@@ -692,49 +729,40 @@ int fused_moments_launch(int dtype, const void* x, const float* masks,
 // below dot leave y as it is (the caller zeroes it), stages below var
 // give a zero colvar; var and full are the production launch.  Takes
 // u8, u16 and f32 input; returns a cudaError_t, or -1 for another
-// dtype, stage or M < 1.
+// dtype, stage, mask count or geometry.
 int fused_moments_ablation_launch(int stage, int skip_combine, int dtype,
                                   const void* x, const float* masks, int D,
-                                  int P, int M, int valid, int compute_var,
-                                  float* scratch, float* y, float* colsum,
-                                  float* colvar, void* stream) {
+                                  int P, int M, int rows, int valid,
+                                  int compute_var, float* scratch, float* y,
+                                  float* colsum, float* colvar,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_pc = (P + CHUNK_PX - 1) / CHUNK_PX;
-  const int n_rc = (D + ROWS - 1) / ROWS;
-  float* ypart = scratch;
-  float* psum = ypart + ypart_floats(D, P, M);
-  float* pshift = psum + (size_t)n_rc * P;
-  float* pm1 = pshift + (size_t)n_rc * P;
-  float* pm2 = pm1 + (size_t)n_rc * P;
-  if (M < 1 || stage < STAGE_LOAD_MIN || stage > STAGE_FULL) return -1;
+  if (!geometry_ok(D, P, M, rows) || stage < STAGE_LOAD_MIN ||
+      stage > STAGE_FULL)
+    return -1;
+  const Scratch c = split(scratch, D, P, M, rows);
   cudaError_t err = cudaSuccess;
-#define FM_STAGE(code, T)                                                   \
-  case code:                                                                \
-    switch (stage) {                                                        \
-      case STAGE_LOAD_MIN:                                                  \
-        err = launch_groups<T, STAGE_LOAD_MIN>(x, masks, D, P, M, valid,    \
-                                               compute_var, ypart, psum,    \
-                                               pshift, pm1, pm2, s);        \
-        break;                                                              \
-      case STAGE_LOAD:                                                      \
-        err = launch_groups<T, STAGE_LOAD>(x, masks, D, P, M, valid,        \
-                                           compute_var, ypart, psum,        \
-                                           pshift, pm1, pm2, s);            \
-        break;                                                              \
-      case STAGE_CAST:                                                      \
-        err = launch_groups<T, STAGE_CAST>(x, masks, D, P, M, valid,        \
-                                           compute_var, ypart, psum,        \
-                                           pshift, pm1, pm2, s);            \
-        break;                                                              \
-      case STAGE_DOT:                                                       \
-        err = launch_groups<T, STAGE_DOT>(x, masks, D, P, M, valid,         \
-                                          compute_var, ypart, psum, pshift, \
-                                          pm1, pm2, s);                     \
-        break;                                                              \
-      default:                                                              \
-        err = launch_groups<T>(x, masks, D, P, M, valid, compute_var,       \
-                               ypart, psum, pshift, pm1, pm2, s);           \
-    }                                                                       \
+#define FM_LAUNCH(T, STG)                                                   \
+  err = launch_groups<T, STG>(x, masks, D, P, M, rows, valid, compute_var, \
+                              c.ypart, c.psum, c.pshift, c.pm1, c.pm2, s)
+#define FM_STAGE(code, T)             \
+  case code:                          \
+    switch (stage) {                  \
+      case STAGE_LOAD_MIN:            \
+        FM_LAUNCH(T, STAGE_LOAD_MIN); \
+        break;                        \
+      case STAGE_LOAD:                \
+        FM_LAUNCH(T, STAGE_LOAD);     \
+        break;                        \
+      case STAGE_CAST:                \
+        FM_LAUNCH(T, STAGE_CAST);     \
+        break;                        \
+      case STAGE_DOT:                 \
+        FM_LAUNCH(T, STAGE_DOT);      \
+        break;                        \
+      default:                        \
+        FM_LAUNCH(T, STAGE_FULL);     \
+    }                                 \
     break;
   switch (dtype) {
     FM_STAGE(0, uint8_t)
@@ -744,15 +772,16 @@ int fused_moments_ablation_launch(int stage, int skip_combine, int dtype,
       return -1;
   }
 #undef FM_STAGE
+#undef FM_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
   if (skip_combine) return static_cast<int>(cudaSuccess);
-  return combine(ypart, psum, pshift, pm1, pm2, D, P,
-                 stage >= STAGE_DOT ? M : 0, n_pc, n_rc, valid,
+  return combine(c.ypart, c.psum, c.pshift, c.pm1, c.pm2, D, P,
+                 stage >= STAGE_DOT ? M : 0, rows, c.n_pc, c.n_rc, valid,
                  stage >= STAGE_VAR ? compute_var : 0, y, colsum, colvar, s);
 }
 
 const char* fused_moments_error_string(int code) {
-  if (code == -1) return "unsupported dtype, mask count or stage";
+  if (code == -1) return "unsupported dtype, mask count, geometry or stage";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -10,8 +10,8 @@ of successive stages of the code the main path runs:
   stage     what it adds                                   JAX stage
   ========  =============================================  ==========
   load_min  the cp.async ring moves every byte of x; the   load_min
-            first and last row of each 64-row chunk enter
-            colsum
+            first and last row of each row chunk (the grid
+            plan's CTA rows) enter colsum
   load      the raw widen: an integer colsum per chunk     load_i32,
             (u8/u16; f32 input sums in f32)                load
   cast      to_float and the f32 colsum of the production  cast
@@ -54,11 +54,11 @@ from .moments import (
     _library,
     check_inputs,
     fused_moments_reference,
+    grid_for,
+    plan_grid,
 )
 
 STAGES = ("load_min", "load", "cast", "dot", "var", "full")
-# row chunk of a partials CTA (ROWS in the source)
-ROWS = 64
 _STAGE_DTYPES = {t: _DTYPE_CODES[t]
                  for t in (torch.uint8, torch.uint16, torch.float32)}
 
@@ -67,20 +67,22 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 
-def _chunk_rows(depth: int, last: bool, device) -> torch.Tensor:
-    """The first (or last) row of every 64-row chunk of a block."""
-    first = torch.arange(0, depth, ROWS, device=device)
-    return torch.clamp(first + ROWS - 1, max=depth - 1) if last else first
+def _chunk_rows(depth: int, rows: int, last: bool, device) -> torch.Tensor:
+    """The first (or last) row of every ``rows``-row chunk of a block."""
+    first = torch.arange(0, depth, rows, device=device)
+    return torch.clamp(first + rows - 1, max=depth - 1) if last else first
 
 
 def fused_moments_stage_reference(x, masks_t, valid_count: int, stage: str):
     """Plain PyTorch version of each stage's ``(y, colsum, colvar)``,
-    in float32 (integer chunk sums in int64, exact)."""
+    in float32 (integer chunk sums in int64, exact); the row chunks of
+    load_min and load are the kernel's (``grid_for(x)``)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages are {STAGES}")
     if stage in ("var", "full"):
         return fused_moments_reference(x, masks_t, valid_count)
     depth, pixels = x.shape
+    rows = grid_for(x).rows
     zeros_y = torch.zeros((depth, masks_t.shape[0]), dtype=torch.float32,
                           device=x.device)
     zeros_p = torch.zeros(pixels, dtype=torch.float32, device=x.device)
@@ -88,17 +90,17 @@ def fused_moments_stage_reference(x, masks_t, valid_count: int, stage: str):
     # cast before indexing: PyTorch indexes few dtypes wider than u8
     # that are unsigned
     if stage == "load_min":
-        first = _chunk_rows(depth, False, x.device)
-        last = _chunk_rows(depth, True, x.device)
+        first = _chunk_rows(depth, rows, False, x.device)
+        last = _chunk_rows(depth, rows, True, x.device)
         xt = x.to(torch.float32)
         # a one-row chunk's first row is its last
         ends = xt[first] + torch.where((last != first)[:, None], xt[last],
                                        0.0)
         return zeros_y, ends.sum(dim=0), zeros_p
     if stage == "load" and integer and x.element_size() <= 2:
-        pad = -depth % ROWS
+        pad = -depth % rows
         wide = torch.nn.functional.pad(x.to(torch.int64), (0, 0, 0, pad))
-        chunks = wide.reshape(-1, ROWS, pixels).sum(dim=1)
+        chunks = wide.reshape(-1, rows, pixels).sum(dim=1)
         return zeros_y, chunks.to(torch.float32).sum(dim=0), zeros_p
     xt = x.to(torch.float32)
     colsum = xt.sum(dim=0)
@@ -112,7 +114,7 @@ def _ablation_library():
     fn = lib.fused_moments_ablation_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
             + [ctypes.c_void_p] * 5
         )
         fn.restype = ctypes.c_int
@@ -132,17 +134,16 @@ def _stage_cuda(x, masks_t, valid_count, stage, combine):
     colsum = torch.empty(pixels, dtype=torch.float32, device=dev)
     colvar = torch.empty(pixels, dtype=torch.float32, device=dev)
     lib = _ablation_library()
-    scratch = torch.empty(
-        lib.fused_moments_scratch_floats(depth, pixels, n_masks),
-        dtype=torch.float32, device=dev,
-    )
+    grid = grid_for(x)
+    scratch = torch.empty(grid.scratch_floats(depth, pixels, n_masks),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fused_moments_ablation_launch(
             STAGES.index(stage), int(not combine), _STAGE_DTYPES[x.dtype],
             x.data_ptr(), masks_t.data_ptr(), depth, pixels, n_masks,
-            valid_count, 1, scratch.data_ptr(),
-            y.data_ptr(), colsum.data_ptr(), colvar.data_ptr(), stream,
+            grid.rows, valid_count, 1, scratch.data_ptr(), y.data_ptr(),
+            colsum.data_ptr(), colvar.data_ptr(), stream,
         )
     if code != 0:
         msg = lib.fused_moments_error_string(code).decode()
@@ -176,7 +177,7 @@ def stage_bound(stage: str, depth: int, pixels: int, n_masks: int,
     rate); whichever is larger, with what bounds it."""
     lvl = STAGES.index(stage)
     moved = depth * pixels * itemsize + pixels * 4
-    ops = {0: 2 * -(-depth // ROWS) * pixels, 1: depth * pixels,
+    ops = {0: 2 * plan_grid(depth, pixels).n_rc * pixels, 1: depth * pixels,
            2: depth * pixels}.get(lvl)
     if lvl >= STAGES.index("dot"):
         moved += n_masks * pixels * 4 + depth * n_masks * 4

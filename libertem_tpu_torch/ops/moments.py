@@ -20,14 +20,17 @@ input (the host feed zero-pads tails), so ``y`` and ``colsum`` need no
 row mask; only the variance masks them.  ``compute_var=False`` returns
 a zero ``colvar``.
 
-The kernel takes any mask count: it runs once per group of
-``MASK_GROUP`` mask rows (``launches`` counts each of those), and any
-real input dtype of 1 to 8 bytes (u8 .. u64, i8 .. i64, f16, bf16,
-f32, f64), cast to float32 in registers.
+The kernel takes any mask count: its partials kernel runs once per
+group of ``MASK_GROUP`` mask rows (``launches`` counts each of those)
+and one combine launch follows; and any real input dtype of 1 to 8
+bytes (u8 .. u64, i8 .. i64, f16, bf16, f32, f64), cast to float32 in
+registers.  :func:`plan_grid` picks the partials' CTA tile from the
+card's SM count.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +38,17 @@ from . import build
 
 # mask rows one kernel launch projects on (MASK_GROUP in the source)
 MASK_GROUP = 8
+# pixels and, at most, rows of a CTA (CHUNK_PX, MAX_ROWS in the source)
+CHUNK_PX = 1024
+MAX_ROWS = 64
+# rows a CTA may cover, most first, and the CTAs an SM the plan aims
+# at: measured on the H100 (chip_smoke.py's grid sweep), 64-row CTAs
+# win at 1.9 CTAs an SM (the main path's block) and lose by a third to
+# 16-row ones at 0.7 (a 45-block compacted one)
+ROW_CHOICES = (64, 48, 32, 16)
+TARGET_CTAS_PER_SM = 1.5
+H100_SMS = 132
+_SMS: dict = {}
 _DTYPE_CODES = {
     torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
     torch.int32: 4, torch.uint32: 5, torch.float32: 6, torch.float64: 7,
@@ -63,19 +77,69 @@ def fused_moments_reference(x, masks_t, valid_count: int,
     return y, colsum, colvar
 
 
+class Grid(NamedTuple):
+    """The kernel's tiling of a ``(depth, pixels)`` block: CTAs of
+    ``rows`` rows x ``CHUNK_PX`` pixels on an ``(n_pc, n_rc)`` grid."""
+
+    rows: int
+    n_pc: int
+    n_rc: int
+
+    @property
+    def ctas(self) -> int:
+        return self.n_pc * self.n_rc
+
+    def scratch_floats(self, depth: int, pixels: int, n_masks: int) -> int:
+        """Floats of partials a call writes: y's ``(n_pc, depth, M)``
+        padded to 64 floats, then sum, shift, mean and m2 of each row
+        chunk of each pixel."""
+        ypart = -(-self.n_pc * depth * n_masks // 64) * 64
+        return ypart + 4 * self.n_rc * pixels
+
+
+def plan_grid(depth: int, pixels: int, sm_count: int = H100_SMS) -> Grid:
+    """The partials' CTA tile of a block on a card with ``sm_count``
+    SMs: the most rows a CTA (of ``ROW_CHOICES``) that still give the
+    grid ``TARGET_CTAS_PER_SM`` CTAs an SM, else the fewest.  Fewer
+    rows a CTA put more warps on each SM to hide the product and the
+    variance under the loads; they also write more partials, which
+    the combine reads back."""
+    n_pc = -(-pixels // CHUNK_PX)
+    for rows in ROW_CHOICES:
+        if n_pc * -(-depth // rows) >= TARGET_CTAS_PER_SM * sm_count:
+            break
+    return Grid(rows, n_pc, -(-depth // rows))
+
+
+def _sm_count(device) -> int:
+    count = _SMS.get(device)
+    if count is None:
+        count = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = count
+    return count
+
+
+def grid_for(x) -> Grid:
+    """The plan the kernel runs ``x`` with: its device's SM count on a
+    CUDA tensor, the H100's on the CPU (where the plain versions that
+    follow the tiling run)."""
+    sms = _sm_count(x.device) if x.device.type == "cuda" else H100_SMS
+    return plan_grid(x.shape[0], x.shape[1], sms)
+
+
 def _library():
     lib = build.load("fused_moments")
     fn = lib.fused_moments_launch
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 5
+            + [ctypes.c_int] * 6
             + [ctypes.c_void_p] * 5
         )
         fn.restype = ctypes.c_int
         lib.fused_moments_error_string.argtypes = [ctypes.c_int]
         lib.fused_moments_error_string.restype = ctypes.c_char_p
-        lib.fused_moments_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fused_moments_scratch_floats.argtypes = [ctypes.c_int] * 4
         lib.fused_moments_scratch_floats.restype = ctypes.c_long
     return lib
 
@@ -108,25 +172,24 @@ def check_inputs(x, masks_t, valid_count, dtypes=_DTYPE_CODES) -> int:
     return valid_count
 
 
-def _fused_moments_cuda(x, masks_t, valid_count, compute_var):
+def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None):
     valid_count = check_inputs(x, masks_t, valid_count)
     depth, pixels = x.shape
     n_masks = masks_t.shape[0]
+    grid = grid or grid_for(x)
     y = torch.empty((depth, n_masks), dtype=torch.float32, device=x.device)
     colsum = torch.empty(pixels, dtype=torch.float32, device=x.device)
     colvar = torch.empty(pixels, dtype=torch.float32, device=x.device)
     lib = _library()
-    scratch = torch.empty(
-        lib.fused_moments_scratch_floats(depth, pixels, n_masks),
-        dtype=torch.float32, device=x.device,
-    )
+    scratch = torch.empty(grid.scratch_floats(depth, pixels, n_masks),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fused_moments_launch(
             _DTYPE_CODES[x.dtype], x.data_ptr(), masks_t.data_ptr(),
-            depth, pixels, n_masks, valid_count, int(bool(compute_var)),
-            scratch.data_ptr(), y.data_ptr(), colsum.data_ptr(),
-            colvar.data_ptr(), stream,
+            depth, pixels, n_masks, grid.rows, valid_count,
+            int(bool(compute_var)), scratch.data_ptr(), y.data_ptr(),
+            colsum.data_ptr(), colvar.data_ptr(), stream,
         )
     if code != 0:
         msg = lib.fused_moments_error_string(code).decode()
@@ -146,6 +209,7 @@ def fused_moments(x, masks_t, valid_count: int,
     return _fused_moments_cuda(x, masks_t, valid_count, compute_var)
 
 
-# kernel launches so far, one per mask group of each call; a run reads
-# it to show it went through the kernel
+# partials launches so far, one per mask group of each call (each call
+# adds one combine launch); a run reads it to show it went through the
+# kernel
 fused_moments.launches = 0

@@ -22,9 +22,10 @@ a pass of its own, and ``chip_smoke.py`` phase 7a times the gather
 plus the product on the gathered block against the product on the
 whole frame at several fills; ``CUDA_MAX_FILL`` holds, per product,
 the largest fill up to which the compacted side won at every mask
-count measured there.  The fused-moments kernel's time at the engine's
-block depth follows its row chunks, not the pixel count, so compaction
-never won for it; the float32 matmul of ApplyMasks' generic path
+count measured there.  The fused-moments kernel on a gathered block
+runs a grid planned for the block's narrow width (16-row CTAs), and
+compaction won for it up to a fill of 4 of 128 blocks (at 16 it lost
+at one mask row); the float32 matmul of ApplyMasks' generic path
 reads fewer bytes compacted and won up to a fill of 16 of 128 blocks.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 BLOCK = 128
 # the largest fill at which a run on a CUDA card uses a plan, by the
 # product on the gathered block (see the module docstring)
-CUDA_MAX_FILL = {"fused_moments": 0.0, "matmul": 16 / 128}
+CUDA_MAX_FILL = {"fused_moments": 4 / 128, "matmul": 16 / 128}
 
 
 def _to_blocks(arr, block, pad_fn):

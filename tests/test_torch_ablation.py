@@ -28,11 +28,11 @@ from libertem_tpu_torch.ops.ablation import (
     fused_moments_stage_reference,
     stage_bound,
 )
+from libertem_tpu_torch.ops.moments import plan_grid
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5
-TD = 64  # the JAX script's row step (bench_kernel_ablation.py:35)
 
 
 def _close(actual, expected):
@@ -61,9 +61,12 @@ def _stage(x, masks, valid, stage):
 
 
 def _jax_definition(x, masks, valid, stage):
-    """What the JAX stage computes, as numpy on a depth that is a
-    multiple of TD: ``(y, colsum, colvar)``."""
+    """What the JAX stage computes, as numpy, with the JAX script's row
+    step ``TD`` (bench_kernel_ablation.py:35) set to the grid plan's
+    rows a CTA, on a depth that is a multiple of it: ``(y, colsum,
+    colvar)``."""
     depth, pixels = x.shape
+    TD = plan_grid(depth, pixels).rows
     steps = x.reshape(depth // TD, TD, pixels).astype(np.int64)
     y = np.zeros((depth, masks.shape[0]))
     colvar = np.zeros(pixels)
@@ -131,19 +134,22 @@ def test_full_stage_matches_pallas(kind, depth, pixels, n_masks, valid):
 
 
 def test_ragged_depth_stages():
-    """A depth of 100: chunks of 64 and 36 rows."""
+    """A depth of 100 in the plan's 16-row chunks: six of 16 rows and a
+    short one of 4."""
     x = _block("u16", 100, 300, 100, seed=9)
     masks = np.random.default_rng(2).random((4, 300)).astype(np.float32)
     x64 = x.astype(np.int64)
+    assert plan_grid(100, 300).rows == 16
     _, colsum, _ = _stage(x, masks, 100, "load_min")
-    assert np.array_equal(colsum, x64[[0, 63, 64, 99]].sum(axis=0))
+    ends = [r for r0 in range(0, 96, 16) for r in (r0, r0 + 15)] + [96, 99]
+    assert np.array_equal(colsum, x64[ends].sum(axis=0))
     _, colsum, _ = _stage(x, masks, 100, "load")
     assert np.array_equal(colsum, x64.sum(axis=0))
     # a one-row last chunk enters once
     x65 = _block("u16", 65, 300, 65, seed=10)
     _, colsum, _ = _stage(x65, masks, 65, "load_min")
-    assert np.array_equal(colsum,
-                          x65.astype(np.int64)[[0, 63, 64]].sum(axis=0))
+    ends = [r for r0 in range(0, 64, 16) for r in (r0, r0 + 15)] + [64]
+    assert np.array_equal(colsum, x65.astype(np.int64)[ends].sum(axis=0))
 
 
 def test_float_load_stage_is_the_cast():

@@ -40,6 +40,22 @@ CASES = [
     ("bf16", 256, 4096, 12, 199),
     # a dark- and gain-corrected f32 block: large means, padded tail
     ("corrected", 1024, 16384, 12, 1000),
+    # depths of one row, one row past a chunk, and a ragged last chunk
+    ("u16", 1, 4096, 6, 1),
+    ("u16", 65, 4096, 6, 65),
+    ("u16", 1000, 16384, 6, 999),
+    # the compacted width (a ragged last pixel chunk) and a ragged P
+    ("u16", 1024, 5760, 17, 1024),
+    ("u16", 300, 4100, 6, 300),
+    ("u16", 128, 3001, 3, 100),
+    # no valid row
+    ("u16", 256, 4096, 6, 0),
+    # mask counts around the groups of 8
+    ("u16", 512, 4096, 1, 512),
+    ("u16", 512, 4096, 8, 400),
+    ("u16", 512, 4096, 9, 512),
+    ("u16", 1024, 16384, 17, 1024),
+    ("u16", 1024, 16384, 40, 1000),
 ]
 
 _TORCH_ONLY = {"f16": torch.float16, "bf16": torch.bfloat16}
@@ -121,6 +137,81 @@ def test_fused_moments_kernel_contracts(card):
     assert torch.equal(y[:, :8], y[:, 8:16])
     with pytest.raises(ValueError):
         fused_moments(x, torch.ones((0, 2048), device=card), 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_masks", [6, 17])
+def test_fused_moments_graph_replays_identical(card, n_masks):
+    """Three calls and two replays of 32 captured calls give identical
+    bits: no atomics, sums in a fixed order."""
+    rng = np.random.default_rng(n_masks)
+    x = _block("u16", 1024, 16384, 1000, rng).to(card)
+    masks = torch.from_numpy(
+        rng.normal(size=(n_masks, 16384)).astype(np.float32)).to(card)
+    first = fused_moments(x, masks, 1000)
+    outs = [fused_moments(x, masks, 1000) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs += [fused_moments(x, masks, 1000) for _ in range(32)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(first, out):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_masks", [6, 12, 40])
+def test_fused_moments_launches_per_call(card, n_masks):
+    """One call captured in a CUDA graph holds ceil(M / 8) + 1 kernel
+    nodes (a partials kernel per group of 8 mask rows, one combine)
+    and no copy or memset node."""
+    import ctypes
+
+    x = torch.ones((1024, 16384), dtype=torch.uint16, device=card)
+    masks = torch.ones((n_masks, 16384), dtype=torch.float32, device=card)
+    fused_moments(x, masks, 1024)  # builds the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fused_moments(x, masks, 1024)
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                         ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
+    assert kinds.count(0) == -(-n_masks // 8) + 1, kinds
+    assert 1 not in kinds and 2 not in kinds, kinds
+
+
+@pytest.mark.cuda
+def test_grid_plan_matches_the_library(card):
+    """The planner's scratch size is the library's, and the library
+    refuses a tile it does not take."""
+    from libertem_tpu_torch.ops.moments import (
+        Grid, _fused_moments_cuda, _library, plan_grid)
+
+    lib = _library()
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for depth, pixels, n_masks in [(1024, 16384, 6), (1024, 5760, 17),
+                                   (65, 3001, 40), (1, 8, 1)]:
+        grid = plan_grid(depth, pixels, sms)
+        assert lib.fused_moments_scratch_floats(
+            depth, pixels, n_masks, grid.rows) == grid.scratch_floats(
+            depth, pixels, n_masks)
+    x = torch.zeros((64, 1024), dtype=torch.uint16, device=card)
+    m = torch.ones((1, 1024), device=card)
+    with pytest.raises(RuntimeError, match="geometry"):
+        _fused_moments_cuda(x, m, 64, True, Grid(30, 1, 3))
 
 
 # -- whole runs on the card against the same runs on the CPU ------------------
