@@ -69,7 +69,21 @@ from the root of the repository.  Phases, each fatal on failure:
    three shapes (the main path's block, M = 40, and the compacted
    P = 5760, M = 17), each stage timed there with the launch count set
    to 0 just before and read just after; then the entry point
-   ``python -m libertem_tpu_torch.ops.ablation`` once.
+   ``python -m libertem_tpu_torch.ops.ablation`` once;
+10. the analyses on the same scan, each through the API a user calls
+    with the launch count set to 0 just before and read just after,
+    printing its wall time, GB/s, whether it ran fused and its launches:
+    the 15 analysis ids through ``Context.run`` (MASKS with a BF disk,
+    an ADF ring and a gradient; RADIAL_FOURIER with 2 bins and 8
+    orders, 18 complex masks; CLUST's two device passes, the std map
+    and 42 templates, without the clustering); a GUI roi over a quarter
+    of the scan; CoMUDF with the regressions SUBTRACT_MEAN and
+    SUBTRACT_LINEAR; ``Context.map`` with a torch and a numpy function
+    over a quarter; RecordUDF writing a quarter to a ``.npy`` file.
+    Every result channel against float64 (complex128) numpy answers,
+    the regression's coefficients against ``np.linalg.lstsq``, the
+    recorded file bit for bit; CLUST's feature pass and APPLY_FFT_MASK
+    traced once more.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -963,6 +977,446 @@ def stage_ablation(u16_blocks, masks_t, depth, dev, at, failures) -> dict:
     return {"launches": launches, "max_abs_err": max_abs, "cases": cases}
 
 
+# -- phase 10: the analyses ---------------------------------------------------
+
+# the ids whose run is fused in the JAX package's plan (held against the
+# JAX runner, per id, by tests/test_torch_analyses.py)
+FUSED_IDS = {"MASKS", "APPLY_DISK_MASK", "APPLY_RING_MASK",
+             "APPLY_POINT_SELECTOR", "SUM_FRAMES", "SUM_SIG", "SD_FRAMES",
+             "CENTER_OF_MASS", "FFTSUM_FRAMES", "CLUST"}
+
+
+def analysis_params(lt) -> dict:
+    """Parameters of each analysis id, scaled to the frame (at 128x128:
+    BF disk r=16 and ADF ring 40..60 around the centre, CoM r=32, FEM
+    ring 20..50, Fourier ring 4..40 behind a real-space disk of 16)."""
+    h, w = SIG
+    c = h // 2
+    aperture = {"real_rad": h // 8, "real_centery": c, "real_centerx": c}
+    return {
+        "MASKS": {"factories": [
+            lambda: lt.masks.circular(c, c, w, h, h // 8),
+            lambda: lt.masks.ring(c, c, w, h, h * 15 // 32, h * 5 // 16),
+            lambda: lt.masks.gradient_x(w, h),
+        ]},
+        "APPLY_DISK_MASK": {"cx": c, "cy": c, "r": h // 8},
+        "APPLY_RING_MASK": {"cx": c, "cy": c, "ri": h * 5 // 16,
+                            "ro": h * 15 // 32},
+        "APPLY_POINT_SELECTOR": {"cx": c + h // 16, "cy": c - h // 8},
+        "SUM_FRAMES": {},
+        "SUM_SIG": {},
+        "SD_FRAMES": {},
+        "PICK_FRAME": {"x": NAV[1] * 3 // 10, "y": NAV[0] * 5 // 9},
+        # phase 4's CoM disk, whose centres the oracle reuses
+        "CENTER_OF_MASS": {"cx": c, "cy": c, "r": h // 4,
+                           "scan_rotation": 15.0, "flip_y": True},
+        "RADIAL_FOURIER": {"cx": c, "cy": c, "ri": h // 16,
+                           "ro": h * 7 // 16, "n_bins": 2, "max_order": 8},
+        "FEM": {"cx": c, "cy": c, "ri": h * 5 // 32, "ro": h * 25 // 64},
+        "APPLY_FFT_MASK": {"rad_in": h // 32, "rad_out": h * 5 // 16,
+                           **aperture},
+        "PICK_FFT_FRAME": {"x": NAV[1] // 7, "y": NAV[0] * 7 // 9,
+                           **aperture},
+        "FFTSUM_FRAMES": dict(aperture),
+        "CLUST": {},
+    }
+
+
+# the CoM regression runs: the whole frame's centre of mass (the frame's
+# middle, for this scan) against a reference centre off it, so that the
+# mean shift is far from 0
+REG_CENTRE = (SIG[0] * 0.47, SIG[1] * 0.55)
+
+
+def analysis_oracle(lt, data, analyses, want4) -> dict:
+    """float64 (complex128) answers of phase 10 over every frame: the
+    projections on every real mask row of the analyses (the complex
+    radial Fourier stack as real and imaginary rows) and of the
+    regression runs' CoM rows; FEM's per-frame ring std and
+    APPLY_FFT_MASK's Fourier-ring intensity (scipy.fft); the moments
+    and phase 4's CoM centres from ``want4``."""
+    from scipy import fft as sfft
+
+    from libertem_tpu_torch.analysis.fft import _fft_ring_mask, _real_aperture
+    from libertem_tpu_torch.analysis.radialfourier import radial_fourier_masks
+    from libertem_tpu_torch.udf.com import com_masks
+
+    h, w = SIG
+    n = int(np.prod(NAV))
+    blocks, rows = [], {}
+
+    def add(name, stack):
+        stack = np.asarray(stack, dtype=np.float64).reshape(-1, h * w)
+        start = sum(len(b) for b in blocks)
+        rows[name] = slice(start, start + len(stack))
+        blocks.append(stack)
+
+    for id_ in ("MASKS", "APPLY_DISK_MASK", "APPLY_RING_MASK",
+                "APPLY_POINT_SELECTOR"):
+        add(id_, np.stack([f() for f in analyses[id_].get_mask_factories()]))
+    add("SUM_SIG", np.ones((1, h * w)))
+    add("REGRESSION", com_masks(SIG, *REG_CENTRE))
+    p = analyses["RADIAL_FOURIER"].parameters
+    rf = radial_fourier_masks(SIG, p["cx"], p["cy"], p["ri"], p["ro"],
+                              p["n_bins"], p["max_order"]).astype(
+        np.complex128)
+    add("RF_REAL", rf.real)
+    add("RF_IMAG", rf.imag)
+    proj = projections64(data, np.concatenate(blocks), np.arange(n))
+    p = analyses["FEM"].parameters
+    yy, xx = np.ogrid[0:h, 0:w]
+    d = np.sqrt((yy - p["cy"]) ** 2 + (xx - p["cx"]) ** 2)
+    ring_idx = np.flatnonzero(((d > p["ri"]) & (d <= p["ro"])).reshape(-1))
+    p = analyses["APPLY_FFT_MASK"].parameters
+    fring = _fft_ring_mask(SIG, p["rad_in"], p["rad_out"]).astype(np.float64)
+    ap = _real_aperture(SIG, p["real_rad"], p["real_centery"],
+                        p["real_centerx"]).astype(np.float64)
+    flat = data.reshape(n, h * w)
+
+    def part(lo, ids):
+        f = flat[ids].astype(np.float64)
+        spec = np.abs(sfft.fft2(f.reshape(-1, h, w) * ap))
+        return f[:, ring_idx].std(axis=1), (spec * fring).sum(axis=(1, 2))
+
+    per_frame = in_chunks(np.arange(n), part)
+    return {"proj": {k: proj[:, s] for k, s in rows.items()},
+            "fem": np.concatenate([f for f, _ in per_frame]),
+            "fftm": np.concatenate([m for _, m in per_frame]),
+            "sum": want4[(2, "intensity")], "mean": want4[(4, "mean")],
+            "var": want4[(4, "var")], "centres": want4[(1, "raw_com")]}
+
+
+def com_channels(centres, centre, scan_rotation, flip_y) -> tuple:
+    """float64 CoM shift fields of the (*nav, 2) ``centres`` relative
+    to ``centre``, corrected as CoMAnalysis does (flip y, then
+    rotate)."""
+    sy = centres[..., 0] - centre[0]
+    sx = centres[..., 1] - centre[1]
+    theta = np.deg2rad(scan_rotation)
+    if flip_y:
+        sy = -sy
+    return (sy * np.cos(theta) + sx * np.sin(theta),
+            -sy * np.sin(theta) + sx * np.cos(theta))
+
+
+def spectrum64(frame, p) -> np.ndarray:
+    from libertem_tpu_torch.analysis.fft import _real_aperture
+    ap = _real_aperture(SIG, p["real_rad"], p["real_centery"],
+                        p["real_centerx"])
+    return np.fft.fftshift(np.abs(np.fft.fft2(
+        frame.astype(np.float64) * ap)))
+
+
+def dominant64(coeffs, n_bins, max_order) -> tuple[np.ndarray, np.ndarray]:
+    """RadialFourierAnalysis's dominant order in float64, and where it
+    is decided by less than 1e-4 relative (two orders' magnitudes, or
+    one and the threshold, that close): there float32 may decide the
+    other way."""
+    absolute = np.abs(coeffs.reshape(NAV + (n_bins, max_order + 1)))[..., 1:]
+    threshold = absolute.reshape(-1, n_bins, max_order).max(axis=(0, 2)) * 0.2
+    top2 = np.sort(absolute, axis=-1)[..., -2:]
+    dominant = np.argmax(absolute, axis=-1) + 1.0
+    dominant[np.all(absolute < threshold[:, None], axis=-1)] = 0.0
+    near = ((top2[..., 1] - top2[..., 0]) <= 1e-4 * top2[..., 1]) | (
+        np.abs(top2[..., 1] - threshold) <= 1e-4 * threshold)
+    return dominant, near
+
+
+def expected_channels(id_, analysis, o, data) -> dict:
+    """key -> (float64 / complex128 answer, how it is held: "real",
+    "complex", "phase", "exact", "dominant" or "field") of every result
+    channel of ``id_``."""
+    proj = o["proj"]
+    p = analysis.parameters
+    if id_ == "MASKS":
+        return {f"mask_{i}": (proj[id_][:, i].reshape(NAV), "real")
+                for i in range(proj[id_].shape[1])}
+    if id_ in ("APPLY_DISK_MASK", "APPLY_RING_MASK",
+               "APPLY_POINT_SELECTOR"):
+        v = proj[id_][:, 0].reshape(NAV)
+        return {"intensity": (v, "real"), "intensity_log": (v, "real")}
+    if id_ == "SUM_FRAMES":
+        return {"intensity": (o["sum"], "real"),
+                "intensity_lin": (o["sum"], "real")}
+    if id_ == "CLUST":
+        return {"intensity": (np.sqrt(o["var"]), "real")}
+    if id_ == "SUM_SIG":
+        return {"intensity": (proj[id_][:, 0].reshape(NAV), "real")}
+    if id_ == "SD_FRAMES":
+        std = np.sqrt(o["var"])
+        return {"intensity": (std, "real"), "intensity_lin": (std, "real"),
+                "variance": (o["var"], "real"), "std": (std, "real"),
+                "mean": (o["mean"], "real")}
+    if id_ == "PICK_FRAME":
+        frame = data[p["y"], p["x"]]
+        return {"intensity": (frame, "exact"),
+                "intensity_lin": (frame, "exact")}
+    if id_ == "PICK_FFT_FRAME":
+        return {"intensity": (spectrum64(data[p["y"], p["x"]], p), "real")}
+    if id_ == "FFTSUM_FRAMES":
+        return {"intensity": (spectrum64(o["sum"], p), "real")}
+    if id_ == "FEM":
+        return {"intensity": (o["fem"].reshape(NAV), "real")}
+    if id_ == "APPLY_FFT_MASK":
+        return {"intensity": (o["fftm"].reshape(NAV), "real")}
+    if id_ == "CENTER_OF_MASS":
+        fy, fx = com_channels(o["centres"], (p["cy"], p["cx"]),
+                              p["scan_rotation"], p["flip_y"])
+        return {
+            "field": (np.stack([fx, fy]), "real"),
+            "magnitude": (np.hypot(fy, fx), "real"),
+            "divergence": (np.gradient(fy, axis=0) + np.gradient(fx, axis=1),
+                           "field"),
+            "curl": (np.gradient(fy, axis=1) - np.gradient(fx, axis=0),
+                     "field"),
+            "x": (fx, "real"), "y": (fy, "real"),
+        }
+    # RADIAL_FOURIER
+    n_bins, max_order = p["n_bins"], p["max_order"]
+    coeffs = proj["RF_REAL"] + 1j * proj["RF_IMAG"]
+    dominant, near = dominant64(coeffs, n_bins, max_order)
+    c = coeffs.reshape(NAV + (n_bins, max_order + 1))
+    out = {}
+    for b in range(n_bins):
+        out[f"dominant_{b}"] = ((dominant[..., b], near[..., b]), "dominant")
+        for k in range(max_order + 1):
+            # the magnitude of a complex64 result: held as complex
+            # results are (the orders above 0 are sums that cancel to
+            # about 1/200 of their terms' magnitude)
+            out[f"absolute_{b}_{k}"] = (np.abs(c[..., b, k]), "complex")
+            if k > 0:
+                out[f"phase_{b}_{k}"] = (c[..., b, k], "phase")
+            out[f"complex_{b}_{k}"] = (c[..., b, k], "complex")
+    return out
+
+
+def check_channels(label, res, want, failures) -> float:
+    """Every channel of an AnalysisResultSet against its answer (and no
+    channel without one); returns the largest relative error seen."""
+    worst = 0.0
+    if list(res.keys()) != list(want):
+        failures.append(f"{label}: channels {res.keys()}, expected "
+                        f"{list(want)}")
+        return float("inf")
+    field_scale = None
+    for r in res:
+        ref, how = want[r.key]
+        got = np.asarray(r.raw_data)
+        if how == "exact":
+            ok = got.dtype == ref.dtype and np.array_equal(got, ref)
+            e = 0.0 if ok else float("inf")
+        elif how == "dominant":
+            ref, near = ref
+            ok = got.shape == ref.shape and np.array_equal(
+                got[~near], ref[~near])
+            e = float(np.count_nonzero(got[~near] != ref[~near]))
+            print(f"  {label} {r.key}: {int(near.sum())} positions "
+                  f"decided within 1e-4 left out, {int(e)} others differ")
+        elif how == "phase":
+            # |c| times the angle error, against CRTOL of |c| and of the
+            # largest |c|
+            mag = np.abs(ref)
+            d = np.angle(np.exp(1j * (got - np.angle(ref))))
+            err = mag * np.abs(d)
+            ok = bool(np.all(err <= CRTOL * (mag + mag.max())))
+            e = float(err.max() / mag.max())
+        else:
+            scale = None
+            if how == "field":
+                scale = field_scale
+            e, ok = max_err(got, ref, scale,
+                            CRTOL if how == "complex" else RTOL)
+            e = e / max(float(np.nanmax(np.abs(ref), initial=0.0)), 1.0)
+            if r.key == "magnitude":
+                field_scale = float(np.nanmax(np.abs(ref)))
+        worst = max(worst, e)
+        if not ok:
+            failures.append(f"{label} {r.key}: error {e} ({how})")
+    return worst
+
+
+def analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures) -> dict:
+    """Phase 10: the 15 analysis ids through ``Context.run`` on the
+    scan, a GUI roi, the CoM regression, ``Context.map`` and RecordUDF,
+    each with the launch count set to 0 just before and read just
+    after, held against float64 (complex128) numpy answers.  Returns
+    the launch count of each path."""
+    import torch
+
+    from libertem_tpu_torch.analysis.base import Analysis
+    from libertem_tpu_torch.analysis.clust import peak_local_max
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.udf.com import RegressionOptions
+
+    n = int(np.prod(NAV))
+    frame_bytes = int(np.prod(SIG)) * data.itemsize
+    params = analysis_params(lt)
+    analyses = {id_: Analysis.get_analysis_by_type(id_)(ds, p)
+                for id_, p in params.items()}
+    launches = {}
+
+    def run(label, fn, frames, fused_expected):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fused_moments.launches
+        fused = ctx.run_info["fused"]
+        print(f"10 {label}: {secs:.3f} s wall, {frames} frames = "
+              f"{frames * frame_bytes / secs / 1e9:.2f} GB/s, fused "
+              f"{fused}, fused_moments partials launches {count} {at}")
+        launches[f"{label} (phase 10)"] = count
+        if fused != fused_expected or (count > 0) != fused:
+            failures.append(f"10 {label}: fused {fused} (expected "
+                            f"{fused_expected}), {count} launches")
+        return out
+
+    results = {}
+    for id_, analysis in analyses.items():
+        if id_ == "CLUST":
+            continue
+        frames = 1 if id_ in ("PICK_FRAME", "PICK_FFT_FRAME") else n
+        results[id_] = run(f"Context.run {id_}",
+                           lambda a=analysis: ctx.run(a), frames,
+                           id_ in FUSED_IDS)
+    clust = analyses["CLUST"]
+    std_map, feats = run("CLUST feature passes (std, then M=42)",
+                         lambda: clust.run_feature_passes(ctx), 2 * n, True)
+    results["CLUST"] = run("Context.run CLUST", lambda: ctx.run(clust), n,
+                           True)
+    quarter = np.zeros(NAV, dtype=bool)
+    quarter[:NAV[0] // 2, :NAV[1] // 2] = True
+    gui = Analysis.get_analysis_by_type("APPLY_DISK_MASK")(ds, {
+        **params["APPLY_DISK_MASK"],
+        "roi": {"shape": "rect", "x": 0, "y": 0, "width": NAV[1] // 2,
+                "height": NAV[0] // 2},
+    })
+    roi_res = run("APPLY_DISK_MASK with a GUI roi (a quarter)",
+                  lambda: ctx.run(gui), n // 4, True)
+    reg = {}
+    for mode in (RegressionOptions.SUBTRACT_MEAN,
+                 RegressionOptions.SUBTRACT_LINEAR):
+        udf = lt.CoMUDF.with_params(cy=REG_CENTRE[0], cx=REG_CENTRE[1],
+                                    regression=mode)
+        reg[mode] = run(f"CoMUDF regression={mode}",
+                        lambda u=udf: ctx.run_udf(ds, u), n, True)
+    br = np.zeros(NAV, dtype=bool)
+    br[NAV[0] // 2:, NAV[1] // 2:] = True
+    map_t = run("Context.map, torch f (a quarter)",
+                lambda: ctx.map(ds, lambda fr: fr.sum(0), roi=br), n // 4,
+                False)
+    engines_t = ctx.run_info["engines"]
+    map_n = run("Context.map, numpy f (a quarter)",
+                lambda: ctx.map(ds, lambda fr: np.asarray(fr).max(axis=1),
+                                roi=br), n // 4, False)
+    engines_n = ctx.run_info["engines"]
+    tr = np.zeros(NAV, dtype=bool)
+    tr[:NAV[0] // 2, NAV[1] // 2:] = True
+    rec_path = os.path.join(tmp, "record.npy")
+    run("RecordUDF (a quarter)",
+        lambda: ctx.run_udf(ds, lt.RecordUDF(rec_path), roi=tr), n // 4,
+        False)
+    engines_r = ctx.run_info["engines"]
+    # the two slowest whole-scan passes, once more under the profiler
+    print("10 trace of CLUST's feature pass (M=42), run again:")
+    traced_run(ctx, ds, [clust.feature_udf(std_map)], at)
+    print("10 trace of APPLY_FFT_MASK, run again:")
+    traced_run(ctx, ds, [analyses["APPLY_FFT_MASK"].get_udf()], at)
+
+    t0 = time.perf_counter()
+    o = analysis_oracle(lt, data, analyses, want4)
+    print(f"oracle 10: {time.perf_counter() - t0:.1f} s (float64 / "
+          f"complex128 numpy, scipy.fft)")
+    for id_, res in results.items():
+        want = expected_channels(id_, analyses[id_], o, data)
+        e = check_channels(f"10 {id_}", res, want, failures)
+        print(f"  10 {id_}: {len(want)} channels, largest relative error "
+              f"{e:.3g} vs float64")
+    # CLUST's passes: the std map, and the features at its peaks
+    e_std, ok = max_err(std_map, np.sqrt(o["var"]))
+    if not ok:
+        failures.append(f"10 CLUST std map: max err {e_std}")
+    udf = clust.feature_udf(std_map)
+    stack = np.asarray(udf.params.mask_factories(), dtype=np.float64)
+    want_f = projections64(data, stack.reshape(len(stack), -1),
+                           np.arange(n)).reshape(NAV + (len(stack),))
+    e, ok = max_err(feats, want_f)
+    peaks = peak_local_max(std_map, 1, 42)
+    print(f"  10 CLUST: std map max abs err {e_std:.3g}, {len(peaks)} "
+          f"peaks, features {feats.shape} max abs err {e:.3g} vs float64")
+    if not ok or feats.shape != NAV + (42,):
+        failures.append(f"10 CLUST features: max err {e}, {feats.shape}")
+    # the GUI roi: the quarter's frames, nan elsewhere
+    disk = np.full(NAV, np.nan)
+    disk[quarter] = o["proj"]["APPLY_DISK_MASK"][:, 0].reshape(NAV)[quarter]
+    e = check_channels("10 GUI roi", roi_res, {
+        "intensity": (disk, "real"), "intensity_log": (disk, "real")},
+        failures)
+    print(f"  10 GUI roi: {int(np.isfinite(roi_res.intensity.raw_data).sum())}"
+          f" frames, largest relative error {e:.3g} vs float64")
+    # the regression: np.linalg.lstsq in float64 on the oracle's centres
+    proj = o["proj"]["REGRESSION"]
+    centres = (proj[:, 1:] / proj[:, :1]).reshape(NAV + (2,))
+    shifts = com_channels(centres, REG_CENTRE, 0.0, False)
+    rows, cols = np.mgrid[0:NAV[0], 0:NAV[1]]
+    a = np.stack([np.ones(n), rows.reshape(-1), cols.reshape(-1)], axis=-1)
+    centre_scale = float(np.abs(centres).max())
+    for mode, res in reg.items():
+        coef = np.zeros((3, 2))
+        fields = []
+        for ci, comp in enumerate(shifts):
+            if mode == RegressionOptions.SUBTRACT_MEAN:
+                coef[0, ci] = comp.mean()
+                fields.append(comp - coef[0, ci])
+            else:
+                coef[:, ci] = np.linalg.lstsq(a, comp.reshape(-1),
+                                              rcond=None)[0]
+                fields.append(comp - (a @ coef[:, ci]).reshape(NAV))
+        fy, fx = fields
+        e_c, ok_c = max_err(res["regression"].data, coef, rtol=1e-4)
+        if not ok_c or not res["regression"].valid_mask.all():
+            failures.append(f"10 regression={mode}: coefficients max err "
+                            f"{e_c}")
+        errs = [e_c]
+        for name, ref in (("field", np.stack([fy, fx], axis=-1)),
+                          ("magnitude", np.hypot(fy, fx))):
+            e, ok = max_err(res[name].data, ref, centre_scale)
+            errs.append(e)
+            if not ok:
+                failures.append(f"10 regression={mode} {name}: max err {e}")
+        print(f"  10 CoMUDF regression={mode}: coefficients "
+              f"{np.round(res['regression'].data, 6).tolist()} (lstsq "
+              f"{np.round(coef, 6).tolist()}), max abs err {max(errs):.3g}")
+    # Context.map: column sums on the card, row maxima on the host
+    sel = br.reshape(-1)
+    want_t = np.full((n, SIG[1]), np.nan)
+    want_t[sel] = data.reshape(n, *SIG)[sel].astype(np.float64).sum(axis=1)
+    e, ok = max_err(map_t.data, want_t.reshape(NAV + (SIG[1],)))
+    want_n = np.full((n, SIG[0]), np.nan)
+    want_n[sel] = data.reshape(n, *SIG)[sel].max(axis=2)
+    exact_n = map_n.data.dtype == np.float32 and np.array_equal(
+        map_n.data, want_n.reshape(NAV + (SIG[0],)), equal_nan=True)
+    print(f"  10 Context.map: torch f on {engines_t}, {map_t.data.dtype}, "
+          f"max abs err {e:.3g}; numpy f on {engines_n}, "
+          f"{map_n.data.dtype}, exact {exact_n}")
+    if not ok or engines_t != ["device"]:
+        failures.append(f"10 map torch f: max err {e}, {engines_t}")
+    if not exact_n or engines_n != ["host"]:
+        failures.append(f"10 map numpy f: exact {exact_n}, {engines_n}")
+    # RecordUDF: the quarter's frames, bit for bit
+    back = np.load(rec_path, mmap_mode="r")
+    same = (back.dtype == data.dtype and back.shape == (n // 4,) + SIG
+            and np.array_equal(back, data.reshape(n, *SIG)[tr.reshape(-1)]))
+    print(f"  10 RecordUDF: {back.shape} {back.dtype} on {engines_r}, bit "
+          f"for bit: {same}")
+    del back
+    os.remove(rec_path)
+    if not same or engines_r != ["host"]:
+        failures.append(f"10 RecordUDF: bit for bit {same}, {engines_r}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1477,8 +1931,11 @@ def main() -> int:
               f"{p8['iter_s']:.3f} s, run_udf right after "
               f"{time.perf_counter() - t0:.3f} s, on the same scan {at}")
 
-    # -- 9. the stage ablation ------------------------------------------------
-    p9 = stage_ablation(u16_blocks, masks_t, depth, dev, at, failures)
+        # -- 9. the stage ablation --------------------------------------------
+        p9 = stage_ablation(u16_blocks, masks_t, depth, dev, at, failures)
+
+        # -- 10. the analyses -------------------------------------------------
+        p10 = analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures)
 
     if failures:
         for f in failures:
@@ -1518,6 +1975,7 @@ def main() -> int:
             "generic + shifts + complex + hooks + spots (phase 7c)":
                 aux_launches,
             "partial results with a patch (phase 8)": p8["launches"],
+            **p10,
         },
         cases=cases,
     ), dict(

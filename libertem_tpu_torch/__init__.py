@@ -9,24 +9,29 @@ FEMUDF, CrystallinityUDF, a user's own) on the generic path.  Both
 take a roi and detector corrections (``io.corrections.CorrectionSet``).
 UDFs written with numpy run on a host engine beside them, in the same
 read pass; aux data (per-frame mask shifts), complex data and masks,
-and block-compacted sparse mask stacks are supported.
+and block-compacted sparse mask stacks are supported.  Above the UDFs,
+``Context.run`` runs the analyses (``Context.create_*_analysis``) and
+``Context.map`` a function of one frame (AutoUDF); RecordUDF writes
+the frames to a ``.npy`` file.
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 """
-from . import masks
+from . import analysis, masks
 from .api import Context
 from .common.exceptions import UDFException
 from .io.corrections import CorrectionSet
 from .udf import (
     ApplyMasksUDF,
+    AutoUDF,
     CoMUDF,
     CrystallinityUDF,
     FEMUDF,
     LogsumUDF,
     NoOpUDF,
     PickUDF,
+    RecordUDF,
     StdDevUDF,
     SumSigUDF,
     SumUDF,
@@ -35,5 +40,6 @@ from .udf import (
 __all__ = [
     "Context", "CorrectionSet", "masks", "ApplyMasksUDF", "CoMUDF",
     "StdDevUDF", "SumSigUDF", "SumUDF", "LogsumUDF", "PickUDF", "FEMUDF",
-    "CrystallinityUDF", "NoOpUDF", "UDFException",
+    "CrystallinityUDF", "NoOpUDF", "UDFException", "AutoUDF", "RecordUDF",
+    "analysis",
 ]

@@ -1,5 +1,6 @@
 """Context: the public entry point (counterpart of
-``libertem_tpu/api.py``)."""
+``libertem_tpu/api.py``): datasets, UDF runs, ``map`` and the
+analyses."""
 from __future__ import annotations
 
 import warnings
@@ -189,6 +190,118 @@ class Context:
         rows = [(name, buf.kind, buf.dtype, buf.extra_shape)
                 for name, buf in self.inspect_udf(udf, dataset, roi).items()]
         return _UDFDisplay(f"{type(udf).__name__} on {dataset}:", rows)
+
+    def map(self, dataset: DataSet, f, roi=None, progress=False,
+            corrections: Optional[CorrectionSet] = None, backends=None):
+        """``f(frame)`` on every frame (of the roi): the ``result``
+        buffer of an :class:`~libertem_tpu_torch.udf.auto.AutoUDF`.
+        ``f`` written with torch runs on the device; one written with
+        numpy, or returning other objects, on the host engine."""
+        from .udf.auto import AutoUDF
+        results = self.run_udf(
+            dataset, AutoUDF(f=f), roi=roi, progress=progress,
+            corrections=corrections, backends=backends,
+        )
+        return results["result"]
+
+    # -- analyses ---------------------------------------------------------
+
+    def run(self, analysis, roi=None, progress=False,
+            corrections: Optional[CorrectionSet] = None):
+        """Run an analysis (``create_*_analysis``) and post-process its
+        UDF's results into an ``AnalysisResultSet``; without a ``roi``,
+        the analysis's own (its GUI roi parameter, or PickFrame's
+        frame)."""
+        if roi is None:
+            roi = analysis.get_roi()
+        udf_results = self.run_udf(
+            analysis.dataset, analysis.get_udf(), roi=roi,
+            progress=progress, corrections=corrections,
+        )
+        return analysis.get_udf_results(udf_results, roi,
+                                        udf_results.damage)
+
+    def create_mask_analysis(self, factories, dataset, **kwargs):
+        from .analysis.masks import MasksAnalysis
+        return MasksAnalysis(dataset=dataset,
+                             parameters=dict(factories=factories, **kwargs))
+
+    def create_disk_analysis(self, dataset, cx=None, cy=None, r=None):
+        from .analysis.disk import DiskMaskAnalysis
+        return DiskMaskAnalysis(dataset=dataset,
+                                parameters={"cx": cx, "cy": cy, "r": r})
+
+    def create_ring_analysis(self, dataset, cx=None, cy=None, ri=None,
+                             ro=None):
+        from .analysis.ring import RingMaskAnalysis
+        return RingMaskAnalysis(
+            dataset=dataset,
+            parameters={"cx": cx, "cy": cy, "ri": ri, "ro": ro},
+        )
+
+    def create_point_analysis(self, dataset, x=None, y=None):
+        from .analysis.point import PointMaskAnalysis
+        return PointMaskAnalysis(dataset=dataset,
+                                 parameters={"cx": x, "cy": y})
+
+    def create_sum_analysis(self, dataset):
+        from .analysis.sum import SumAnalysis
+        return SumAnalysis(dataset=dataset, parameters={})
+
+    def create_sumsig_analysis(self, dataset):
+        from .analysis.sumsig import SumSigAnalysis
+        return SumSigAnalysis(dataset=dataset, parameters={})
+
+    def create_sd_analysis(self, dataset):
+        from .analysis.sd import SDAnalysis
+        return SDAnalysis(dataset=dataset, parameters={})
+
+    def create_pick_analysis(self, dataset, x, y=None, z=None):
+        from .analysis.raw import PickFrameAnalysis
+        params = {"x": x, "y": y, "z": z}
+        return PickFrameAnalysis(dataset=dataset, parameters=params)
+
+    def create_com_analysis(self, dataset, cx=None, cy=None,
+                            mask_radius=None, flip_y=False,
+                            scan_rotation=0.0, mask_radius_inner=None):
+        """Needs a 2-D nav and a 2-D sig; the annular mode
+        (``mask_radius_inner``) needs ``mask_radius`` too."""
+        if dataset.shape.nav.dims != 2:
+            raise ValueError(
+                "CoM analysis needs a 2D navigation shape, got "
+                f"{tuple(dataset.shape.nav)}")
+        if dataset.shape.sig.dims != 2:
+            raise ValueError(
+                "CoM analysis needs a 2D signal shape, got "
+                f"{tuple(dataset.shape.sig)}")
+        if mask_radius_inner is not None and mask_radius is None:
+            raise ValueError(
+                "mask_radius_inner requires mask_radius (annular mode "
+                "needs both radii)")
+        from .analysis.com import COMAnalysis
+        return COMAnalysis(dataset=dataset, parameters={
+            "cx": cx, "cy": cy, "r": mask_radius, "ri": mask_radius_inner,
+            "flip_y": flip_y, "scan_rotation": scan_rotation,
+        })
+
+    def create_radial_fourier_analysis(self, dataset, cx=None, cy=None,
+                                       ri=None, ro=None, n_bins=None,
+                                       max_order=None, use_sparse=None):
+        """``use_sparse`` is accepted as in the JAX package; whether the
+        stack is compacted is the engine's choice."""
+        from .analysis.radialfourier import RadialFourierAnalysis
+        return RadialFourierAnalysis(dataset=dataset, parameters={
+            "cx": cx, "cy": cy, "ri": ri, "ro": ro, "n_bins": n_bins,
+            "max_order": max_order, "use_sparse": use_sparse,
+        })
+
+    def create_fem_analysis(self, dataset, cx=None, cy=None, ri=None,
+                            ro=None):
+        from .analysis.fem import FEMAnalysis
+        return FEMAnalysis(
+            dataset=dataset,
+            parameters={"cx": cx, "cy": cy, "ri": ri, "ro": ro},
+        )
 
     @staticmethod
     def _normalize_udfs(udf) -> tuple[list, bool]:

@@ -1,6 +1,7 @@
-"""The UDFs of the port: the five of the fused main path, and the
-ones that run on the generic path."""
+"""The UDFs of the port: the five of the fused main path, the ones
+that run on the generic path, and AutoUDF and RecordUDF."""
 from ..common.exceptions import UDFException
+from .auto import AutoUDF
 from .base import NoOpUDF, UDF, UDFData, UDFMeta, UDFResults, UDFRunner
 from .com import CoMParams, CoMUDF, RegressionOptions
 from .crystallinity import CrystallinityUDF
@@ -8,6 +9,7 @@ from .FEM import FEMUDF
 from .logsum import LogsumUDF
 from .masks import ApplyMasksUDF, MaskContainer
 from .raw import PickUDF
+from .record import RecordUDF
 from .stddev import StdDevUDF
 from .sum import SumUDF
 from .sumsigudf import SumSigUDF
@@ -16,5 +18,6 @@ __all__ = [
     "UDF", "UDFData", "UDFMeta", "UDFResults", "UDFRunner", "NoOpUDF",
     "CoMParams", "CoMUDF", "RegressionOptions", "ApplyMasksUDF",
     "MaskContainer", "StdDevUDF", "SumUDF", "SumSigUDF", "LogsumUDF",
-    "PickUDF", "FEMUDF", "CrystallinityUDF", "UDFException",
+    "PickUDF", "FEMUDF", "CrystallinityUDF", "UDFException", "AutoUDF",
+    "RecordUDF",
 ]

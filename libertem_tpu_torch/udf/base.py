@@ -183,6 +183,7 @@ class UDFMeta:
         self.global_offset = None
         self.sig_slice: Optional[Slice] = None
         self.tiling_scheme_idx = 0
+        self._valid_nav_mask: Optional[np.ndarray] = None
 
     @property
     def roi(self) -> Optional[np.ndarray]:
@@ -196,6 +197,23 @@ class UDFMeta:
     @property
     def sig_shape(self) -> tuple:
         return tuple(self.dataset_shape.sig)
+
+    def get_valid_nav_mask(self, full_nav: bool = False
+                           ) -> Optional[np.ndarray]:
+        """The nav positions merged so far, flat (roi-compressed, or
+        over the whole nav with ``full_nav``): set while
+        ``get_results`` runs (for a partial result too), else None."""
+        if self._valid_nav_mask is None:
+            return None
+        m = np.asarray(self._valid_nav_mask, dtype=bool).reshape(-1)
+        if full_nav and self._roi is not None:
+            full = np.zeros(self.dataset_shape.nav.size, dtype=bool)
+            full[np.asarray(self._roi, dtype=bool).reshape(-1)] = m
+            return full
+        return m
+
+    def set_valid_nav_mask(self, new_valid_nav_mask) -> None:
+        self._valid_nav_mask = new_valid_nav_mask
 
 
 class UDF:
@@ -1691,10 +1709,12 @@ class UDFRunner:
         # results are wrapped on the host with numpy: self.xp is numpy
         # in get_results, whichever engine ran the UDF
         udf._host_mode = True
+        meta.set_valid_nav_mask(damage_host)
         try:
             derived = udf.get_results() or {}
         finally:
             udf._host_mode = False
+            meta.set_valid_nav_mask(None)
         for name in derived:
             if name not in entry.decls:
                 raise KeyError(

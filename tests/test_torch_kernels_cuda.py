@@ -618,3 +618,150 @@ def test_run_udf_iter_with_patch_on_card(card):
                                              "field_x") else 1.0)
                 np.testing.assert_allclose(a[name], b[name], rtol=RTOL,
                                            atol=RTOL * scale, err_msg=name)
+
+
+# -- the analysis layer on the card --------------------------------------
+# Each analysis id, Context.map and the CoM regression on the card
+# against the same run on the CPU: rtol 1e-5 with an absolute floor of
+# 1e-5 of the CPU result's largest magnitude (the phases of complex
+# coefficients: as exact as the coefficients).
+
+_AN_SIG = (32, 32)
+_AN_PARAMS = {
+    "MASKS": lambda lt: {"factories": [
+        lambda: lt.masks.circular(16, 16, 32, 32, 6),
+        lambda: lt.masks.ring(16, 16, 32, 32, 14, 8),
+        lambda: lt.masks.gradient_x(32, 32),
+    ]},
+    "APPLY_DISK_MASK": lambda lt: {"cx": 16, "cy": 16, "r": 6},
+    "APPLY_RING_MASK": lambda lt: {"cx": 16, "cy": 16, "ri": 8, "ro": 14},
+    "APPLY_POINT_SELECTOR": lambda lt: {"cx": 9, "cy": 20},
+    "SUM_FRAMES": lambda lt: {},
+    "SUM_SIG": lambda lt: {},
+    "SD_FRAMES": lambda lt: {},
+    "PICK_FRAME": lambda lt: {"x": 3, "y": 11},
+    "CENTER_OF_MASS": lambda lt: {"cx": 16, "cy": 16, "r": 12,
+                                  "scan_rotation": 17.0},
+    "RADIAL_FOURIER": lambda lt: {"cx": 16, "cy": 16, "ri": 0, "ro": 15,
+                                  "n_bins": 2, "max_order": 8},
+    "FEM": lambda lt: {"cx": 16, "cy": 16, "ri": 5, "ro": 14},
+    "APPLY_FFT_MASK": lambda lt: {"rad_in": 3, "rad_out": 12,
+                                  "real_rad": 4, "real_centery": 16,
+                                  "real_centerx": 16},
+    "PICK_FFT_FRAME": lambda lt: {"x": 5, "y": 2},
+    "FFTSUM_FRAMES": lambda lt: {},
+    "CLUST": lambda lt: {"n_clust": 3, "n_peaks": 6, "rad": 1},
+}
+
+
+def _an_data():
+    return np.random.default_rng(12).poisson(
+        8.0, (16, 12) + _AN_SIG).astype(np.uint16)
+
+
+def _close_results(ours, theirs):
+    assert ours.keys() == theirs.keys()
+    for a, b in zip(ours, theirs):
+        x, y = np.asarray(a.raw_data), np.asarray(b.raw_data)
+        if b.key.startswith("phase_"):
+            # an angle is as exact as its coefficient c: |c| times the
+            # angle's error within 1e-5 of |c| and of the largest |c|
+            c = np.abs(np.asarray(theirs[b.key.replace("phase_",
+                                                       "complex_")].raw_data))
+            err = c * np.abs(np.angle(np.exp(1j * (x - y))))
+            assert np.all(err <= RTOL * (c + c.max())), b.key
+            continue
+        cplx = np.iscomplexobj(y)
+        scale = max(float(np.nanmax(np.abs(y), initial=0.0)), 1.0)
+        dt = np.complex128 if cplx else np.float64
+        np.testing.assert_allclose(x.astype(dt), y.astype(dt), rtol=RTOL,
+                                   atol=RTOL * scale, err_msg=b.key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_", sorted(_AN_PARAMS))
+def test_analysis_on_card(card, id_):
+    """Every analysis id through Context.run on the card and on the
+    CPU; the fused kernel launches on the card wherever the run is
+    fused."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.analysis.base import Analysis
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=_an_data(), sig_dims=2)
+        analysis = Analysis.get_analysis_by_type(id_)(ds,
+                                                      _AN_PARAMS[id_](lt))
+        before = fused_moments.launches
+        runs.append((ctx.run(analysis), ctx.run_info["fused"],
+                     fused_moments.launches - before))
+    (ours, fused, launched), (theirs, cpu_fused, cpu_launched) = runs
+    assert fused == cpu_fused
+    assert cpu_launched == 0
+    assert (launched > 0) == fused
+    _close_results(ours, theirs)
+
+
+@pytest.mark.cuda
+def test_clust_feature_passes_on_card(card):
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.analysis.clust import ClusterAnalysis
+
+    feats = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=_an_data(), sig_dims=2)
+        before = fused_moments.launches
+        feats.append(ClusterAnalysis(ds, _AN_PARAMS["CLUST"](lt))
+                     .run_feature_passes(ctx)[1])
+        assert ctx.run_info["fused"]
+        assert (fused_moments.launches > before) == (device == "cuda")
+    np.testing.assert_allclose(feats[0], feats[1], rtol=RTOL,
+                               atol=RTOL * np.abs(feats[1]).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["torch", "numpy"])
+def test_map_on_card(card, kind):
+    import libertem_tpu_torch as lt
+
+    f = ((lambda fr: fr.sum(0)) if kind == "torch"
+         else (lambda fr: np.asarray(fr).std(axis=1)))
+    roi = np.zeros((16, 12), dtype=bool)
+    roi[2:9, 3:10] = True
+    res = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=_an_data(), sig_dims=2)
+        res.append(ctx.map(ds, f, roi=roi))
+        assert ctx.run_info["engines"] == [
+            "device" if kind == "torch" else "host"]
+    assert res[0].data.dtype == res[1].data.dtype
+    want = np.asarray(res[1].data, np.float64)
+    np.testing.assert_allclose(np.asarray(res[0].data, np.float64), want,
+                               rtol=RTOL,
+                               atol=RTOL * np.nanmax(np.abs(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+def test_com_regression_on_card(card, mode):
+    import libertem_tpu_torch as lt
+
+    roi = np.ones((16, 12), dtype=bool)
+    roi[5:8, 2:4] = False
+    res = []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=_an_data(), sig_dims=2)
+        res.append(ctx.run_udf(ds, lt.CoMUDF.with_params(
+            cy=16, cx=16, r=12, regression=mode), roi=roi))
+    scale = np.nanmax(np.abs(res[1]["raw_com"].data))
+    for name in ("field", "magnitude", "divergence", "curl"):
+        np.testing.assert_allclose(res[0][name].data, res[1][name].data,
+                                   rtol=RTOL, atol=RTOL * scale,
+                                   err_msg=name)
+    coef = res[1]["regression"].data
+    np.testing.assert_allclose(res[0]["regression"].data, coef, rtol=1e-4,
+                               atol=1e-4 * np.abs(coef).max())

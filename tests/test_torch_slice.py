@@ -284,7 +284,9 @@ def test_import_leaves_jax_out():
         "walked = {'udf.host', 'ops.sparse_masks', 'common.sparse',\n"
         "          'udf.masks', 'masks', 'common.buffers', 'api',\n"
         "          'ops.ablation', 'common.progress',\n"
-        "          'common.exceptions'}\n"
+        "          'common.exceptions', 'analysis', 'analysis.clust',\n"
+        "          'analysis.com', 'analysis.fft', 'viz.base',\n"
+        "          'udf.auto', 'udf.record'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
