@@ -275,10 +275,29 @@ def frames64(raw: np.ndarray, plan) -> np.ndarray:
     return f
 
 
-def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None) -> dict:
+def com_oracle(com: np.ndarray, nav=NAV) -> dict:
+    """CoMUDF's (r=32, centre (64, 64)) float64 answers from the centres
+    of mass ``com`` ((n, 2); the centre itself for a frame of no mass)."""
+    shifts = com - 64.0
+    sy = shifts[:, 0].reshape(nav)
+    sx = shifts[:, 1].reshape(nav)
+    dy_dy, dy_dx = np.gradient(sy)
+    dx_dy, dx_dx = np.gradient(sx)
+    return {
+        (1, "raw_com"): com.reshape(nav + (2,)),
+        (1, "raw_shifts"): shifts.reshape(nav + (2,)),
+        (1, "field"): shifts.reshape(nav + (2,)),
+        (1, "magnitude"): np.hypot(sy, sx),
+        (1, "divergence"): dy_dy + dx_dx,
+        (1, "curl"): dy_dx - dx_dy,
+    }
+
+
+def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
+           nav=NAV) -> dict:
     """float64 answers of ApplyMasks (``mask_stack``), CoM (r=32),
-    Sum, SumSig and StdDev, in chunks of frames; the per-pixel
-    moments fold chunk by chunk with the Chan update."""
+    Sum, SumSig and StdDev over a scan of ``nav``, in chunks of frames;
+    the per-pixel moments fold chunk by chunk with the Chan update."""
     h, w = SIG
     flat = data.reshape(-1, h * w)
     n = flat.shape[0]
@@ -309,22 +328,11 @@ def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None) -> dict:
         count = tot
         s1 = s1 + sb
     var = m2 / n
-    com = proj[:, k + 1:k + 3] / proj[:, k:k + 1]
-    shifts = com - 64.0
-    sy = shifts[:, 0].reshape(NAV)
-    sx = shifts[:, 1].reshape(NAV)
-    dy_dy, dy_dx = np.gradient(sy)
-    dx_dy, dx_dx = np.gradient(sx)
     return {
-        (0, "intensity"): proj[:, :k].reshape(NAV + (k,)),
-        (1, "raw_com"): com.reshape(NAV + (2,)),
-        (1, "raw_shifts"): shifts.reshape(NAV + (2,)),
-        (1, "field"): shifts.reshape(NAV + (2,)),
-        (1, "magnitude"): np.hypot(sy, sx),
-        (1, "divergence"): dy_dy + dx_dx,
-        (1, "curl"): dy_dx - dx_dy,
+        (0, "intensity"): proj[:, :k].reshape(nav + (k,)),
+        **com_oracle(proj[:, k + 1:k + 3] / proj[:, k:k + 1], nav),
         (2, "intensity"): s1.reshape(SIG),
-        (3, "intensity"): proj[:, k + 3].reshape(NAV),
+        (3, "intensity"): proj[:, k + 3].reshape(nav),
         (4, "num_frames"): np.array([float(n)]),
         (4, "sum"): s1.reshape(SIG),
         (4, "mean"): mean.reshape(SIG),
@@ -1417,6 +1425,624 @@ def analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures) -> dict:
     return launches
 
 
+# -- phase 11: the FFT UDFs and the dataset core ------------------------------
+
+LATTICE = dict(a=(16, 0), b=(0, 16), radius=4)
+CBED_SCALE = 4.0  # Poisson mean per unit of cbed_frame's intensity
+HOLO_FRAMES, HOLO_SIG, HOLO_OUT = 256, (1024, 1024), (256, 256)
+SYNC = 1000  # the sync offset of phase 11(c), both signs
+
+
+def write_cbed_scan(path: str) -> np.ndarray:
+    """A CBED scan of nav NAV and sig SIG, u16, written to ``path``:
+    ``cbed_frame``'s lattice (a = (16, 0), b = (0, 16), radius 4) with
+    the zero order's disk raised by the brightest disk's intensity, so
+    each frame's brightest disk is the zero order; the pattern wobbles by
+    up to 2 px in steps of 2/3 px with the scan position (49 distinct
+    clean frames); Poisson noise from the seed, drawn by 8 threads.  Returns
+    the (n, *SIG) array."""
+    from libertem_tpu_torch.utils.generate import cbed_frame
+
+    n = int(np.prod(NAV))
+    y, x = np.unravel_index(np.arange(n), NAV)
+    offs = np.stack([np.round(3 * np.sin(2 * np.pi * y / 64)) * 2 / 3,
+                     np.round(3 * np.cos(2 * np.pi * x / 48)) * 2 / 3],
+                    axis=-1)
+    keys, index = np.unique(offs, axis=0, return_inverse=True)
+    index = index.reshape(-1)
+    clean = np.empty((len(keys),) + SIG, np.float32)
+    for i, (dy, dx) in enumerate(keys):
+        zero = (SIG[0] // 2 + dy, SIG[1] // 2 + dx)
+        frame = cbed_frame(*SIG, zero=zero, **LATTICE)[0][0]
+        disk = cbed_frame(*SIG, zero=zero, indices=[(0, 0)],
+                          all_equal=True, **LATTICE)[0][0]
+        clean[i] = frame + frame.max() * disk
+    data = np.empty((n,) + SIG, np.uint16)
+    seeds = np.random.SeedSequence(SEED + 20).spawn(64)
+    step = n // 64
+
+    def fill(i):
+        sl = slice(i * step, (i + 1) * step)
+        data[sl] = np.random.default_rng(seeds[i]).poisson(
+            CBED_SCALE * clean[index[sl]] + 1.0)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, range(64)))
+    data.tofile(path)
+    return data
+
+
+def lattice_peaks(count: int) -> np.ndarray:
+    """The ``count`` nominal lattice peaks nearest the frame's centre,
+    (count, 2) int (y, x)."""
+    from libertem_tpu_torch.utils import frame_peaks
+
+    centre = np.array(SIG) // 2
+    _, peaks = frame_peaks(*SIG, centre, np.array(LATTICE["a"]),
+                           np.array(LATTICE["b"]), LATTICE["radius"],
+                           np.mgrid[-4:5, -4:5])
+    order = np.argsort(np.linalg.norm(peaks - centre, axis=1), kind="stable")
+    return peaks[order[:count]].astype(np.int64)
+
+
+def correlation_answers(corr, windows, steps):
+    """From float64 correlation maps ``corr`` (d, h, w) (torch, any
+    device): the full-frame centre, 3x3 refinement (clipped) and peak
+    value, the map's maximum and the gap between its two largest values;
+    per window (``windows``: (n_peaks, size^2) flat pixel indices) the
+    centre offset, the refinement over the window and the peak value
+    and gap.  A float64 implementation apart from the port's."""
+    import torch
+
+    d, h, w = corr.shape
+    flat = corr.reshape(d, -1)
+    top = flat.topk(2, dim=-1).values
+    idx = flat.argmax(dim=-1)
+    iy, ix = idx // w, idx % w
+    o = torch.arange(-1, 2, device=corr.device)
+    yy = (iy[:, None] + o).clamp(0, h - 1)
+    xx = (ix[:, None] + o).clamp(0, w - 1)
+    rows = torch.arange(d, device=corr.device)[:, None, None]
+    win = corr[rows, yy[:, :, None], xx[:, None, :]]
+    win = win - win.amin(dim=(1, 2), keepdim=True)
+    total = win.sum(dim=(1, 2)).clamp_min(1e-12)
+    of = o.double()
+    refined = torch.stack([iy + (win * of[:, None]).sum((1, 2)) / total,
+                           ix + (win * of[None, :]).sum((1, 2)) / total],
+                          dim=-1)
+    size = 2 * steps + 1
+    wins = flat[:, windows]  # (d, n_peaks, size^2)
+    wtop = wins.topk(2, dim=-1).values
+    widx = wins.argmax(dim=-1)
+    g = torch.arange(size, device=corr.device).double() - steps
+    w0 = wins - wins.amin(dim=-1, keepdim=True)
+    wtot = w0.sum(dim=-1).clamp_min(1e-12)
+    return {
+        "centers": torch.stack([iy, ix], dim=-1).double(),
+        "refineds": refined,
+        "peak_values": top[:, 0],
+        "map_max": top[:, 0],
+        "gap": top[:, 0] - top[:, 1],
+        "s_offsets": torch.stack([widx // size - steps,
+                                  widx % size - steps], dim=-1).double(),
+        "s_refineds": torch.stack(
+            [(w0 * g.repeat_interleave(size)).sum(-1) / wtot,
+             (w0 * g.repeat(size)).sum(-1) / wtot], dim=-1),
+        "s_peak_values": wtop[..., 0],
+        "s_gap": wtop[..., 0] - wtop[..., 1],
+    }
+
+
+def correlation_oracle(data, peaks, steps, dev, at, failures) -> dict:
+    """Phase 11(a)'s answers over every frame of ``data``: each frame
+    correlated with the RadialGradient(4) template in complex128 with
+    torch.fft on the card, and the per-pixel sum and sum of squares in
+    float64.  The card's float64 maps are checked against numpy's FFT
+    on 256 frames (two partition boundaries and the last block)."""
+    import torch
+
+    from libertem_tpu_torch.udf.blobfinder import RadialGradient
+
+    mask = RadialGradient(LATTICE["radius"]).get_mask(SIG)
+    spec = torch.from_numpy(
+        np.conj(np.fft.fft2(np.fft.ifftshift(mask)))).to(dev)
+    h, w = SIG
+    size = 2 * steps + 1
+    offs = np.arange(-steps, steps + 1)
+    win_y = (peaks[:, 0:1, None] + offs[None, :, None]) % h
+    win_x = (peaks[:, 1:2, None] + offs[None, None, :]) % w
+    windows = torch.from_numpy((win_y * w + win_x).reshape(len(peaks), -1)
+                               ).to(dev)
+    n = len(data)
+    out, s1, s2 = [], 0.0, 0.0
+    for lo in range(0, n, 1024):
+        x = torch.from_numpy(data[lo:lo + 1024]).to(dev).double()
+        s1 = s1 + x.sum(0)
+        s2 = s2 + (x * x).sum(0)
+        corr = torch.fft.ifft2(torch.fft.fft2(x) * spec).real
+        out.append({k: v.cpu().numpy() for k, v in correlation_answers(
+            corr, windows, steps).items()})
+    ans = {k: np.concatenate([o[k] for o in out]) for k in out[0]}
+    ans["sum"] = s1.cpu().numpy()
+    ans["sumsq"] = s2.cpu().numpy()
+    # the oracle against numpy's float64 FFT
+    ids = np.concatenate([np.arange(n // 4 - 32, n // 4 + 32),
+                          np.arange(n // 2 - 32, n // 2 + 32),
+                          np.arange(n - 128, n)])
+    maps = np.fft.ifft2(np.fft.fft2(data[ids].astype(np.float64))
+                        * np.conj(np.fft.fft2(np.fft.ifftshift(mask)))).real
+    ref = {k: v.numpy() for k, v in correlation_answers(
+        torch.from_numpy(maps), windows.cpu(), steps).items()}
+    worst = 0.0
+    for k, v in ref.items():
+        e = float(np.abs(ans[k][ids] - v).max() / max(np.abs(v).max(), 1.0))
+        worst = max(worst, e)
+    print(f"11a oracle: complex128 torch.fft on the card against numpy "
+          f"float64 on {len(ids)} frames (partition boundaries, last "
+          f"block): largest relative difference {worst:.3g} {at}")
+    if worst > 1e-9:
+        failures.append(f"11a oracle disagrees with numpy: {worst}")
+    return ans
+
+
+def check_correlation(label, res, ans, peaks, failures, sparse) -> None:
+    """Centres exact where the oracle's two largest values in the search
+    region differ by more than 1e-4 of the map's maximum (the frames or
+    windows left out counted and printed); refined positions within
+    1e-3 px (full frame: where the centres agree); peak values within
+    1e-4 of the map's maximum."""
+    n = int(np.prod(NAV))
+    scale = ans["map_max"]
+    if sparse:
+        cen = res["centers"].data.reshape(n, -1, 2).astype(np.float64)
+        want_c = peaks[None] + ans["s_offsets"]
+        ok = ans["s_gap"] > 1e-4 * scale[:, None]
+        same = np.all(cen == want_c, axis=-1)
+        ref_err = np.abs(res["refineds"].data.reshape(n, -1, 2)
+                         - (peaks[None] + ans["s_refineds"]))
+        ref_ok = np.all(ref_err <= 1e-3)
+        pv_err = np.abs(res["peak_values"].data.reshape(n, -1)
+                        - ans["s_peak_values"]) / scale[:, None]
+    else:
+        cen = res["centers"].data.reshape(n, 2).astype(np.float64)
+        ok = ans["gap"] > 1e-4 * scale
+        same = np.all(cen == ans["centers"], axis=-1)
+        ref_err = np.abs(res["refineds"].data.reshape(n, 2)
+                         - ans["refineds"])[same]
+        ref_ok = np.all(ref_err <= 1e-3)
+        pv_err = np.abs(res["peak_values"].data.reshape(n)
+                        - ans["peak_values"]) / scale
+    wrong = int(np.count_nonzero(ok & ~same))
+    left_out = ok.size - int(np.count_nonzero(ok))
+    frames_out = int(np.count_nonzero(~ok.reshape(n, -1).all(axis=-1)))
+    what = "windows" if sparse else "frames"
+    print(f"  {label}: centres exact in {int(np.count_nonzero(same & ok))} "
+          f"of {ok.size} {what}; {left_out} {what} ({frames_out} frames) "
+          f"left out, their two largest values within 1e-4 of the map's "
+          f"maximum; {int(np.count_nonzero(~same))} {what} differ in all; "
+          f"refined max abs err {float(ref_err.max(initial=0.0)):.3g} px; "
+          f"peak values max err {float(pv_err.max()):.3g} of the map's "
+          f"maximum")
+    if wrong or not ref_ok or float(pv_err.max()) > 1e-4:
+        failures.append(f"{label}: {wrong} centres wrong, refined ok "
+                        f"{ref_ok}, peak values {float(pv_err.max())}")
+
+
+def stage_ms(fn, args, calls=8) -> tuple[float, float]:
+    """(device ms, host-launched ms) a call of ``fn(*args)``, after a
+    warm-up call: the device time of the kernels and copies of
+    ``calls`` calls under torch.profiler, and CUDA events around the
+    same calls issued eagerly."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    device_ms = sum(device_busy(prof).values()) / 1e3 / calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return device_ms, start.elapsed_time(end) / calls
+
+
+def fft_stage_times(block, at) -> dict:
+    """Device ms of the full-frame correlation's steps on one block of
+    the path (1024 frames of 128 x 128 u16, on the card): the cast and
+    fft2, the product with the template spectrum, ifft2 with the real
+    part, and the argmax with the refinement."""
+    import torch
+
+    from libertem_tpu_torch.udf import blobfinder
+
+    spec = torch.from_numpy(blobfinder.RadialGradient(
+        LATTICE["radius"]).get_template_spectrum(SIG)).to(block.device)
+    f = torch.fft.fft2(block.float())
+    prod_ = f * spec
+    corr = torch.fft.ifft2(prod_).real
+
+    def peak(c):
+        flat = c.reshape(c.shape[0], -1)
+        i = flat.argmax(dim=-1)
+        return blobfinder._subpixel_refine(c, i // SIG[1], i % SIG[1])
+
+    times = {
+        "cast + fft2": stage_ms(lambda b: torch.fft.fft2(b.float()),
+                                (block,)),
+        "product": stage_ms(torch.mul, (f, spec)),
+        "ifft2 + real": stage_ms(lambda p: torch.fft.ifft2(p).real,
+                                 (prod_,)),
+        "argmax + refine": stage_ms(peak, (corr,)),
+    }
+    print("11a ms a block (1024 frames) by step, device (traced) / "
+          "host-launched: " + ", ".join(
+              f"{k} {d:.4f} / {e:.4f}" for k, (d, e) in times.items())
+          + f"; device in all {sum(d for d, _ in times.values()):.4f} "
+          f"{at}")
+    return times
+
+
+def holo_scan(path: str) -> np.ndarray:
+    """HOLO_FRAMES off-axis holograms of HOLO_SIG, float32, written to
+    ``path``: frame 0 a flat reference, frame i a Gaussian phase object
+    (sigma an eighth of the frame: 128 px) of strength
+    0.5 + i / HOLO_FRAMES rad whose centre circles with i; sampling 4 px,
+    8 threads.  Returns (the holograms, the phases)."""
+    from libertem_tpu_torch.utils.generate import hologram_frame
+
+    h, w = HOLO_SIG
+    y, x = np.mgrid[0:h, 0:w]
+    amp = np.ones(HOLO_SIG)
+    holos = np.empty((HOLO_FRAMES,) + HOLO_SIG, np.float32)
+    phases = np.empty((HOLO_FRAMES,) + HOLO_SIG, np.float32)
+
+    def one(i):
+        cy = h / 2 + h / 10 * np.sin(2 * np.pi * i / HOLO_FRAMES)
+        cx = w / 2 + w / 10 * np.cos(2 * np.pi * i / HOLO_FRAMES)
+        phase = (0.0 if i == 0 else (0.5 + i / HOLO_FRAMES) * np.exp(
+            -((y - cy) ** 2 + (x - cx) ** 2) / (2 * (h / 8) ** 2)))
+        phases[i] = phase
+        holos[i] = hologram_frame(amp, amp * phase, sampling=4.0)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(HOLO_FRAMES)))
+    holos.tofile(path)
+    return holos, phases
+
+
+def holo_oracle(holos, sb_pos, sb_size, dev) -> np.ndarray:
+    """The waves of HoloReconstructUDF(out_shape=HOLO_OUT) in complex128
+    on the card: fft2, a roll of the sideband to the origin, the crop of
+    the low frequencies at the corners, a float64 aperture, ifft2."""
+    import torch
+
+    oh, ow = HOLO_OUT
+    fy = np.fft.fftfreq(oh) * oh
+    fx = np.fft.fftfreq(ow) * ow
+    r = np.sqrt(fy[:, None] ** 2 + fx[None, :] ** 2)
+    edge = max(1.0, 0.05 * sb_size)
+    ap = torch.from_numpy(np.clip((sb_size - r) / edge + 0.5, 0.0, 1.0)
+                          ).to(dev)
+    out = []
+    for lo in range(0, len(holos), 16):
+        x = torch.from_numpy(holos[lo:lo + 16]).to(dev).double()
+        spec = torch.roll(torch.fft.fft2(x), (-sb_pos[0], -sb_pos[1]),
+                          dims=(-2, -1))
+        spec = torch.cat([spec[..., :oh - oh // 2, :],
+                          spec[..., spec.shape[-2] - oh // 2:, :]], dim=-2)
+        spec = torch.cat([spec[..., :ow - ow // 2],
+                          spec[..., spec.shape[-1] - ow // 2:]], dim=-1)
+        out.append(torch.fft.ifft2(spec * ap).cpu().numpy())
+    return np.concatenate(out)
+
+
+def shifted_oracle(want4, data, so, nav=NAV) -> dict:
+    """Phase 4's answers for the scan read with sync offset ``so``:
+    frame i is data frame i + so, a blank frame (no mass: CoM at the
+    centre) where that lies outside the data.  Per-frame results are
+    phase 4's, moved; per-pixel sums drop the data frames that are not
+    read (float64 sums of squares, exact for these counts)."""
+    n = int(np.prod(NAV))
+    ids = np.arange(n) + so
+    ok = (ids >= 0) & (ids < n)
+    k = want4[(0, "intensity")].shape[-1]
+
+    def move(a, fill=0.0):
+        a = a.reshape(n, -1)
+        out = np.full_like(a, fill)
+        out[ok] = a[ids[ok]]
+        return out
+
+    gone = np.setdiff1d(np.arange(n), ids[ok])
+    f = data.reshape(n, -1)[gone].astype(np.float64)
+    mean4 = want4[(4, "mean")].reshape(-1)
+    sumsq = n * (want4[(4, "var")].reshape(-1) + mean4 ** 2) - (f * f).sum(0)
+    s1 = want4[(4, "sum")].reshape(-1) - f.sum(0)
+    mean = s1 / n
+    var = sumsq / n - mean ** 2
+    return {
+        (0, "intensity"): move(want4[(0, "intensity")]).reshape(nav + (k,)),
+        **com_oracle(move(want4[(1, "raw_com")], 64.0), nav),
+        (2, "intensity"): s1.reshape(SIG),
+        (3, "intensity"): move(want4[(3, "intensity")]).reshape(nav),
+        (4, "num_frames"): np.array([float(n)]),
+        (4, "sum"): s1.reshape(SIG),
+        (4, "mean"): mean.reshape(SIG),
+        (4, "var"): var.reshape(SIG),
+        (4, "std"): np.sqrt(var).reshape(SIG),
+    }
+
+
+def slice9_phase(ctx, ds, lt, path, data, want4, res6a, corrections, tmp,
+                 report, at, failures) -> dict:
+    """Phase 11: (a) the blobfinder on a 2 GiB CBED scan, (b) holography
+    on 256 holograms of 1024 x 1024, (c) the dataset core (sync offset,
+    inferred nav, io backends, big-endian data, the tile stream, the
+    standalone corrections) through phase 4's scan and UDFs.  Each pass
+    with the launch count set to 0 just before and read just after.
+    Returns the launch count of each pass."""
+    import torch
+
+    from libertem_tpu_torch.io.corrections import (
+        correct,
+        correct_dot_masks,
+    )
+    from libertem_tpu_torch.io.dataset.base import IOBackend
+    from libertem_tpu_torch.io.tiling import TilingScheme
+    from libertem_tpu_torch.common.shape import Shape
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.udf import blobfinder, holography
+    from libertem_tpu_torch.udf.base import UDFRunner
+
+    dev = ctx.device
+    n = int(np.prod(NAV))
+    launches = {}
+
+    def blocks_of(dset, udfs) -> int:
+        """The blocks a run of ``udfs`` on ``dset`` reads: one fused
+        launch each, for M <= 8."""
+        prep = UDFRunner(udfs)._prepare(dset, dev)
+        return sum(-(-p.num_frames // prep["scheme"].depth)
+                   for p in prep["partitions"])
+
+    def timed(label, fn, nbytes, fused_expected, launches_expected):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fused_moments.launches
+        fused = ctx.run_info["fused"]
+        report(f"11{label}", secs, nbytes, ctx.feed_stats)
+        print(f"  11{label}: fused {fused}, fused_moments partials "
+              f"launches {count}")
+        launches[f"{label} (phase 11)"] = count
+        if fused != fused_expected or count != launches_expected:
+            failures.append(f"11{label}: fused {fused} (expected "
+                            f"{fused_expected}), {count} launches "
+                            f"(expected {launches_expected})")
+        return out
+
+    # -- (a) the blobfinder ------------------------------------------------
+    cbed_path = os.path.join(tmp, "cbed.raw")
+    t0 = time.perf_counter()
+    cbed = write_cbed_scan(cbed_path)
+    print(f"11a data: CBED scan of {cbed.nbytes} bytes written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cds = ctx.load("raw", path=cbed_path, dtype="uint16", nav_shape=NAV,
+                   sig_shape=SIG)
+    peaks = lattice_peaks(25)
+    steps = 5
+    t0 = time.perf_counter()
+    ans = correlation_oracle(cbed, peaks, steps, dev, at, failures)
+    print(f"oracle 11a: {time.perf_counter() - t0:.1f} s")
+    pattern = blobfinder.RadialGradient(LATTICE["radius"])
+    full = timed("a run_blobfinder, full frame, RadialGradient(4)",
+                 lambda: blobfinder.run_blobfinder(ctx, cds, pattern),
+                 cbed.nbytes, False, 0)
+    check_correlation("11a full frame", full, ans, peaks, failures, False)
+    sparse = timed(
+        "a SparseCorrelationUDF, 25 peaks, steps 5",
+        lambda: ctx.run_udf(cds, blobfinder.SparseCorrelationUDF(
+            pattern, peaks=peaks, steps=steps)), cbed.nbytes, False, 0)
+    check_correlation("11a sparse", sparse, ans, peaks, failures, True)
+    beside = timed(
+        "a FullFrameCorrelationUDF beside SumUDF and StdDevUDF",
+        lambda: ctx.run_udf(cds, [blobfinder.FullFrameCorrelationUDF(
+            pattern), lt.SumUDF(), lt.StdDevUDF()]), cbed.nbytes, False, 0)
+    check_correlation("11a beside Sum, StdDev", beside[0], ans, peaks,
+                      failures, False)
+    mean = ans["sum"] / n
+    var = ans["sumsq"] / n - mean ** 2
+    check_results("11a beside", beside, {
+        (1, "intensity"): ans["sum"], (2, "num_frames"): np.array([n]),
+        (2, "sum"): ans["sum"],
+        (2, "mean"): mean, (2, "var"): var, (2, "std"): np.sqrt(var),
+    }, failures)
+    print("11a trace of the full-frame pass, run again:")
+    traced_run(ctx, cds, [blobfinder.FullFrameCorrelationUDF(pattern)], at)
+    block = torch.from_numpy(cbed[:1024]).to(dev)
+    fft_stage_times(block, at)
+    del cds, cbed, block
+    os.remove(cbed_path)
+
+    # -- (b) holography -----------------------------------------------------
+    holo_path = os.path.join(tmp, "holo.raw")
+    t0 = time.perf_counter()
+    holos, phases = holo_scan(holo_path)
+    print(f"11b data: {HOLO_FRAMES} holograms of {HOLO_SIG}, "
+          f"{holos.nbytes} bytes written in {time.perf_counter() - t0:.1f} s")
+    sb_pos = holography.estimate_sideband_position(holos[0])
+    sb_size = holography.estimate_sideband_size(sb_pos, HOLO_SIG)
+    print(f"11b sideband at {sb_pos}, aperture radius {sb_size:.2f} px")
+    hds = ctx.load("raw", path=holo_path, dtype="float32",
+                   nav_shape=(HOLO_FRAMES,), sig_shape=HOLO_SIG)
+    wave = timed(f"b HoloReconstructUDF, out_shape {HOLO_OUT}",
+                 lambda: ctx.run_udf(hds, holography.HoloReconstructUDF(
+                     out_shape=HOLO_OUT, sb_position=sb_pos,
+                     sb_size=sb_size)), holos.nbytes, False, 0)["wave"].data
+    t0 = time.perf_counter()
+    want = holo_oracle(holos, sb_pos, sb_size, dev)
+    print(f"oracle 11b: {time.perf_counter() - t0:.1f} s (complex128 "
+          f"torch.fft on the card)")
+    err = float(np.abs(wave - want).max() / np.abs(want).max())
+    # the phase of each object against the reference, downsampled to
+    # the wave's shape, inside its inner half
+    oh, ow = HOLO_OUT
+    step = HOLO_SIG[0] // oh
+    inner = np.s_[oh // 4:3 * oh // 4, ow // 4:3 * ow // 4]
+    worst_max = worst_mean = 0.0
+    for i in range(1, HOLO_FRAMES, 15):
+        dphi = -np.angle(wave[i] / wave[0])
+        delta = dphi[inner] - phases[i][::step, ::step][inner]
+        delta -= delta.mean()
+        worst_max = max(worst_max, float(np.abs(delta).max()))
+        worst_mean = max(worst_mean, float(np.abs(delta).mean()))
+    print(f"  11b wave: {wave.shape} {wave.dtype}, max abs err {err:.3g} of "
+          f"max|wave| vs complex128; recovered phase vs the object (every "
+          f"15th frame, inner half): max {worst_max:.3f} rad, mean "
+          f"{worst_mean:.3f} rad")
+    if err > 1e-4 or worst_max > 0.35 or worst_mean > 0.1:
+        failures.append(f"11b: wave err {err}, phase {worst_max} / "
+                        f"{worst_mean}")
+    print("11b trace of the holography pass, run again:")
+    traced_run(ctx, hds, [holography.HoloReconstructUDF(
+        out_shape=HOLO_OUT, sb_position=sb_pos, sb_size=sb_size)], at)
+    del hds, holos, phases, want, wave
+    os.remove(holo_path)
+
+    # -- (c) the dataset core -------------------------------------------------
+    nbytes = data.nbytes
+    launches_expected = blocks_of(ds, make_udfs(lt))
+    for so in (SYNC, -SYNC):
+        sds = ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                       sig_shape=SIG, sync_offset=so)
+        info = sds.get_sync_offset_info()
+        expect = {"frames_skipped_start": max(0, so),
+                  "frames_ignored_end": max(0, -so),
+                  "frames_inserted_start": max(0, -so),
+                  "frames_inserted_end": max(0, so)}
+        print(f"  11c sync_offset {so:+d}: {info}")
+        if info != expect:
+            failures.append(f"11c get_sync_offset_info {info} != {expect}")
+        res = timed(f"c sync_offset {so:+d}",
+                    lambda: ctx.run_udf(sds, make_udfs(lt)), nbytes, True,
+                    launches_expected)
+        check_results(f"11c sync_offset {so:+d}", res,
+                      shifted_oracle(want4, data, so), failures)
+    # one partition's tile stream (sig split in two) against the file
+    sds = ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                   sig_shape=SIG, sync_offset=-SYNC)
+    part = next(sds.get_partitions())
+    scheme = TilingScheme.make_for_shape(Shape((512, 64, 128), sig_dims=2),
+                                         sds.shape)
+    raw = np.memmap(path, dtype=np.uint16, mode="r").reshape(-1, *SIG)
+    first, covered, count, same = None, 0, 0, True
+    for t in part.get_tiles(scheme):
+        f0, y0, x0 = t.tile_slice.origin
+        first = f0 if first is None else first
+        d, th, tw = t.shape
+        # dataset frame f is data frame f - SYNC
+        same &= np.array_equal(
+            t.data, raw[f0 - SYNC:f0 - SYNC + d, y0:y0 + th, x0:x0 + tw])
+        covered += d if t.scheme_idx == 0 else 0
+        count += 1
+    print(f"  11c get_tiles, partition 0 under sync_offset {-SYNC}: "
+          f"{count} tiles from frame {first}, {covered} frames, equal to "
+          f"the file's bytes: {same}")
+    if not same or first != SYNC or covered != part.num_frames - SYNC:
+        failures.append(f"11c get_tiles: equal {same}, from {first}, "
+                        f"{covered} frames")
+    del raw
+    # nav omitted: inferred as (n,); CoMUDF needs a 2-D nav, so the
+    # other four UDFs
+    ids = ctx.load("raw", path=path, dtype="uint16", sig_shape=SIG)
+    print(f"  11c nav inferred: {tuple(ids.shape)}")
+    udfs4 = [u for i, u in enumerate(make_udfs(lt)) if i != 1]
+    res = timed(f"c nav inferred ({n},)", lambda: ctx.run_udf(ids, udfs4),
+                nbytes, True, launches_expected)
+    want_flat = {(0, "intensity"): want4[(0, "intensity")].reshape(n, -1),
+                 (1, "intensity"): want4[(2, "intensity")],
+                 (2, "intensity"): want4[(3, "intensity")].reshape(n)}
+    want_flat.update({(3, k): want4[(4, k)] for k in
+                      ("num_frames", "sum", "mean", "var", "std")})
+    if tuple(ids.shape) != (n,) + SIG:
+        failures.append(f"11c inferred nav {tuple(ids.shape)}")
+    check_results("11c nav inferred", res, want_flat, failures)
+    # the io backends
+    for backend in ("mmap", "buffered", "direct"):
+        bds = ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                       sig_shape=SIG,
+                       io_backend=IOBackend.from_json({"id": backend}))
+        res = timed(f"c io_backend {backend}",
+                    lambda: ctx.run_udf(bds, make_udfs(lt)), nbytes, True,
+                    launches_expected)
+        check_results(f"11c io_backend {backend}", res, want4, failures)
+        if backend == "direct":
+            probe = next(bds.get_partitions())
+            probe.read_dataset_frames(0, 1)
+            print(f"  11c direct: O_DIRECT opened: "
+                  f"{probe._reader.direct_opened} (else read as buffered)")
+    # big-endian: a copy of the first quarter of the scan
+    be_path = os.path.join(tmp, "scan_be.raw")
+    quarter = data[:NAV[0] // 4]
+    quarter.astype(">u2").tofile(be_path)
+    qnav = (NAV[0] // 4, NAV[1])
+    qds = ctx.load("raw", path=be_path, dtype=">u2", nav_shape=qnav,
+                   sig_shape=SIG)
+    q_blocks = blocks_of(qds, make_udfs(lt))
+    res = timed("c big-endian >u2, a quarter of the scan",
+                lambda: ctx.run_udf(qds, make_udfs(lt)), quarter.nbytes, True,
+                q_blocks)
+    t0 = time.perf_counter()
+    want_q = oracle(quarter, np.stack([lt.masks.circular(64, 64, SIG[1], SIG[0],
+                                                         16),
+                                       lt.masks.ring(64, 64, SIG[1], SIG[0],
+                                                     60, 40)]), nav=qnav)
+    print(f"oracle 11c quarter: {time.perf_counter() - t0:.1f} s")
+    check_results("11c big-endian", res, want_q, failures)
+    slot = np.array(quarter.reshape(-1, *SIG)[:1024])
+    t0 = time.perf_counter()
+    for _ in range(8):
+        slot.byteswap(inplace=True)
+    swap_ms = (time.perf_counter() - t0) / 8 * 1e3
+    print(f"  11c byteswap in place on the host (numpy, the reader's "
+          f"thread): {swap_ms:.2f} ms a 32 MiB block, "
+          f"{swap_ms * q_blocks / 1e3:.3f} s a quarter-scan pass {at}")
+    del qds
+    os.remove(be_path)
+    # the standalone corrections against phase 6a's corrected run
+    rows = np.arange(n // 4 - 512, n // 4 + 512)
+    frames = data.reshape(n, *SIG)[rows]
+    rings = ring_stack(lt).reshape(8, -1).astype(np.float64)
+    excluded = corrections.excluded_coords.T
+    fixed = correct(frames, corrections.dark, corrections.gain, excluded)
+    folded = correct_dot_masks(ring_stack(lt).astype(np.float32),
+                               corrections.gain, excluded)
+    got6a = res6a[0]["intensity"].data.reshape(n, -1)[rows]
+    for label, proj in (
+        ("correct", fixed.reshape(len(rows), -1).astype(np.float64)
+         @ rings.T),
+        ("correct_dot_masks", (frames - corrections.dark).reshape(
+            len(rows), -1).astype(np.float64)
+         @ folded.reshape(8, -1).astype(np.float64).T),
+    ):
+        e, ok = max_err(proj, got6a)
+        print(f"  11c {label} on 1024 frames (a partition boundary) vs "
+              f"phase 6a's corrected run: max abs err {e:.3g}")
+        if not ok:
+            failures.append(f"11c {label}: max err {e}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1460,6 +2086,7 @@ def main() -> int:
               f"{max(regs, default=0)} registers a thread, {spills} bytes "
               f"spilled in all")
 
+    t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         # -- 2. data -----------------------------------------------------------
         path = os.path.join(tmp, "scan.raw")
@@ -1711,7 +2338,8 @@ def main() -> int:
         # (a) fused, corrected, 12 mask rows
         fused_moments.launches = 0
         t0 = time.perf_counter()
-        res = ctx.run_udf(ds, make_ring_udfs(lt), corrections=corrections)
+        res = res6a = ctx.run_udf(ds, make_ring_udfs(lt),
+                                  corrections=corrections)
         torch.cuda.synchronize()
         corr_s = time.perf_counter() - t0
         corr_launches = fused_moments.launches
@@ -1937,6 +2565,12 @@ def main() -> int:
         # -- 10. the analyses -------------------------------------------------
         p10 = analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures)
 
+        # -- 11. the FFT UDFs and the dataset core ----------------------------
+        p11 = slice9_phase(ctx, ds, lt, path, data, want4, res6a,
+                           corrections, tmp, report, at, failures)
+
+    print(f"phases 2-11: {time.perf_counter() - t_start:.1f} s (build "
+          f"before them)")
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -1976,6 +2610,7 @@ def main() -> int:
                 aux_launches,
             "partial results with a patch (phase 8)": p8["launches"],
             **p10,
+            **p11,
         },
         cases=cases,
     ), dict(

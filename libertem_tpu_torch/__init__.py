@@ -12,7 +12,10 @@ read pass; aux data (per-frame mask shifts), complex data and masks,
 and block-compacted sparse mask stacks are supported.  Above the UDFs,
 ``Context.run`` runs the analyses (``Context.create_*_analysis``) and
 ``Context.map`` a function of one frame (AutoUDF); RecordUDF writes
-the frames to a ``.npy`` file.
+the frames to a ``.npy`` file.  The FFT UDFs (``udf.blobfinder``'s
+correlations, ``udf.holography``) run with ``torch.fft`` on the
+device; datasets take a sync offset, an io backend and data of either
+byte order.
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the

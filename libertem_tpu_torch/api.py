@@ -94,9 +94,14 @@ class Context:
 
     def load(self, filetype: str, *args, **kwargs) -> DataSet:
         """``load("memory", data=..., ...)`` or ``load("raw", path=...,
-        dtype=..., nav_shape=..., sig_shape=...)``.  Without a given
-        ``num_partitions`` the dataset splits into at least
-        ``MIN_PARTITIONS`` partitions, as in the JAX package."""
+        dtype=..., nav_shape=..., sig_shape=...)``, with the JAX
+        package's arguments for these two formats: ``sync_offset``,
+        ``io_backend`` (raw), a dtype of either byte order, ``nav_shape``
+        omitted (raw: a 1-D nav of the file's frames), the deprecated
+        raw aliases, and ``tileshape``/``tiledelay``/``datashape``
+        (memory).  Without a given ``num_partitions`` the dataset splits
+        into at least ``MIN_PARTITIONS`` partitions, as in the JAX
+        package."""
         if filetype == "memory":
             from .io.dataset.memory import MemoryDataSet
             ds = MemoryDataSet(*args, **kwargs)

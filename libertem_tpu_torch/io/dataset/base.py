@@ -7,16 +7,27 @@ frames (those of a roi only, when the run has one) as fixed-depth
 :class:`Block` s in the raw on-disk dtype, zero-padded at the tail,
 with a ``valid`` count of real frames.  The cast to float happens on
 the device, so narrow detector data crosses PCIe at its raw width.
+
+``sync_offset`` maps dataset frame ``i`` to data frame
+``i + sync_offset``; dataset frames whose data frame lies outside
+``[0, image_count)`` read as zeros.  Every read lands in native byte
+order: a format whose bytes are in another order swaps them in place
+in the destination, on the host, right after the read.  File formats
+read through a :class:`RangeReader`, with the strategy of one of the io
+backends (``preadv``, the default; mmap; ``O_DIRECT``).
 """
 from __future__ import annotations
 
 import os
+import threading
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
 
 import numpy as np
 
 from ...common.shape import Shape
+from ...common.slice import Slice
 from ..tiling import TilingScheme
 
 MAX_PARTITION_SIZE = 512 * 1024 * 1024  # bytes
@@ -30,19 +41,95 @@ class DataSetException(Exception):
 class DataSetMeta:
     shape: Shape
     raw_dtype: np.dtype
-    # frames actually present in the data; frames of nav beyond it
-    # read as zeros
+    sync_offset: int = 0
+    # frames actually present in the data; None means all of nav.  A
+    # genuine 0 (a header-only file of an acquisition in progress)
+    # stays 0, so every frame reads as zeros
     image_count: Optional[int] = None
 
     def __post_init__(self):
         self.raw_dtype = np.dtype(self.raw_dtype)
         if self.image_count is None:
             self.image_count = self.shape.nav.size
+        # an offset at or past the frame count would select nothing but
+        # zeros: a configuration error, not a valid sync
+        if self.image_count and not (
+            -self.image_count < self.sync_offset < self.image_count
+        ):
+            raise DataSetException(
+                f"sync_offset should be in ({-self.image_count}, "
+                f"{self.image_count}), which is "
+                "(-image_count, image_count)"
+            )
 
     @property
     def native_dtype(self) -> np.dtype:
-        """``raw_dtype`` in native byte order."""
+        """``raw_dtype`` in native byte order: what every read yields."""
         return np.dtype(self.raw_dtype.newbyteorder("="))
+
+
+def byteswap(out: np.ndarray, raw_dtype) -> None:
+    """Bring a read of data of ``raw_dtype`` into native byte order, in
+    place: ``out`` (of the native dtype) holds the data's bytes as read.
+    Nothing to do for data in native order."""
+    if not np.dtype(raw_dtype).isnative:
+        out.byteswap(inplace=True)
+
+
+def _runs(ids: np.ndarray) -> list[tuple[int, int]]:
+    """``(a, b)`` position ranges of the stretches of consecutive values
+    in the sorted ``ids``."""
+    if not len(ids):
+        return []
+    breaks = np.flatnonzero(np.diff(ids) != 1) + 1
+    starts = np.concatenate(([0], breaks))
+    stops = np.concatenate((breaks, [len(ids)]))
+    return [(int(a), int(b)) for a, b in zip(starts, stops)]
+
+
+class DataTile:
+    """A slice-tagged tile of :meth:`Partition.get_tiles`: ``data``,
+    ``(frames, *sig tile)`` (2-D with the sig axes flattened for the
+    scipy.sparse backends), and its ``tile_slice`` in the flat nav."""
+
+    def __init__(self, data, tile_slice: Slice, scheme_idx: int):
+        if isinstance(data, DataTile):
+            data = data.data
+        flat2d = (tile_slice.shape.nav.size, tile_slice.shape.sig.size)
+        if tuple(data.shape) != tuple(tile_slice.shape) and \
+                tuple(data.shape) != flat2d:
+            raise ValueError(
+                f"shape mismatch: data {tuple(data.shape)} vs "
+                f"tile_slice {tuple(tile_slice.shape)}"
+            )
+        self._data = data
+        self.tile_slice = tile_slice
+        self.scheme_idx = scheme_idx
+
+    @property
+    def data(self):
+        return self._data
+
+    @property
+    def flat_data(self) -> np.ndarray:
+        """(n_frames, n_sig_pixels) view of the tile."""
+        shape = self.tile_slice.shape
+        return self._data.reshape((shape.nav.size, shape.sig.size))
+
+    @property
+    def dtype(self):
+        return self._data.dtype
+
+    @property
+    def shape(self):
+        return tuple(self.tile_slice.shape)
+
+    @property
+    def size(self):
+        return self.tile_slice.shape.size
+
+    def __repr__(self):
+        return f"<DataTile {self.tile_slice!r} scheme_idx={self.scheme_idx}>"
 
 
 @dataclass
@@ -64,14 +151,18 @@ class Block:
 
 
 class Partition:
-    """A contiguous flat-nav frame range of a dataset."""
+    """A contiguous flat-nav frame range of a dataset.  ``start_frame``
+    and ``num_frames`` count dataset frames; the sync offset applies
+    when reading."""
 
     def __init__(self, meta: DataSetMeta, start_frame: int,
-                 num_frames: int, idx: int = 0):
+                 num_frames: int, idx: int = 0,
+                 io_backend: Optional["IOBackend"] = None):
         self.meta = meta
         self.start_frame = int(start_frame)
         self.num_frames = int(num_frames)
         self.idx = int(idx)
+        self.io_backend = io_backend
 
     def __repr__(self):
         return (
@@ -79,20 +170,106 @@ class Partition:
             f"[{self.start_frame}:{self.start_frame + self.num_frames})>"
         )
 
+    @property
+    def slice(self) -> Slice:
+        """The flat-nav slice of the dataset this partition covers."""
+        sig = tuple(self.meta.shape.sig)
+        return Slice(
+            (self.start_frame,) + (0,) * len(sig),
+            Shape((self.num_frames,) + sig,
+                  sig_dims=self.meta.shape.sig.dims),
+        )
+
+    @property
+    def shape(self) -> Shape:
+        """(n_frames, *sig)."""
+        return self.slice.shape
+
+    @classmethod
+    def make_slices(cls, shape: Shape, num_partitions: int,
+                    sync_offset: int = 0):
+        """Balanced flat-nav partition slices, each with the data frames
+        ``(start + sync_offset, stop + sync_offset)`` it maps to; more
+        partitions than frames are clamped, with a warning."""
+        num_frames = shape.nav.size
+        if num_partitions > num_frames:
+            warnings.warn(
+                "dataset contains fewer frames than specified "
+                f"partitions, setting num_partitions == num_frames "
+                f"== {num_frames} to avoid creating empty partitions",
+                RuntimeWarning,
+            )
+            num_partitions = num_frames
+        bounds = np.linspace(
+            0, num_frames, num=max(2, num_partitions + 1),
+            endpoint=True, dtype=int,
+        )
+        for start, stop in zip(bounds[:-1], bounds[1:]):
+            start, stop = int(start), int(stop)
+            yield (
+                Slice(
+                    (start,) + (0,) * shape.sig.dims,
+                    Shape((stop - start,) + tuple(shape.sig),
+                          sig_dims=shape.sig.dims),
+                ),
+                start + sync_offset,
+                stop + sync_offset,
+            )
+
+    def get_ident(self) -> str:
+        return f"part-{self.idx}"
+
+    # -- reading -----------------------------------------------------------
+
     def _read_raw_frames(self, start: int, stop: int,
                          out: np.ndarray) -> None:
-        """Read frames [start, stop) into ``out`` ((stop - start,
-        *sig), native dtype).  Indices lie within [0, image_count)."""
+        """Read data frames [start, stop) into ``out`` ((stop - start,
+        *sig), native dtype), in native byte order.  Indices lie within
+        [0, image_count)."""
         raise NotImplementedError()
 
     def read_frames_into(self, start: int, stop: int,
                          out: np.ndarray) -> None:
-        """Fill ``out`` with frames [start, stop); frames past the
-        data's ``image_count`` are zero."""
-        c1 = max(start, min(self.meta.image_count, stop))
-        if c1 > start:
-            self._read_raw_frames(start, c1, out[:c1 - start])
-        out[c1 - start:] = 0
+        """Fill ``out`` with dataset frames [start, stop): one read of
+        the data frames they map to under the sync offset, zeros where
+        those lie outside [0, image_count)."""
+        so = self.meta.sync_offset
+        lo = min(max(start, -so), stop)
+        hi = max(min(stop, self.meta.image_count - so), lo)
+        out[:lo - start] = 0
+        if hi > lo:
+            self._read_raw_frames(lo + so, hi + so,
+                                  out[lo - start:hi - start])
+        out[hi - start:] = 0
+
+    def read_dataset_frames(self, start: int, stop: int) -> np.ndarray:
+        """Dataset frames [start, stop) as a new (n, *sig) array."""
+        out = np.empty((stop - start,) + tuple(self.meta.shape.sig),
+                       self.meta.native_dtype)
+        self.read_frames_into(start, stop, out)
+        return out
+
+    def read_selected_frames(self, ids: np.ndarray) -> np.ndarray:
+        """Data frames ``ids`` (sorted, within [0, image_count)) as
+        ``(len(ids), *sig)``, one read per run of consecutive ids."""
+        ids = np.asarray(ids, dtype=np.int64)
+        out = np.empty((len(ids),) + tuple(self.meta.shape.sig),
+                       self.meta.native_dtype)
+        for a, b in _runs(ids):
+            self._read_raw_frames(int(ids[a]), int(ids[b - 1]) + 1,
+                                  out[a:b])
+        return out
+
+    def _read_selected_with_offset(self, ids: np.ndarray) -> np.ndarray:
+        """Dataset frames ``ids`` (sorted) as ``(len(ids), *sig)``,
+        under the sync offset, one read per run of consecutive ids."""
+        ids = np.asarray(ids, dtype=np.int64)
+        out = np.empty((len(ids),) + tuple(self.meta.shape.sig),
+                       self.meta.native_dtype)
+        for a, b in _runs(ids):
+            self.read_frames_into(int(ids[a]), int(ids[b - 1]) + 1,
+                                  out[a:b])
+        return out
 
     def local_frame_ids(self, roi: Optional[np.ndarray]) -> np.ndarray:
         """Flat-nav ids of the frames this partition contributes
@@ -120,6 +297,19 @@ class Partition:
         if roi is None:
             return self.num_frames
         return len(self.local_frame_ids(roi))
+
+    def get_macrotile(self, dest_dtype=None, roi=None) -> DataTile:
+        """The partition's (roi-selected) frames as one flat-nav tile,
+        its origin roi-compressed."""
+        data = self._read_selected_with_offset(self.local_frame_ids(roi))
+        if dest_dtype is not None:
+            data = data.astype(dest_dtype, copy=False)
+        sig_dims = self.meta.shape.sig.dims
+        tile_slice = Slice(
+            (self.roi_offset(roi),) + (0,) * sig_dims,
+            Shape(data.shape, sig_dims=sig_dims),
+        )
+        return DataTile(data, tile_slice=tile_slice, scheme_idx=0)
 
     def gen_blocks(
         self,
@@ -149,10 +339,7 @@ class Partition:
                 np.empty((depth,) + sig, self.meta.native_dtype)
                 if out is None else out()
             )
-            breaks = np.flatnonzero(np.diff(chunk) != 1) + 1
-            starts = np.concatenate(([0], breaks))
-            stops = np.concatenate((breaks, [valid]))
-            for a, b in zip(starts, stops):
+            for a, b in _runs(chunk):
                 self.read_frames_into(
                     int(chunk[a]), int(chunk[b - 1]) + 1, data[a:b]
                 )
@@ -166,15 +353,82 @@ class Partition:
                 valid=valid,
             )
 
+    def _get_read_ranges(self, tiling_scheme, roi=None) -> list:
+        """Dataset-space (start, stop) spans of the depth-blocks
+        :meth:`gen_blocks` reads (first and last selected frame + 1)."""
+        ids = self.local_frame_ids(roi)
+        depth = max(1, min(int(tiling_scheme.depth), self.num_frames))
+        return [
+            (int(ids[i]), int(ids[min(i + depth, len(ids)) - 1]) + 1)
+            for i in range(0, len(ids), depth)
+        ]
+
+    def get_tiles(self, tiling_scheme: TilingScheme,
+                  roi: Optional[np.ndarray] = None, dest_dtype=None,
+                  array_backend=None) -> Iterator[DataTile]:
+        """The public tile stream: depth-chunks of (roi-selected) frames
+        split into the scheme's sig slices, as :class:`DataTile` s whose
+        origins are flat-nav (roi-compressed with a roi).
+
+        Without a roi, the stream covers stored frames only: the blank
+        frames that a sync offset, or a file shorter than nav, inserts
+        are left out of it (:meth:`gen_blocks` zero-fills them instead,
+        and the engine's results mark them as zeros).  An acquisition in
+        progress (``image_count`` 0) is not clipped."""
+        from ...common.sparse import to_backend
+        sig_dims = self.meta.shape.sig.dims
+        so = self.meta.sync_offset
+        ic = self.meta.image_count
+        v0, v1 = -so, (ic or 0) - so
+        clip = bool(ic) and (so != 0 or ic < self.meta.shape.nav.size)
+        for block in self.gen_blocks(tiling_scheme, roi=roi):
+            data = block.data[:block.valid]
+            goff = block.global_offset
+            if roi is None and clip:
+                lo = max(goff, v0)
+                hi = min(goff + len(data), v1)
+                if hi <= lo:
+                    continue
+                data = data[lo - goff:hi - goff]
+                goff = lo
+            if dest_dtype is not None:
+                data = data.astype(dest_dtype, copy=False)
+            for idx, sig_slice in tiling_scheme.slices:
+                sub = data[(slice(None),) + sig_slice.get()]
+                if len(tiling_scheme) > 1:
+                    sub = np.ascontiguousarray(sub)
+                if array_backend not in (None, "numpy"):
+                    sub = to_backend(sub, array_backend)
+                tile_slice = Slice(
+                    (goff,) + tuple(sig_slice.origin),
+                    Shape((len(data),) + tuple(sig_slice.shape),
+                          sig_dims=sig_dims),
+                )
+                yield DataTile(sub, tile_slice=tile_slice, scheme_idx=idx)
+
+
+class RoiHelper:
+    """``ds.roi[...]``: index nav space to build a boolean roi."""
+
+    def __init__(self, ds):
+        self._ds = ds
+
+    def __getitem__(self, k) -> np.ndarray:
+        roi = np.zeros(tuple(self._ds.shape.nav), dtype=bool)
+        roi[k] = True
+        return roi
+
 
 class DataSet:
     """Base class of the dataset formats: subclasses fill
     ``self._meta`` in :meth:`initialize` and yield their Partition
     subclass from :meth:`get_partitions`."""
 
-    def __init__(self, num_partitions: Optional[int] = None):
+    def __init__(self, io_backend: Optional["IOBackend"] = None,
+                 num_partitions: Optional[int] = None):
         self._meta: Optional[DataSetMeta] = None
         self._num_partitions = num_partitions
+        self._io_backend = io_backend
         self._cores = 1
 
     def set_num_cores(self, cores: int) -> None:
@@ -194,6 +448,65 @@ class DataSet:
     @property
     def shape(self) -> Shape:
         return self.meta.shape
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self.meta.raw_dtype
+
+    @property
+    def raw_dtype(self) -> np.dtype:
+        return self.meta.raw_dtype
+
+    @property
+    def roi(self) -> RoiHelper:
+        """Boolean rois by indexing nav space: ``ds.roi[0:10]``."""
+        return RoiHelper(self)
+
+    def check_valid(self) -> bool:
+        return True
+
+    def supports_correction(self) -> bool:
+        return True
+
+    def get_diagnostics(self) -> list:
+        """Format-specific ``{"name": ..., "value": ...}`` rows."""
+        return []
+
+    @property
+    def diagnostics(self) -> list:
+        """The format's diagnostics, then the partition layout and the
+        sync offset's alignment."""
+        try:
+            p_shape = str(next(self.get_partitions()).shape)
+            n_part = str(self.get_num_partitions())
+        except Exception:
+            p_shape, n_part = "n/a", "n/a"
+        so = self.get_sync_offset_info()
+        return self.get_diagnostics() + [
+            {"name": "Partition shape", "value": p_shape},
+            {"name": "Number of partitions", "value": n_part},
+            {"name": "Number of frames skipped at the beginning",
+             "value": so["frames_skipped_start"]},
+            {"name": "Number of frames ignored at the end",
+             "value": so["frames_ignored_end"]},
+            {"name": "Number of blank frames inserted at the beginning",
+             "value": so["frames_inserted_start"]},
+            {"name": "Number of blank frames inserted at the end",
+             "value": so["frames_inserted_end"]},
+        ]
+
+    def get_sync_offset_info(self) -> dict:
+        """Frames of the data skipped or ignored, and blank frames
+        inserted, under the sync offset."""
+        so = self.meta.sync_offset
+        image_count = self.meta.image_count or 0
+        nav = self.meta.shape.nav.size
+        return {
+            "frames_skipped_start": max(0, so),
+            "frames_ignored_end": max(0, image_count - nav - so),
+            "frames_inserted_start": max(0, -so),
+            "frames_inserted_end": max(0, nav - image_count + so),
+        }
 
     def get_num_partitions(self) -> int:
         """At least ``set_num_cores`` partitions, each at most
@@ -218,22 +531,243 @@ class DataSet:
     def get_partitions(self) -> Iterator[Partition]:
         raise NotImplementedError()
 
+    def get_slices(self) -> list[Slice]:
+        return [p.slice for p in self.get_partitions()]
+
+    def get_correction_data(self):
+        """Corrections the dataset carries itself (none here)."""
+        from ..corrections import CorrectionSet
+        return CorrectionSet()
+
+    def get_max_io_size(self) -> Optional[int]:
+        return None
+
+    def adjust_tileshape(self, tileshape, roi):
+        """The dataset's say on a run's ``(depth, *sig tile)``: kept."""
+        return tileshape
+
+    @classmethod
+    def get_supported_io_backends(cls) -> list:
+        """Ids of the io backends a file format reads through."""
+        return list(IOBackend.registry)
+
+    @classmethod
+    def get_supported_extensions(cls) -> set:
+        return set()
+
     def __repr__(self):
         if self._meta is None:
             return f"<{type(self).__name__} (uninitialized)>"
         return f"<{type(self).__name__} shape={self.shape}>"
 
 
-def pread_into(fd: int, view: memoryview, offset: int, path: str) -> None:
-    """Fill ``view`` from ``fd`` at ``offset``: one ``preadv`` is
-    capped near 2 GiB by the kernel and may return early, so loop;
-    a read that ends before the view is full is an error."""
-    got = 0
-    while got < len(view):
-        n = os.preadv(fd, [view[got:]], offset + got)
-        if n <= 0:
-            raise IOError(
-                f"short read: {got} of {len(view)} bytes at offset "
-                f"{offset} ({path})"
+# -- io backends ---------------------------------------------------------
+
+
+class IOBackend:
+    """A read strategy for :class:`RangeReader`, by id: ``buffered``
+    (``preadv``, the default), ``mmap`` or ``direct`` (``O_DIRECT``)."""
+
+    registry: dict = {}
+    id_: str = "base"
+
+    def __init_subclass__(cls, id_=None, **kw):
+        super().__init_subclass__(**kw)
+        if id_ is not None:
+            cls.id_ = id_
+            IOBackend.registry[id_] = cls
+
+    @classmethod
+    def from_json(cls, data: dict) -> "IOBackend":
+        kind = data.get("id", "buffered")
+        kwargs = {k: v for k, v in data.items() if k != "id"}
+        return cls.registry[kind](**kwargs)
+
+    @classmethod
+    def get_supported(cls) -> list:
+        return list(cls.registry)
+
+
+class MMapBackend(IOBackend, id_="mmap"):
+    def __init__(self, enable_readahead_hints: bool = False):
+        self.enable_readahead_hints = enable_readahead_hints
+
+
+class BufferedBackend(IOBackend, id_="buffered"):
+    def __init__(self, max_buffer_size: int = 16 * 1024 * 1024):
+        self.max_buffer_size = max_buffer_size
+
+
+class DirectBackend(IOBackend, id_="direct"):
+    def __init__(self, max_buffer_size: int = 16 * 1024 * 1024):
+        self.max_buffer_size = max_buffer_size
+
+
+class RangeReader:
+    """Reads byte ranges of one file into a destination buffer (the
+    host feed's pinned slot), by the backend's ``strategy``:
+
+    - ``buffered`` (no backend, or BufferedBackend): ``preadv`` straight
+      into the destination, in calls of at most ``max_buffer_size``;
+    - ``mmap``: a copy out of a read-only mapping of the file
+      (``MADV_WILLNEED`` with ``enable_readahead_hints``);
+    - ``direct``: the file opened with ``O_DIRECT``, which needs the
+      file offset, the length and the destination address aligned to
+      4096 bytes.  An aligned range is read straight into the
+      destination; any other through an aligned bounce buffer, of which
+      the range's part is copied.  Where the file system refuses
+      ``O_DIRECT``, the file is opened without it and read as
+      ``buffered``; ``direct_opened`` says which of the two happened
+      (None before the first read).
+
+    An IOBackend of another class raises RuntimeError: this reader has
+    no implementation of it.
+    """
+
+    ALIGN = 4096
+
+    def __init__(self, path: str, io_backend: Optional[IOBackend] = None):
+        self._path = path
+        self._mmap = None
+        self._fd = None
+        self._bounce = None
+        self._lock = threading.Lock()
+        self._max_read_bytes = 1 << 62
+        self._readahead = False
+        self.direct_opened: Optional[bool] = None
+        if isinstance(io_backend, DirectBackend):
+            self.strategy = "direct"
+        elif isinstance(io_backend, MMapBackend):
+            self.strategy = "mmap"
+            self._readahead = bool(io_backend.enable_readahead_hints)
+        elif io_backend is None or isinstance(io_backend, BufferedBackend):
+            self.strategy = "buffered"
+        else:
+            raise RuntimeError(
+                f"io_backend {type(io_backend).__name__!r} has no reader "
+                "implementation in this framework"
             )
-        got += n
+        if isinstance(io_backend, (BufferedBackend, DirectBackend)):
+            mbs = int(io_backend.max_buffer_size or 0)
+            if mbs >= self.ALIGN:
+                self._max_read_bytes = mbs // self.ALIGN * self.ALIGN
+
+    def read(self, start_byte: int, nbytes: int) -> np.ndarray:
+        """``nbytes`` bytes from ``start_byte`` as a new uint8 array."""
+        out = np.empty(nbytes, dtype=np.uint8)
+        self.read_into(start_byte, out)
+        return out
+
+    def read_into(self, start_byte: int, out: np.ndarray) -> None:
+        """Fill the C-contiguous array ``out`` with the file's bytes from
+        ``start_byte``; a read that ends before ``out`` is full raises
+        IOError."""
+        if not out.flags.c_contiguous:
+            raise ValueError("read destination must be C-contiguous")
+        dest = out.reshape(-1).view(np.uint8)
+        if self.strategy == "mmap":
+            src = self._mapping()[start_byte:start_byte + len(dest)]
+            if len(src) < len(dest):
+                raise IOError(
+                    f"short read: {len(src)} of {len(dest)} bytes at "
+                    f"offset {start_byte} ({self._path})"
+                )
+            dest[:] = src
+            return
+        fd = self._open()
+        if not self.direct_opened:
+            self._pread(fd, dest, start_byte)
+            return
+        a = self.ALIGN
+        if (start_byte % a == 0 and len(dest) % a == 0
+                and dest.ctypes.data % a == 0):
+            self._pread(fd, dest, start_byte)
+            return
+        # unaligned: aligned chunks through the bounce buffer
+        end = start_byte + len(dest)
+        pos = start_byte // a * a
+        with self._lock:
+            bounce = self._bounce_buffer(
+                min(-(-end // a) * a - pos, self._max_read_bytes))
+            while pos < end:
+                want = min(len(bounce), -(-(end - pos) // a) * a)
+                got = self._pread(fd, bounce[:want], pos, partial=True)
+                lo, hi = max(pos, start_byte), min(pos + got, end)
+                if hi > lo:
+                    dest[lo - start_byte:hi - start_byte] = \
+                        bounce[lo - pos:hi - pos]
+                if pos + got < min(pos + want, end):
+                    raise IOError(
+                        f"short read: the file ends before byte {end} "
+                        f"({self._path})")
+                pos += want
+
+    def _mapping(self) -> np.ndarray:
+        with self._lock:
+            if self._mmap is None:
+                import mmap
+                with open(self._path, "rb") as f:
+                    mapping = mmap.mmap(f.fileno(), 0,
+                                        access=mmap.ACCESS_READ)
+                if self._readahead:
+                    mapping.madvise(mmap.MADV_WILLNEED)
+                self._mmap = np.frombuffer(mapping, dtype=np.uint8)
+            return self._mmap
+
+    def _open(self) -> int:
+        with self._lock:
+            if self._fd is None:
+                fd = None
+                if self.strategy == "direct":
+                    try:
+                        fd = os.open(self._path, os.O_RDONLY | os.O_DIRECT)
+                    except OSError:
+                        fd = None
+                    self.direct_opened = fd is not None
+                if fd is None:
+                    fd = os.open(self._path, os.O_RDONLY)
+                self._fd = fd
+            return self._fd
+
+    def _bounce_buffer(self, nbytes: int) -> np.ndarray:
+        """An ALIGN-aligned uint8 buffer of ``nbytes``, kept for the next
+        unaligned read."""
+        if self._bounce is None or len(self._bounce) < nbytes:
+            raw = np.empty(nbytes + self.ALIGN, dtype=np.uint8)
+            shift = (-raw.ctypes.data) % self.ALIGN
+            self._bounce = raw[shift:shift + nbytes]
+        return self._bounce[:nbytes]
+
+    def _pread(self, fd: int, dest: np.ndarray, offset: int,
+               partial: bool = False) -> int:
+        """``preadv`` into ``dest`` in calls of at most the backend's
+        size (one call is capped near 2 GiB by the kernel and may
+        return early); with ``partial``, the end of the file ends the
+        read early, else it raises IOError."""
+        view = memoryview(dest)
+        got = 0
+        while got < len(view):
+            n = os.preadv(fd, [view[got:got + self._max_read_bytes]],
+                          offset + got)
+            if n <= 0:
+                if partial:
+                    break
+                raise IOError(
+                    f"short read: {got} of {len(view)} bytes at offset "
+                    f"{offset} ({self._path})"
+                )
+            got += n
+        return got
+
+    def close(self) -> None:
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+        self._mmap = None
+
+    def __del__(self):
+        # partitions are made anew per run, each with its readers
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -1,8 +1,10 @@
 """In-memory dataset (counterpart of
 ``libertem_tpu/io/dataset/memory.py``): wraps a numpy array, with a
-controllable partition count."""
+controllable partition count, a sync offset, a forced tile shape and
+an artificial read delay for tests."""
 from __future__ import annotations
 
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -12,29 +14,44 @@ from .base import DataSet, DataSetException, DataSetMeta, Partition
 
 
 class MemPartition(Partition):
-    def __init__(self, data_flat: np.ndarray, *args, **kwargs):
+    def __init__(self, data_flat: np.ndarray, tiledelay, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self._data = data_flat  # (n_frames, *sig)
+        self._tiledelay = tiledelay
 
     def _read_raw_frames(self, start, stop, out):
+        if self._tiledelay:
+            time.sleep(self._tiledelay)
+        # the assignment converts non-native data to native byte order
         out[...] = self._data[start:stop]
 
 
 class MemoryDataSet(DataSet):
+    """``data`` of any byte order; without it, ``datashape`` gives a
+    float32 dataset of zeros.  ``tileshape`` ``(depth, *sig tile)`` is
+    the tiling of every run, as given; ``tiledelay`` sleeps that many
+    seconds before each read."""
+
     def __init__(
         self,
-        data: np.ndarray,
+        data: Optional[np.ndarray] = None,
         sig_dims: Optional[int] = None,
         nav_shape: Optional[Sequence[int]] = None,
         sig_shape: Optional[Sequence[int]] = None,
         num_partitions: Optional[int] = None,
+        tileshape=None,
+        tiledelay=None,
+        sync_offset: int = 0,
+        datashape=None,
+        **kwargs,
     ):
         super().__init__(num_partitions=num_partitions)
+        if data is None:
+            if datashape is None:
+                raise DataSetException(
+                    "MemoryDataSet needs either data or datashape")
+            data = np.zeros(tuple(int(s) for s in datashape), np.float32)
         data = np.asarray(data)
-        if not data.dtype.isnative:
-            raise DataSetException(
-                "non-native byte order is not supported yet"
-            )
         if sig_shape is not None:
             sig_shape = tuple(int(s) for s in sig_shape)
             if sig_dims is not None and len(sig_shape) != sig_dims:
@@ -56,14 +73,40 @@ class MemoryDataSet(DataSet):
         self._meta = DataSetMeta(
             shape=Shape(nav_shape + sig_shape, sig_dims=len(sig_shape)),
             raw_dtype=data.dtype,
+            sync_offset=sync_offset,
             image_count=self._data.shape[0],
         )
+        self._tileshape = tileshape
+        self._tiledelay = tiledelay
+
+    @property
+    def data(self) -> np.ndarray:
+        return self._data.reshape(self.shape.to_tuple())
+
+    @property
+    def tileshape(self) -> Optional[Shape]:
+        """The forced tile shape, or None."""
+        if self._tileshape is None:
+            return None
+        return Shape(tuple(int(s) for s in self._tileshape),
+                     sig_dims=self.shape.sig.dims)
 
     def initialize(self) -> "MemoryDataSet":
         return self
 
+    @classmethod
+    def get_supported_io_backends(cls) -> list:
+        return []
+
+    def adjust_tileshape(self, tileshape, roi):
+        """The forced ``tileshape`` verbatim, when one was given."""
+        if self._tileshape is None:
+            return tileshape
+        return tuple(int(s) for s in self._tileshape)
+
     def get_partitions(self) -> Iterator[MemPartition]:
         for idx, (start, stop) in enumerate(self.get_partition_ranges()):
             yield MemPartition(
-                self._data, self.meta, start, stop - start, idx=idx,
+                self._data, self._tiledelay,
+                self.meta, start, stop - start, idx=idx,
             )

@@ -82,6 +82,14 @@ class TilingScheme:
     def sig_slices(self) -> list[Slice]:
         return list(self._sig_slices)
 
+    @property
+    def shape(self) -> Shape:
+        """Shape of the (largest) tile: (depth, *sig_tile)."""
+        return Shape(
+            (self._depth,) + tuple(self._sig_slices[0].shape),
+            sig_dims=self._dataset_shape.sig.dims,
+        )
+
     def __len__(self) -> int:
         return len(self._sig_slices)
 

@@ -1,11 +1,26 @@
 """The UDFs of the port: the five of the fused main path, the ones
-that run on the generic path, and AutoUDF and RecordUDF."""
+that run on the generic path (among them the FFT UDFs: the blobfinder
+correlations and holography), and AutoUDF and RecordUDF."""
 from ..common.exceptions import UDFException
 from .auto import AutoUDF
 from .base import NoOpUDF, UDF, UDFData, UDFMeta, UDFResults, UDFRunner
+from .blobfinder import (
+    BackgroundSubtraction,
+    Disk,
+    FullFrameCorrelationUDF,
+    MatchPattern,
+    RadialGradient,
+    SparseCorrelationUDF,
+    run_blobfinder,
+)
 from .com import CoMParams, CoMUDF, RegressionOptions
 from .crystallinity import CrystallinityUDF
 from .FEM import FEMUDF
+from .holography import (
+    HoloReconstructUDF,
+    estimate_sideband_position,
+    estimate_sideband_size,
+)
 from .logsum import LogsumUDF
 from .masks import ApplyMasksUDF, MaskContainer
 from .raw import PickUDF
@@ -19,5 +34,8 @@ __all__ = [
     "CoMParams", "CoMUDF", "RegressionOptions", "ApplyMasksUDF",
     "MaskContainer", "StdDevUDF", "SumUDF", "SumSigUDF", "LogsumUDF",
     "PickUDF", "FEMUDF", "CrystallinityUDF", "UDFException", "AutoUDF",
-    "RecordUDF",
+    "RecordUDF", "MatchPattern", "Disk", "RadialGradient",
+    "BackgroundSubtraction", "FullFrameCorrelationUDF",
+    "SparseCorrelationUDF", "run_blobfinder", "HoloReconstructUDF",
+    "estimate_sideband_position", "estimate_sideband_size",
 ]

@@ -850,6 +850,7 @@ class UDFRunner:
             max_partition_frames=max(1, max_part_frames),
             corrections=corrections,
         )
+        scheme = self._dataset_scheme(dataset, scheme, roi)
         meta.tiling_scheme = scheme
         n_nav = (
             int(np.count_nonzero(roi)) if roi is not None
@@ -916,6 +917,31 @@ class UDFRunner:
             "aux": aux,
             "aux_host": aux_host,
         }
+
+    def _dataset_scheme(self, dataset, scheme, roi) -> TilingScheme:
+        """The dataset's say on the scheme (``adjust_tileshape``): it
+        may change the sig tiles of any scheme, and the depth of a
+        scheme that is not one block per partition.  A dataset that
+        splits the frame cannot serve a ``process_frame`` UDF."""
+        shape = tuple(scheme.shape)
+        adjusted = dataset.adjust_tileshape(shape, roi)
+        if adjusted is not None and scheme.intent == "partition":
+            adjusted = shape[:1] + tuple(adjusted)[1:]
+        if adjusted is not None and tuple(adjusted) != shape:
+            ds_shape = scheme.dataset_shape
+            scheme = TilingScheme.make_for_shape(
+                Shape(tuple(adjusted), sig_dims=ds_shape.sig.dims),
+                ds_shape, intent=scheme.intent,
+            )
+        if len(scheme) > 1 and any(
+            str(u.get_method()) == "frame" for u in self._udfs
+        ):
+            raise UDFException(
+                "a process_frame UDF needs whole frames, but the "
+                "dataset forces sig-split tiles "
+                f"({len(scheme)} sig slices)"
+            )
+        return scheme
 
     def _fused_operands(self, plan, meta, device) -> dict:
         """The fused plan (None: the device UDFs run generic), its mask

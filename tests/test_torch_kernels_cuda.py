@@ -765,3 +765,114 @@ def test_com_regression_on_card(card, mode):
     coef = res[1]["regression"].data
     np.testing.assert_allclose(res[0]["regression"].data, coef, rtol=1e-4,
                                atol=1e-4 * np.abs(coef).max())
+
+
+# -- slice 9: the FFT UDFs and the dataset core on the card ---------------
+
+
+def _lattice_scan(nav=(6, 8), sig=(64, 64)):
+    """CBED frames on a (16, 0), (0, 16) lattice whose zero order
+    wanders with the scan position, Poisson noise: u16."""
+    from libertem_tpu_torch.utils.generate import cbed_frame
+
+    rng = np.random.default_rng(11)
+    frames = []
+    for i in range(int(np.prod(nav))):
+        zero = (sig[0] // 2 + (i % 5) - 2, sig[1] // 2 + (i // 5) % 5 - 2)
+        f, _, _ = cbed_frame(*sig, zero=zero, a=(16, 0), b=(0, 16),
+                             radius=3)
+        frames.append(rng.poisson(20.0 * f[0] + 1.0))
+    return np.stack(frames).astype(np.uint16).reshape(nav + sig)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["full", "sparse", "holo"])
+def test_fft_udfs_on_card(card, which):
+    """The FFT UDFs on the card (cuFFT) against the same code on the CPU,
+    beside Sum and StdDev in one pass: centres equal where the CPU map's
+    peak is unique by more than 1e-4 of its value, refined positions
+    within 1e-3 px, peak values and waves within 1e-4 of their largest
+    magnitude; the generic path (no fused launch), as the JAX plan."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.udf import blobfinder as blob
+    from libertem_tpu_torch.udf import holography as holo
+    from libertem_tpu_torch.utils import frame_peaks
+
+    data = _lattice_scan()
+    _, peaks = frame_peaks(64, 64, np.array((32, 32)), np.array((16, 0)),
+                           np.array((0, 16)), 3, np.mgrid[-1:2, -1:2])
+
+    def udfs():
+        if which == "full":
+            first = blob.FullFrameCorrelationUDF(blob.RadialGradient(3))
+        elif which == "sparse":
+            first = blob.SparseCorrelationUDF(
+                blob.BackgroundSubtraction(3, 5), peaks=peaks.astype(int),
+                steps=3)
+        else:
+            first = holo.HoloReconstructUDF(
+                out_shape=(31, 32), sb_position=(16, 16), sb_size=6)
+        return [first, lt.SumUDF(), lt.StdDevUDF()]
+
+    runs, launched = [], []
+    for device in ("cuda", "cpu"):
+        ctx = lt.Context(device=device)
+        ds = ctx.load("memory", data=data, sig_dims=2, num_partitions=3)
+        before = fused_moments.launches
+        runs.append(ctx.run_udf(ds, udfs()))
+        launched.append(fused_moments.launches - before)
+        assert ctx.run_info["engines"] == ["device"] * 3
+        assert not ctx.run_info["fused"]
+    assert launched == [0, 0]
+    _compare_runs(runs[0][1:], runs[1][1:])
+    got, want = runs[0][0], runs[1][0]
+    if which == "holo":
+        w = want["wave"].data
+        assert np.abs(got["wave"].data - w).max() <= 1e-4 * np.abs(w).max()
+        return
+    pv = want["peak_values"].data
+    assert np.abs(got["peak_values"].data - pv).max() <= \
+        1e-4 * np.abs(pv).max()
+    same = np.all(got["centers"].data == want["centers"].data, axis=-1)
+    assert same.mean() > 0.9
+    close = np.abs(got["refineds"].data - want["refineds"].data) <= 1e-3
+    assert np.all(close[same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("so", [5, -5, 0])
+@pytest.mark.parametrize("dtype", ["<u2", ">u2", ">f4"])
+def test_fused_path_sync_offset_byte_order_on_card(card, tmp_path, so,
+                                                   dtype):
+    """The fused kernel under a sync offset and on big-endian raw data,
+    each io backend: the card's run against the same run on the CPU
+    (the kernel's plain version), and the kernel launched once per block
+    (and mask group)."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.io.dataset.base import IOBackend
+
+    data = np.random.default_rng(12).poisson(
+        8.0, (12, 10, 64, 64)).astype(dtype)
+    path = str(tmp_path / "scan.raw")
+    data.tofile(path)
+    for backend in ("buffered", "mmap", "direct"):
+        runs, launched = [], []
+        for device in ("cuda", "cpu"):
+            ctx = lt.Context(device=device)
+            ds = ctx.load("raw", path=path, dtype=dtype, nav_shape=(12, 10),
+                          sig_shape=(64, 64), sync_offset=so,
+                          num_partitions=3,
+                          io_backend=IOBackend.from_json({"id": backend}))
+            before = fused_moments.launches
+            runs.append(ctx.run_udf(ds, _ring_udfs(lt)))
+            launched.append(fused_moments.launches - before)
+            assert ctx.run_info["fused"]
+        _compare_runs(*runs)
+        assert launched == [6, 0]
+        flat = data.reshape(120, -1).astype(np.float64)
+        ids = np.arange(120) + so
+        ok = (ids >= 0) & (ids < 120)
+        want = flat[ids[ok]].sum(1)
+        got = runs[0][3]["intensity"].data.reshape(-1)
+        np.testing.assert_allclose(got[ok], want, rtol=RTOL)
+        assert np.all(got[~ok] == 0)

@@ -286,7 +286,10 @@ def test_import_leaves_jax_out():
         "          'ops.ablation', 'common.progress',\n"
         "          'common.exceptions', 'analysis', 'analysis.clust',\n"
         "          'analysis.com', 'analysis.fft', 'viz.base',\n"
-        "          'udf.auto', 'udf.record'}\n"
+        "          'udf.auto', 'udf.record', 'udf.blobfinder',\n"
+        "          'udf.holography', 'utils', 'utils.generate',\n"
+        "          'io.utils', 'io.dataset.base', 'io.dataset.raw',\n"
+        "          'io.dataset.memory', 'io.corrections'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
