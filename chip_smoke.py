@@ -6,7 +6,8 @@
 from the root of the repository.  Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi`` name and power limit) and build the
-   CUDA kernels from ``libertem_tpu_torch/csrc`` with nvcc;
+   CUDA kernels from ``libertem_tpu_torch/csrc`` with nvcc and the host
+   decoders with g++;
 2. write the full-size dataset: a raw u16 file, nav (256, 256),
    sig (128, 128), Poisson(8) counts from a numpy seed (2 GiB), to a
    temporary directory;
@@ -83,7 +84,24 @@ from the root of the repository.  Phases, each fatal on failure:
     Every result channel against float64 (complex128) numpy answers,
     the regression's coefficients against ``np.linalg.lstsq``, the
     recorded file bit for bit; CLUST's feature pass and APPLY_FFT_MASK
-    traced once more.
+    traced once more;
+11. the FFT UDFs and the dataset core: a 2 GiB CBED scan through
+    ``run_blobfinder`` and the correlation UDFs, 256 holograms through
+    HoloReconstructUDF, and phase 4's scan under a sync offset, an
+    inferred nav, each io backend, as a big-endian quarter (swapped in
+    place by the C++ byteswap) and through the tile stream;
+12. the detector formats, each written from phase 2's counts by the
+    format's own layout, loaded with ``Context().load`` and run with the
+    main path's five UDFs at its sig with the launch count set to 0
+    just before and read just after: MIB r12, r1, r6 (256 x 256, nav
+    128 x 128), r24 (nav 64 x 64) and a 2x2 quad at r12 (512 x 512),
+    K2IS (8 sectors, 1860 x 2048, nav 16 x 16), FRMS6 with its dark
+    file (264 x 264), EMPAD, SEQ, TVIPS, BLO, NPY, MRC, SER and DM4
+    (256-512 MiB each).  Each against float64 numpy answers of the
+    frames written, 5 frames bit for bit (PickUDF), detected by
+    ``load("auto")``, with its wall time, GB/s, the reader's share, the
+    consumer's wait and the C++ decode time a block; MIB r12 traced
+    once more.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -267,18 +285,21 @@ def frames64(raw: np.ndarray, plan) -> np.ndarray:
     f = raw.astype(np.float64)
     if plan is None:
         return f
-    f -= plan["dark"].reshape(-1)
-    f *= plan["gain"].reshape(-1)
-    f[:, plan["repair_idx"]] = (
-        f[:, plan["nbr_idx"]] * plan["nbr_w"].astype(np.float64)
-    ).sum(axis=-1)
+    if plan["dark"] is not None:
+        f -= plan["dark"].reshape(-1)
+    if plan["gain"] is not None:
+        f *= plan["gain"].reshape(-1)
+    if plan["repair_idx"] is not None:
+        f[:, plan["repair_idx"]] = (
+            f[:, plan["nbr_idx"]] * plan["nbr_w"].astype(np.float64)
+        ).sum(axis=-1)
     return f
 
 
-def com_oracle(com: np.ndarray, nav=NAV) -> dict:
-    """CoMUDF's (r=32, centre (64, 64)) float64 answers from the centres
-    of mass ``com`` ((n, 2); the centre itself for a frame of no mass)."""
-    shifts = com - 64.0
+def com_oracle(com: np.ndarray, nav=NAV, centre=(64.0, 64.0)) -> dict:
+    """CoMUDF's float64 answers from the centres of mass ``com`` ((n, 2);
+    the centre itself for a frame of no mass) around ``centre``."""
+    shifts = com - np.asarray(centre, np.float64)
     sy = shifts[:, 0].reshape(nav)
     sx = shifts[:, 1].reshape(nav)
     dy_dy, dy_dx = np.gradient(sy)
@@ -296,14 +317,24 @@ def com_oracle(com: np.ndarray, nav=NAV) -> dict:
 def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
            nav=NAV) -> dict:
     """float64 answers of ApplyMasks (``mask_stack``), CoM (r=32),
-    Sum, SumSig and StdDev over a scan of ``nav``, in chunks of frames;
-    the per-pixel moments fold chunk by chunk with the Chan update."""
-    h, w = SIG
-    flat = data.reshape(-1, h * w)
-    n = flat.shape[0]
+    Sum, SumSig and StdDev over a scan of ``nav`` (sig ``SIG``)."""
+    flat = data.reshape(-1, SIG[0] * SIG[1])
+    return oracle_at(lambda lo, hi: flat[lo:hi], flat.shape[0], SIG, nav,
+                     mask_stack, (64, 64), 32, plan)
+
+
+def oracle_at(frames, n, sig, nav, mask_stack, centre, r, plan=None) -> dict:
+    """float64 answers of ApplyMasks (``mask_stack``), CoM (radius ``r``
+    around ``centre``), Sum, SumSig and StdDev over ``n`` frames of
+    ``sig`` (``frames(lo, hi)``: frames lo..hi as (k, pixels), any
+    dtype), corrected with the numpy ``plan`` when given; in chunks of
+    frames on 8 threads, the per-pixel moments folded chunk by chunk
+    with the Chan update."""
+    h, w = sig
     k = mask_stack.shape[0]
+    cy, cx = centre
     y, x = np.mgrid[0:h, 0:w].astype(np.float64)
-    disk = (((y - 64) ** 2 + (x - 64) ** 2) <= 32 ** 2).astype(np.float64)
+    disk = (((y - cy) ** 2 + (x - cx) ** 2) <= r ** 2).astype(np.float64)
     operand = np.concatenate([
         mask_stack.reshape(k, -1).astype(np.float64),
         np.stack([disk, y * disk, x * disk]).reshape(3, -1),
@@ -312,7 +343,7 @@ def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
     proj = np.empty((n, k + 4))
 
     def part(lo, ids):
-        f = frames64(flat[ids], plan)
+        f = frames64(frames(lo, lo + len(ids)).reshape(len(ids), -1), plan)
         proj[lo:lo + len(ids)] = f @ operand
         s1 = f.sum(axis=0)
         mean = s1 / len(ids)
@@ -320,7 +351,8 @@ def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
 
     # integer counts keep these float64 sums exact
     count, s1, mean, m2 = 0, 0.0, 0.0, 0.0
-    for nb, sb, mb, m2b in in_chunks(np.arange(n), part):
+    chunk = max(1, min(1024, (16 << 20) // (h * w)))
+    for nb, sb, mb, m2b in in_chunks(np.arange(n), part, chunk):
         delta = mb - mean
         tot = count + nb
         mean = mean + delta * (nb / tot)
@@ -330,14 +362,15 @@ def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
     var = m2 / n
     return {
         (0, "intensity"): proj[:, :k].reshape(nav + (k,)),
-        **com_oracle(proj[:, k + 1:k + 3] / proj[:, k:k + 1], nav),
-        (2, "intensity"): s1.reshape(SIG),
+        **com_oracle(proj[:, k + 1:k + 3] / proj[:, k:k + 1], nav,
+                     (cy, cx)),
+        (2, "intensity"): s1.reshape(sig),
         (3, "intensity"): proj[:, k + 3].reshape(nav),
         (4, "num_frames"): np.array([float(n)]),
-        (4, "sum"): s1.reshape(SIG),
-        (4, "mean"): mean.reshape(SIG),
-        (4, "var"): var.reshape(SIG),
-        (4, "std"): np.sqrt(var).reshape(SIG),
+        (4, "sum"): s1.reshape(sig),
+        (4, "mean"): mean.reshape(sig),
+        (4, "var"): var.reshape(sig),
+        (4, "std"): np.sqrt(var).reshape(sig),
     }
 
 
@@ -1999,9 +2032,11 @@ def slice9_phase(ctx, ds, lt, path, data, want4, res6a, corrections, tmp,
     qds = ctx.load("raw", path=be_path, dtype=">u2", nav_shape=qnav,
                    sig_shape=SIG)
     q_blocks = blocks_of(qds, make_udfs(lt))
+    t0 = time.perf_counter()
     res = timed("c big-endian >u2, a quarter of the scan",
                 lambda: ctx.run_udf(qds, make_udfs(lt)), quarter.nbytes, True,
                 q_blocks)
+    be_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     want_q = oracle(quarter, np.stack([lt.masks.circular(64, 64, SIG[1], SIG[0],
                                                          16),
@@ -2009,14 +2044,20 @@ def slice9_phase(ctx, ds, lt, path, data, want4, res6a, corrections, tmp,
                                                      60, 40)]), nav=qnav)
     print(f"oracle 11c quarter: {time.perf_counter() - t0:.1f} s")
     check_results("11c big-endian", res, want_q, failures)
+    # the swap as the reader runs it: C++, in place in a 32 MiB block
+    from libertem_tpu_torch.ops.decode import byteswap_inplace
     slot = np.array(quarter.reshape(-1, *SIG)[:1024])
+    byteswap_inplace(slot)
     t0 = time.perf_counter()
     for _ in range(8):
-        slot.byteswap(inplace=True)
+        byteswap_inplace(slot)
     swap_ms = (time.perf_counter() - t0) / 8 * 1e3
-    print(f"  11c byteswap in place on the host (numpy, the reader's "
-          f"thread): {swap_ms:.2f} ms a 32 MiB block, "
-          f"{swap_ms * q_blocks / 1e3:.3f} s a quarter-scan pass {at}")
+    print(f"  11c byteswap in place on the host (C++ byteswap16, the "
+          f"reader's thread): {swap_ms:.2f} ms a 32 MiB block (numpy's "
+          f"in-place swap: 14.59 ms, PERF.md section 5), "
+          f"{swap_ms * q_blocks / 1e3:.3f} s a quarter-scan pass; the "
+          f"quarter read at {quarter.nbytes / be_s / 1e9:.2f} GB/s (with "
+          f"numpy's swap: 1.26 GB/s) {at}")
     del qds
     os.remove(be_path)
     # the standalone corrections against phase 6a's corrected run
@@ -2041,6 +2082,584 @@ def slice9_phase(ctx, ds, lt, path, data, want4, res6a, corrections, tmp,
         if not ok:
             failures.append(f"11c {label}: max err {e}")
     return launches
+
+
+# -- phase 12: the detector formats -------------------------------------------
+
+# Merlin's header bytes of a single chip and of a quad
+MIB_HEAD, MIB_QUAD_HEAD = 384, 768
+# the first nav axis of every phase-12 scan is divided by this (1 on the
+# card; a CPU rehearsal may raise it)
+FMT_NAV_DIV = 1
+K2_BLOCK, K2_HEAD, K2_SECTORS = 0x5758, 40, 8
+FRMS6_DARK_FRAMES = 32
+
+
+def write_records(path, n, pbytes, payload, head=0, head_fn=None, tail=0,
+                  prefix=b"") -> int:
+    """Write ``prefix``, then ``n`` records of ``head`` bytes (from
+    ``head_fn(lo, hi)``, else zeros), ``pbytes`` of payload (from
+    ``payload(lo, hi)``, (k, pbytes) uint8) and ``tail`` zero bytes;
+    built in chunks of about 64 MiB on 8 threads, written in order.
+    Returns the bytes written."""
+    rec = head + pbytes + tail
+    per = max(1, (64 << 20) // rec)
+    starts = list(range(0, n, per))
+
+    def build(lo):
+        hi = min(n, lo + per)
+        out = np.zeros((hi - lo, rec), np.uint8)
+        if head_fn is not None:
+            out[:, :head] = head_fn(lo, hi)
+        out[:, head:head + pbytes] = payload(lo, hi).reshape(hi - lo, -1)
+        return out
+
+    with open(path, "wb") as f, ThreadPoolExecutor(8) as pool:
+        f.write(prefix)
+        for w in range(0, len(starts), 8):
+            for block in pool.map(build, starts[w:w + 8]):
+                f.write(memoryview(block).cast("B"))
+    return len(prefix) + n * rec
+
+
+def u8(x) -> np.ndarray:
+    return np.ascontiguousarray(x).view(np.uint8).reshape(len(x), -1)
+
+
+def enc_r12(x: np.ndarray) -> np.ndarray:
+    """Merlin RAW 12-bit: values reversed in groups of 4, big-endian."""
+    k = len(x)
+    return u8(x.reshape(k, -1, 4)[:, :, ::-1].astype(">u2"))
+
+
+def enc_r6(x: np.ndarray) -> np.ndarray:
+    k = len(x)
+    return np.ascontiguousarray(x.reshape(k, -1, 8)[:, :, ::-1]).reshape(
+        k, -1)
+
+
+def enc_r1(x: np.ndarray) -> np.ndarray:
+    """Merlin RAW 1-bit: 64-pixel stripes, bits little-endian in a byte,
+    bytes reversed in the stripe."""
+    k = len(x)
+    bits = x.reshape(k, -1, 8, 8)
+    packed = np.packbits(bits, axis=-1, bitorder="little")
+    return np.ascontiguousarray(packed[:, :, ::-1, 0]).reshape(k, -1)
+
+
+def enc_r24(x: np.ndarray) -> np.ndarray:
+    return np.concatenate([enc_r12((x >> 12) & 0xFFF),
+                           enc_r12(x & 0xFFF)], axis=1)
+
+
+def quad_store(frames: np.ndarray) -> np.ndarray:
+    """(k, 2h, 2h) assembled quad frames -> (k, h, 4h) stored rows
+    [Q4 | Q3 | Q2 | Q1], the bottom quadrants rotated 180 degrees."""
+    k, h2, _ = frames.shape
+    h = h2 // 2
+    out = np.empty((k, h, 4 * h), frames.dtype)
+    out[:, :, 3 * h:] = frames[:, :h, :h]
+    out[:, :, 2 * h:3 * h] = frames[:, :h, h:]
+    out[:, :, h:2 * h] = frames[:, h:, :h][:, ::-1, ::-1]
+    out[:, :, :h] = frames[:, h:, h:][:, ::-1, ::-1]
+    return out
+
+
+def mib_heads(hb, chips, width, height, dtype, layout, bit_depth):
+    """``head_fn`` of MIB frame headers: the sequence number (1-based,
+    6 digits) in each."""
+    base = np.frombuffer(
+        f"MQ1,000000,{hb:05d},{chips:02d},{width:04d},{height:04d},{dtype},"
+        f"{layout},{bit_depth},".encode().ljust(hb, b"\x00"), np.uint8)
+
+    def heads(lo, hi):
+        out = np.tile(base, (hi - lo, 1))
+        seq = np.arange(lo + 1, hi + 1)
+        for j in range(6):
+            out[:, 4 + j] = 48 + (seq // 10 ** (5 - j)) % 10
+        return out
+    return heads
+
+
+def write_k2is(dirpath: str, frames: np.ndarray) -> tuple[str, int]:
+    """8 sector files of K2 IS blocks (40-byte big-endian header, 930 x
+    16 pixels 12-bit little-endian), each frame's 32 blocks a sector
+    with x descending in each half, as the detector streams them.
+    Returns the path of sector 0 and the bytes written."""
+    n = len(frames)
+
+    def sector(s):
+        blocks = frames[:, :, s * 256:(s + 1) * 256].reshape(
+            n, 2, 930, 16, 16).transpose(0, 1, 3, 2, 4)[:, :, ::-1]
+        vals = blocks.reshape(n, 32, 930 * 16)
+        a = vals[..., 0::2].astype(np.uint16)
+        b = vals[..., 1::2].astype(np.uint16)
+        rec = np.zeros((n, 32, K2_BLOCK), np.uint8)
+        pay = rec[:, :, K2_HEAD:]
+        pay[..., 0::3] = a & 0xFF
+        pay[..., 1::3] = ((a >> 8) & 0x0F) | ((b & 0x0F) << 4)
+        pay[..., 2::3] = (b >> 4) & 0xFF
+        head = rec[:, :, :K2_HEAD]
+        xs = np.tile(np.arange(15, -1, -1) * 16, 2)
+        ys = np.repeat([0, 930], 16)
+        fid = 100 + np.arange(n)
+        fields = ((0, 4, np.uint32(0xFFFF0055)), (20, 2, 256), (22, 2, 1860),
+                  (24, 4, fid[:, None]), (28, 2, xs), (30, 2, ys),
+                  (32, 2, xs + 15), (34, 2, ys + 929), (36, 4, K2_BLOCK))
+        head[:, :, 8] = 1
+        head[:, :, 9] = 1  # shutter active
+        for off, size, val in fields:
+            v = np.broadcast_to(np.asarray(val, np.int64), (n, 32))
+            for j in range(size):
+                head[:, :, off + j] = (v >> (8 * (size - 1 - j))) & 0xFF
+        path = os.path.join(dirpath, f"k2is{s}.bin")
+        rec.tofile(path)
+        return path
+
+    with ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(sector, range(K2_SECTORS)))
+    return paths[0], K2_SECTORS * n * 32 * K2_BLOCK
+
+
+def dm4_tag_stream(data_bytes: int, count: int, shape: tuple) -> tuple:
+    """A DM4 file around one u16 image array of ``count`` items: the
+    bytes before the array's data and after it.  (DM4: big-endian tag
+    headers, a little-endian data flag, ImageList.0.ImageData.Data and
+    its Dimensions, x fastest.)"""
+    import struct
+
+    def data_tag(name, payload_defs, payload):
+        body = b"%%%%" + struct.pack(">q", len(payload_defs)) + b"".join(
+            struct.pack(">q", d) for d in payload_defs) + payload
+        return (bytes([0x15]) + struct.pack(">h", len(name)) + name.encode()
+                + struct.pack(">q", len(body)) + body)
+
+    def group(name, children):
+        inner = bytes([1, 0]) + struct.pack(">q", len(children)) + b"".join(
+            children)
+        return (bytes([0x14]) + struct.pack(">h", len(name)) + name.encode()
+                + struct.pack(">q", len(inner)) + inner)
+
+    dims = group("Dimensions", [data_tag(str(i), [3], struct.pack("<i", d))
+                                for i, d in enumerate(reversed(shape))])
+    array_head = data_tag("Data", [20, 4, count], b"")
+    # the Data tag's byte count covers its payload, which follows
+    name_len = 1 + 2 + 4
+    total = struct.unpack(">q", array_head[name_len:name_len + 8])[0]
+    array_head = (array_head[:name_len] + struct.pack(">q", total + data_bytes)
+                  + array_head[name_len + 8:])
+    image_data = (bytes([0x14]) + struct.pack(">h", 9) + b"ImageData")
+    inner_head = bytes([1, 0]) + struct.pack(">q", 2)
+    img_len = len(inner_head) + len(array_head) + data_bytes + len(dims)
+    entry_inner_head = bytes([1, 0]) + struct.pack(">q", 1)
+    entry_len = len(entry_inner_head) + len(image_data) + 8 + img_len
+    list_head = bytes([1, 0]) + struct.pack(">q", 1)
+    list_len = len(list_head) + 1 + 2 + 1 + 8 + entry_len
+    root_head = bytes([1, 0]) + struct.pack(">q", 1)
+    root_len = len(root_head) + 1 + 2 + 9 + 8 + list_len
+    before = (struct.pack(">i", 4) + struct.pack(">q", root_len)
+              + struct.pack(">i", 1) + root_head
+              + bytes([0x14]) + struct.pack(">h", 9) + b"ImageList"
+              + struct.pack(">q", list_len) + list_head
+              + bytes([0x14]) + struct.pack(">h", 1) + b"0"
+              + struct.pack(">q", entry_len) + entry_inner_head
+              + image_data + struct.pack(">q", img_len) + inner_head
+              + array_head)
+    return before, dims
+
+
+def ser_prefix(n: int, h: int, w: int, dtype_code: int, itemsize: int):
+    """The TIA series header, its dimension record and offset tables for
+    ``n`` 2-D elements that follow back to back, each a 50-byte element
+    header and h x w items.  Returns (prefix, element header)."""
+    import struct
+    head = struct.pack("<hhhiiii", 0x4949, 0x0197, 0x0220, 0x4122, 0x4152,
+                       n, n)
+    dim_record = (struct.pack("<i", n) + struct.pack("<ddi", 0.0, 1.0, 0)
+                  + struct.pack("<i", 0) + struct.pack("<i", 0))
+    data_start = 34 + len(dim_record)
+    first = data_start + 16 * n
+    elem = 50 + h * w * itemsize
+    offsets = first + np.arange(n, dtype="<i8") * elem
+    prefix = (head + struct.pack("<qi", data_start, 1) + dim_record
+              + offsets.tobytes() + np.zeros(n, "<i8").tobytes())
+    element = (struct.pack("<ddi", 0.0, 1.0, 0) * 2
+               + struct.pack("<hii", dtype_code, w, h))
+    return prefix, np.frombuffer(element, np.uint8)
+
+
+def format_udfs(lt, sig):
+    """The main path's five UDFs at a format's sig: ApplyMasks (a disk
+    and a ring around the centre), CoM, Sum, SumSig, StdDev."""
+    h, w = sig
+    cy, cx, r = h // 2, w // 2, min(h, w) // 4
+    masks = np.stack([lt.masks.circular(cx, cy, w, h, r // 2),
+                      lt.masks.ring(cx, cy, w, h, 2 * r - 2, r)])
+    return [
+        lt.ApplyMasksUDF(mask_factories=lambda: masks, mask_count=2),
+        lt.CoMUDF.with_params(cy=cy, cx=cx, r=r),
+        lt.SumUDF(), lt.SumSigUDF(), lt.StdDevUDF(),
+    ], masks, (cy, cx), r
+
+
+def formats_phase(ctx, lt, data, tmp, at, failures) -> dict:
+    """Phase 12: every ported format through ``Context.load`` and
+    ``run_udf`` with the main path's UDFs at the format's sig, each pass
+    with the launch count set to 0 just before and read just after,
+    against float64 numpy answers of the frames the writer was given,
+    5 frames bit for bit, detection by ``load("auto")``; MIB r12 traced
+    once more.  The frames come from phase 2's Poisson(8) scan.
+    Returns the launch count of each pass."""
+    import struct
+
+    import torch
+
+    from libertem_tpu_torch.io.dataset import detect
+    from libertem_tpu_torch.ops import decode
+    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.udf.base import UDFRunner
+
+    flat = data.reshape(-1)
+    launches = {}
+    rows = []
+
+    def nav_of(nav):
+        return (max(1, nav[0] // FMT_NAV_DIV),) + tuple(nav[1:])
+
+    def frames_of(px):
+        return flat[:flat.size // px * px].reshape(-1, px)
+
+    def run(label, kind, load_kw, frames, n, sig, nav, disk_bytes, files,
+            dtype, auto_path, auto_kw=None, plan=None, trace=False):
+        ds = ctx.load(kind, **load_kw)
+        if tuple(ds.shape) != nav + sig or ds.meta.native_dtype != dtype:
+            failures.append(f"12{label}: shape {tuple(ds.shape)} "
+                            f"{ds.meta.native_dtype}, expected "
+                            f"{nav + sig} {dtype}")
+            return
+        udfs, masks, centre, r = format_udfs(lt, sig)
+        prep = UDFRunner(udfs)._prepare(ds, ctx.device)
+        blocks = sum(-(-p.num_frames // prep["scheme"].depth)
+                     for p in prep["partitions"])
+        expected = blocks * -(-prep["masks_t"].shape[0] // MASK_GROUP)
+        dec0 = dict(decode.stats)
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, udfs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fused_moments.launches
+        stats = dict(ctx.feed_stats)
+        dec_s = decode.stats["decode_s"] - dec0["decode_s"]
+        calls = decode.stats["calls"] - dec0["calls"]
+        decoded = n * int(np.prod(sig)) * dtype.itemsize
+        row = dict(path=f"12{label}", wall_s=secs, disk_bytes=disk_bytes,
+                   decoded_bytes=decoded, disk_gbps=disk_bytes / secs / 1e9,
+                   decoded_gbps=decoded / secs / 1e9,
+                   reader_share=stats["read_s"] / secs,
+                   consumer_wait_share=stats["wait_s"] / secs,
+                   blocks=stats["blocks"], depth=prep["scheme"].depth,
+                   decode_calls=calls,
+                   decode_ms_per_block=dec_s * 1e3 / max(stats["blocks"], 1),
+                   launches=count, fused=ctx.run_info["fused"])
+        rows.append(row)
+        launches[f"{label} (phase 12)"] = count
+        print(f"12{label}: {secs:.3f} s wall; {disk_bytes} bytes on disk "
+              f"({row['disk_gbps']:.2f} GB/s), {decoded} decoded "
+              f"({row['decoded_gbps']:.2f} GB/s); reader "
+              f"{row['reader_share']:.1%} of the wall, consumer waited "
+              f"{row['consumer_wait_share']:.1%}; {stats['blocks']} blocks "
+              f"of {prep['scheme'].depth} frames, C++ decode "
+              f"{row['decode_ms_per_block']:.2f} ms a block ({calls} "
+              f"calls); fused {row['fused']}, fused_moments launches "
+              f"{count} {at}")
+        if count != expected or count == 0 or not row["fused"]:
+            failures.append(f"12{label}: {count} launches (expected "
+                            f"{expected}), fused {row['fused']}")
+        t0 = time.perf_counter()
+        want = oracle_at(frames, n, sig, nav, masks, centre, r, plan)
+        print(f"  oracle 12{label}: {time.perf_counter() - t0:.1f} s "
+              f"(float64 numpy)")
+        # float32 sums over frames of 65536 to 3.8 million pixels round:
+        # what derives from the centres of mass takes the centres'
+        # magnitude as its floor (as phase 6a's corrected data)
+        check_results(f"12{label}", res, want, failures, shift_floor=True)
+        # 5 frames bit for bit, as stored (no correction)
+        ids = np.sort(np.random.default_rng(SEED + 12).choice(
+            n, 5, replace=False))
+        roi = np.zeros(n, bool)
+        roi[ids] = True
+        pick = ctx.run_udf(ds, lt.PickUDF(), roi=roi.reshape(nav),
+                           corrections=lt.CorrectionSet())
+        got = pick["intensity"].data
+        want_px = np.stack([frames(i, i + 1)[0] for i in ids]).astype(dtype)
+        if got.dtype != dtype or not np.array_equal(
+                got.reshape(5, -1), want_px.reshape(5, -1)):
+            failures.append(f"12{label}: picked frames are not bit for bit")
+        found = detect(auto_path)
+        auto = ctx.load("auto", path=auto_path, **(auto_kw or {}))
+        ok = (found is not None and found["type"] == kind
+              and tuple(auto.shape) == nav + sig)
+        print(f"  12{label}: 5 picked frames bit for bit, {dtype}; "
+              f"load('auto') of {os.path.basename(auto_path)} detects "
+              f"{found and found['type']}, shape {tuple(auto.shape)}")
+        if not ok:
+            failures.append(f"12{label}: load('auto') found {found}, "
+                            f"shape {tuple(auto.shape)}")
+        if trace:
+            print(f"12{label} trace of the pass, run again:")
+            traced_run(ctx, ds, format_udfs(lt, sig)[0], at)
+        del ds, auto, res, pick
+        for f in files:
+            os.remove(f)
+
+    def written(label, t0, nbytes):
+        print(f"12{label} data: {nbytes} bytes written in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (a-d) MIB ------------------------------------------------------------
+    sig, px = (256, 256), 65536
+    f16 = frames_of(px)                      # the scan as 16384 frames
+    half = len(f16) // 2
+    mibs = [
+        # label, frames, nav, dtype, bit depth, encoder, bytes a pixel
+        ("a MIB r12 256x256", lambda lo, hi: f16[lo:hi], (128, 128),
+         np.dtype(np.uint16), 12, enc_r12, 2),
+        ("b MIB r1 256x256", lambda lo, hi: (f16[lo:hi] & 1).astype(
+            np.uint8), (128, 128), np.dtype(np.uint8), 1, enc_r1, 1 / 8),
+        ("b MIB r6 256x256", lambda lo, hi: (f16[lo:hi] & 63).astype(
+            np.uint8), (128, 128), np.dtype(np.uint8), 6, enc_r6, 1),
+        ("c MIB r24 256x256", lambda lo, hi: (
+            f16[lo:hi].astype(np.uint32) << 12) | f16[half + lo:half + hi],
+         (64, 64), np.dtype(np.uint32), 24, enc_r24, 4),
+    ]
+    for label, frames, nav, dtype, bd, enc, per_px in mibs:
+        nav = nav_of(nav)
+        n = int(np.prod(nav))
+        path = os.path.join(tmp, "scan1.mib")
+        t0 = time.perf_counter()
+        width = 2 * sig[1] if bd == 24 else sig[1]
+        nbytes = write_records(
+            path, n, int(px * per_px), lambda lo, hi: enc(frames(lo, hi)),
+            head=MIB_HEAD, head_fn=mib_heads(MIB_HEAD, 1, width, sig[0],
+                                             "R64", "1x1", bd))
+        written(label, t0, nbytes)
+        run(label, "mib", dict(path=path, nav_shape=nav), frames, n, sig,
+            nav, nbytes, [path], dtype, path, dict(nav_shape=nav),
+            trace=bd == 12)
+    # the quad: 2048 frames of 512 x 512
+    qsig, qpx = (512, 512), 512 * 512
+    f512 = frames_of(qpx)
+    path = os.path.join(tmp, "quad1.mib")
+    nav = nav_of((32, 64))
+    n = int(np.prod(nav))
+    t0 = time.perf_counter()
+    nbytes = write_records(
+        path, n, 2 * qpx,
+        lambda lo, hi: enc_r12(quad_store(f512[lo:hi].reshape(-1, *qsig))),
+        head=MIB_QUAD_HEAD, head_fn=mib_heads(MIB_QUAD_HEAD, 4, 1024, 256,
+                                              "R64", "2x2", 12))
+    written("d MIB quad r12 512x512", t0, nbytes)
+    run("d MIB quad r12 512x512", "mib", dict(path=path, nav_shape=nav),
+        lambda lo, hi: f512[lo:hi], n, qsig, nav, nbytes, [path],
+        np.dtype(np.uint16), path, dict(nav_shape=nav))
+
+    # -- (e) K2IS -------------------------------------------------------------
+    ksig = (1860, 2048)
+    fk = frames_of(ksig[0] * ksig[1])
+    k2dir = os.path.join(tmp, "k2is")
+    os.makedirs(k2dir)
+    nav = nav_of((16, 16))
+    n = int(np.prod(nav))
+    t0 = time.perf_counter()
+    p0, nbytes = write_k2is(k2dir, fk[:n].reshape(n, *ksig))
+    written("e K2IS 8 sectors", t0, nbytes)
+    run("e K2IS 8 sectors", "k2is", dict(path=p0, nav_shape=nav),
+        lambda lo, hi: fk[lo:hi], n, ksig, nav, nbytes,
+        [os.path.join(k2dir, f) for f in os.listdir(k2dir)],
+        np.dtype(np.uint16), p0, dict(nav_shape=nav))
+
+    # -- (f) the other formats, 256-512 MiB each --------------------------
+    # FRMS6: pnCCD frames of 264 x 264, stored folded (132, 528), a dark
+    # file of 32 frames applied as the dataset's own correction
+    fsig, stored = (264, 264), (132, 528)
+    ff = frames_of(fsig[0] * fsig[1])
+    fnav = nav_of((32, 60))
+    n = int(np.prod(fnav))
+    dark_frames = ff[n:n + FRMS6_DARK_FRAMES].reshape(-1, *fsig)
+
+    def fold(x):
+        x = x.reshape(-1, *fsig)
+        out = np.empty((len(x),) + stored, np.uint16)
+        out[:, :, :264] = x[:, :132]
+        out[:, :, 264:] = x[:, 132:][:, ::-1, ::-1]
+        return u8(out)
+
+    def frms6_header(k):
+        head = bytearray(1024)
+        head[0:4] = struct.pack("<HH", 1024, 64)
+        head[7] = 6
+        head[88:92] = struct.pack("<HH", stored[1], stored[0])
+        head[1020:1024] = struct.pack("<I", k)
+        return bytes(head)
+
+    t0 = time.perf_counter()
+    dark_path = os.path.join(tmp, "pn_000.frms6")
+    path = os.path.join(tmp, "pn_001.frms6")
+    nbytes = write_records(dark_path, FRMS6_DARK_FRAMES, 2 * 132 * 528,
+                           lambda lo, hi: fold(dark_frames[lo:hi]), head=64,
+                           prefix=frms6_header(FRMS6_DARK_FRAMES))
+    nbytes += write_records(path, n, 2 * 132 * 528,
+                            lambda lo, hi: fold(ff[lo:hi]), head=64,
+                            prefix=frms6_header(n))
+    written("f FRMS6 264x264 + dark", t0, nbytes)
+    dark = dark_frames.astype(np.float64).mean(axis=0).astype(np.float32)
+    plan = lt.CorrectionSet(dark=dark).make_plan(fsig)
+    run("f FRMS6 264x264, dark-corrected", "frms6",
+        dict(path=path, nav_shape=fnav), lambda lo, hi: ff[lo:hi], n,
+        fsig, fnav, nbytes, [path, dark_path], np.dtype(np.uint16), path,
+        dict(nav_shape=fnav), plan=plan)
+
+    others = []
+    # EMPAD: 128 x 128 float32 frames stored as 130 x 128
+    f128 = frames_of(128 * 128)
+
+    def empad_frames(lo, hi):
+        return f128[lo:hi].astype(np.float32) * np.float32(0.5)
+
+    raw = os.path.join(tmp, "empad.raw")
+    xml = os.path.join(tmp, "empad.xml")
+    with open(xml, "w") as f:
+        f.write('<root><raw_file filename="empad.raw"/><type>scan</type>'
+                '<scan_parameters mode="acquire"><scan_resolution_x>64'
+                '</scan_resolution_x><scan_resolution_y>'
+                f'{nav_of((64, 64))[0]}</scan_resolution_y>'
+                '</scan_parameters></root>')
+    others.append(("f EMPAD 128x128 f32", "empad", dict(path=xml),
+                   empad_frames, (128, 128), (64, 64), raw,
+                   dict(pbytes=128 * 128 * 4, tail=2 * 128 * 4,
+                        payload=lambda lo, hi: u8(empad_frames(lo, hi))),
+                   [raw, xml], np.dtype(np.float32), xml, {}))
+    # SEQ: 512 x 512 u16, version 5, frames padded to true_image_size
+    fs = frames_of(512 * 512)
+    seq_head = bytearray(8192)
+    seq_head[0:4] = struct.pack("<L", 0xFEED)
+    seq_head[28:32] = struct.pack("<l", 5)
+    seq_head[32:36] = struct.pack("<l", 8192)
+    seq_head[548:580] = struct.pack("<LLLLLLLL", 512, 512, 16, 12,
+                                    512 * 512 * 2, 0, 0, 0)
+    seq_head[580:584] = struct.pack("<L", 512 * 512 * 2 + 512)
+    seq = os.path.join(tmp, "scan.seq")
+    others.append(("f SEQ 512x512 u16", "seq",
+                   dict(path=seq, nav_shape=(16, 32)),
+                   lambda lo, hi: fs[lo:hi], (512, 512), (16, 32), seq,
+                   dict(pbytes=512 * 512 * 2, tail=512,
+                        payload=lambda lo, hi: u8(fs[lo:hi]),
+                        prefix=bytes(seq_head)),
+                   [seq], np.dtype(np.uint16), seq, dict(nav_shape=(16, 32))))
+    # TVIPS: 512 x 512 u16, version 2, 12-byte frame headers
+    tv = os.path.join(tmp, "tv_000.tvips")
+    tv_head = struct.pack("<13i", 256, 2, 512, 512, 16, 0, 0, 1, 1, 10, 200,
+                          1, 12).ljust(256, b"\x00")
+    others.append(("f TVIPS 512x512 u16", "tvips",
+                   dict(path=tv, nav_shape=(16, 32)),
+                   lambda lo, hi: fs[lo:hi], (512, 512), (16, 32), tv,
+                   dict(pbytes=512 * 512 * 2, head=12,
+                        payload=lambda lo, hi: u8(fs[lo:hi]),
+                        prefix=tv_head),
+                   [tv], np.dtype(np.uint16), tv, dict(nav_shape=(16, 32))))
+    # BLO: 256 x 256 u8, nav (64, 64) from its header
+    blo = os.path.join(tmp, "scan.blo")
+    blo_head = bytearray(2048)
+    blo_head[0:6] = b"IMGBLO"
+    struct.pack_into("<HIIIHHHH", blo_head, 6, 258, 1024, 2048, 0, 256, 0,
+                     64, nav_of((64, 64))[0])
+
+    def blo_frames(lo, hi):
+        return (f16[lo:hi] & 0xFF).astype(np.uint8)
+
+    others.append(("f BLO 256x256 u8", "blo", dict(path=blo), blo_frames,
+                   (256, 256), (64, 64), blo,
+                   dict(pbytes=px, head=6, payload=blo_frames,
+                        prefix=bytes(blo_head)),
+                   [blo], np.dtype(np.uint8), blo, {}))
+    # NPY: (32, 64, 256, 256) u16
+    npy = os.path.join(tmp, "scan.npy")
+    npy_head = npy_header(nav_of((32, 64)) + (256, 256), "<u2")
+    others.append(("f NPY 256x256 u16", "npy", dict(path=npy),
+                   lambda lo, hi: f16[lo:hi], (256, 256), (32, 64),
+                   npy, dict(pbytes=2 * px,
+                             payload=lambda lo, hi: u8(f16[lo:hi]),
+                             prefix=npy_head),
+                   [npy], np.dtype(np.uint16), npy, {}))
+    # MRC: 256 x 256 float32 (mode 2), 1024 frames
+    mrc = os.path.join(tmp, "scan.mrc")
+    mrc_head = bytearray(1024)
+    mrc_head[0:16] = struct.pack("<4i", 256, 256,
+                                 int(np.prod(nav_of((32, 32)))), 2)
+
+    def mrc_frames(lo, hi):
+        return f16[lo:hi].astype(np.float32) * np.float32(0.25)
+
+    others.append(("f MRC 256x256 f32", "mrc",
+                   dict(path=mrc, nav_shape=(32, 32)), mrc_frames,
+                   (256, 256), (32, 32), mrc,
+                   dict(pbytes=4 * px, payload=lambda lo, hi: u8(
+                       mrc_frames(lo, hi)), prefix=bytes(mrc_head)),
+                   [mrc], np.dtype(np.float32), mrc,
+                   dict(nav_shape=(32, 32))))
+    # SER: 2048 elements of 256 x 256 u16
+    ser = os.path.join(tmp, "scan.ser")
+    ser_pre, ser_elem = ser_prefix(int(np.prod(nav_of((32, 64)))), 256, 256,
+                                   2, 2)
+    others.append(("f SER 256x256 u16", "ser",
+                   dict(path=ser, nav_shape=(32, 64)),
+                   lambda lo, hi: f16[lo:hi], (256, 256), (32, 64), ser,
+                   dict(pbytes=2 * px, head=50,
+                        head_fn=lambda lo, hi: np.tile(ser_elem,
+                                                       (hi - lo, 1)),
+                        payload=lambda lo, hi: u8(f16[lo:hi]),
+                        prefix=ser_pre),
+                   [ser], np.dtype(np.uint16), ser, dict(nav_shape=(32, 64))))
+    # DM4: a (2048, 256, 256) u16 stack
+    dm = os.path.join(tmp, "scan.dm4")
+    n_dm = int(np.prod(nav_of((32, 64))))
+    dm_before, dm_after = dm4_tag_stream(n_dm * 2 * px, n_dm * px,
+                                         (n_dm, 256, 256))
+    others.append(("f DM4 256x256 u16", "dm",
+                   dict(path=dm, nav_shape=(32, 64)),
+                   lambda lo, hi: f16[lo:hi], (256, 256), (32, 64), dm,
+                   dict(pbytes=2 * px, payload=lambda lo, hi: u8(f16[lo:hi]),
+                        prefix=dm_before, suffix=dm_after),
+                   [dm], np.dtype(np.uint16), dm, dict(nav_shape=(32, 64))))
+    for (label, kind, load_kw, frames, fsig, nav, path, wkw, files,
+         dtype, auto_path, auto_kw) in others:
+        nav = nav_of(nav)
+        n = int(np.prod(nav))
+        for kw in (load_kw, auto_kw):
+            if "nav_shape" in kw:
+                kw["nav_shape"] = nav
+        t0 = time.perf_counter()
+        suffix = wkw.pop("suffix", b"")
+        nbytes = write_records(path, n, **wkw)
+        if suffix:
+            with open(path, "ab") as f:
+                f.write(suffix)
+            nbytes += len(suffix)
+        written(label, t0, nbytes)
+        run(label, kind, load_kw, frames, n, fsig, nav, nbytes, files,
+            dtype, auto_path, auto_kw)
+    print("phase 12 summary: " + json.dumps(rows))
+    return launches
+
+
+def npy_header(shape, descr) -> bytes:
+    """The .npy header (format 1.0) of a C-order array."""
+    import io
+    buf = io.BytesIO()
+    np.lib.format.write_array_header_1_0(buf, {
+        "descr": descr, "fortran_order": False, "shape": tuple(shape)})
+    return buf.getvalue()
 
 
 def main() -> int:
@@ -2074,8 +2693,10 @@ def main() -> int:
 
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build(["fused_moments"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    # the CUDA kernels and the host decoders, all compilers at once
+    build.build(["fused_moments", "decode"])
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a; g++ "
+          f"for the decoders)")
     log = build.BUILD_DIR / "fused_moments.log"
     if log.exists():
         text = log.read_text()
@@ -2569,7 +3190,12 @@ def main() -> int:
         p11 = slice9_phase(ctx, ds, lt, path, data, want4, res6a,
                            corrections, tmp, report, at, failures)
 
-    print(f"phases 2-11: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 12. the detector formats -----------------------------------------
+        t0 = time.perf_counter()
+        p12 = formats_phase(ctx, lt, data, tmp, at, failures)
+        print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-12: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -2611,6 +3237,7 @@ def main() -> int:
             "partial results with a patch (phase 8)": p8["launches"],
             **p10,
             **p11,
+            **p12,
         },
         cases=cases,
     ), dict(

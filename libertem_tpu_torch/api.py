@@ -93,23 +93,18 @@ class Context:
         self.run_info: Optional[dict] = None
 
     def load(self, filetype: str, *args, **kwargs) -> DataSet:
-        """``load("memory", data=..., ...)`` or ``load("raw", path=...,
-        dtype=..., nav_shape=..., sig_shape=...)``, with the JAX
-        package's arguments for these two formats: ``sync_offset``,
-        ``io_backend`` (raw), a dtype of either byte order, ``nav_shape``
-        omitted (raw: a 1-D nav of the file's frames), the deprecated
-        raw aliases, and ``tileshape``/``tiledelay``/``datashape``
-        (memory).  Without a given ``num_partitions`` the dataset splits
-        into at least ``MIN_PARTITIONS`` partitions, as in the JAX
-        package."""
-        if filetype == "memory":
-            from .io.dataset.memory import MemoryDataSet
-            ds = MemoryDataSet(*args, **kwargs)
-        elif filetype == "raw":
-            from .io.dataset.raw import RawFileDataSet
-            ds = RawFileDataSet(*args, **kwargs)
-        else:
-            raise ValueError(f"unknown or not yet ported format {filetype!r}")
+        """Open a dataset of a format id of ``io.dataset.filetypes``
+        (``memory``, ``raw``, ``npy``, ``mib``, ``empad``, ``blo``,
+        ``mrc``, ``seq``, ``tvips``, ``dm``, ``frms6``, ``k2is``,
+        ``ser``, or a registered one) with the JAX package's arguments
+        for it, or ``"auto"`` with a path: the format that
+        ``io.dataset.detect`` finds, its detected arguments overridden
+        by the keywords given.  ``hdf5``, ``raw_csr`` and ``dask`` are
+        not yet ported and raise DataSetException.  Without a given
+        ``num_partitions`` the dataset splits into at least
+        ``MIN_PARTITIONS`` partitions, as in the JAX package."""
+        from .io.dataset import make
+        ds = make(filetype, *args, **kwargs)
         ds.set_num_cores(MIN_PARTITIONS)
         return ds.initialize()
 

@@ -12,7 +12,8 @@ the device, so narrow detector data crosses PCIe at its raw width.
 ``i + sync_offset``; dataset frames whose data frame lies outside
 ``[0, image_count)`` read as zeros.  Every read lands in native byte
 order: a format whose bytes are in another order swaps them in place
-in the destination, on the host, right after the read.  File formats
+in the destination, on the host, right after the read (in C++,
+``ops/decode.py``).  File formats
 read through a :class:`RangeReader`, with the strategy of one of the io
 backends (``preadv``, the default; mmap; ``O_DIRECT``).
 """
@@ -70,10 +71,30 @@ class DataSetMeta:
 
 def byteswap(out: np.ndarray, raw_dtype) -> None:
     """Bring a read of data of ``raw_dtype`` into native byte order, in
-    place: ``out`` (of the native dtype) holds the data's bytes as read.
+    place (the C++ ``byteswap16/32/64`` of ``ops/decode.py``): ``out``
+    (C-contiguous, of the native dtype) holds the data's bytes as read.
     Nothing to do for data in native order."""
     if not np.dtype(raw_dtype).isnative:
-        out.byteswap(inplace=True)
+        from ...ops.decode import byteswap_inplace
+        byteswap_inplace(out)
+
+
+def resolve_sig_override(sig_shape, native) -> tuple:
+    """A format's sig shape under the caller's ``sig_shape``: ``None``
+    keeps the file's own frame shape; another factorization of the
+    same pixel count views the frame row-major; a product mismatch
+    raises ("sig_shape must be of size: N")."""
+    native = tuple(int(s) for s in native)
+    if sig_shape is None:
+        return native
+    sig = tuple(int(s) for s in sig_shape)
+    if sig == native:
+        return native
+    if int(np.prod(sig)) != int(np.prod(native)):
+        raise DataSetException(
+            f"sig_shape must be of size: {int(np.prod(native))}"
+        )
+    return sig
 
 
 def _runs(ids: np.ndarray) -> list[tuple[int, int]]:
@@ -407,6 +428,52 @@ class Partition:
                 yield DataTile(sub, tile_slice=tile_slice, scheme_idx=idx)
 
 
+class FileRecords:
+    """Frames stored as fixed-size records, each ``skip`` bytes of
+    header and ``payload`` bytes of frame, ``stride`` bytes apart, in
+    one or more files: ``files`` lists ``(path, first frame, frame
+    count, offset of the first record)`` in frame order.
+
+    :meth:`rows` reads the records of data frames [start, stop) file by
+    file, one read a file into a buffer kept for the next read, and
+    yields each file's payloads as a (frames, payload) uint8 view of
+    that buffer (the headers skipped, nothing copied) with the frames'
+    positions in the read.  The view is valid until the next read."""
+
+    def __init__(self, files, stride: int, skip: int, payload: int,
+                 io_backend: Optional["IOBackend"] = None):
+        self.files = list(files)
+        self.stride = int(stride)
+        self.skip = int(skip)
+        self.payload = int(payload)
+        self._io_backend = io_backend
+        self._readers: dict = {}
+        self._buf = None
+
+    def rows(self, start: int, stop: int):
+        """``(rows, a, b)`` for every file holding frames of [start,
+        stop): ``rows`` the payloads of frames start + a .. start + b."""
+        for path, first, count, offset in self.files:
+            lo, hi = max(start, first), min(stop, first + count)
+            if hi <= lo:
+                continue
+            n = hi - lo
+            # the last record's trailing bytes past its payload are
+            # not read: a file may end right after it
+            nbytes = (n - 1) * self.stride + self.skip + self.payload
+            if self._buf is None or len(self._buf) < nbytes:
+                self._buf = np.empty(nbytes, dtype=np.uint8)
+            cover = self._buf[:nbytes]
+            if path not in self._readers:
+                self._readers[path] = RangeReader(path, self._io_backend)
+            self._readers[path].read_into(
+                offset + (lo - first) * self.stride, cover)
+            rows = np.lib.stride_tricks.as_strided(
+                cover[self.skip:], shape=(n, self.payload),
+                strides=(self.stride, 1), writeable=False)
+            yield rows, lo - start, hi - start
+
+
 class RoiHelper:
     """``ds.roi[...]``: index nav space to build a boolean roi."""
 
@@ -554,6 +621,12 @@ class DataSet:
     @classmethod
     def get_supported_extensions(cls) -> set:
         return set()
+
+    @classmethod
+    def detect_params(cls, path: str):
+        """The loader's arguments for the file at ``path`` if it is of
+        this format, else False (``io.dataset.detect``)."""
+        return False
 
     def __repr__(self):
         if self._meta is None:

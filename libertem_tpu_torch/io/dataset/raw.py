@@ -5,7 +5,8 @@ Frames are read through a :class:`RangeReader` straight into the
 destination the host feed hands out (a pinned staging buffer on the
 CUDA path), so a block costs one copy from the page cache (none with
 ``O_DIRECT``) and one DMA to the card.  Big-endian (non-native) data
-is swapped in place in that buffer right after the read, on the host.
+is swapped in place in that buffer right after the read, on the host
+(the C++ byteswap of ``ops/decode.py``).
 """
 from __future__ import annotations
 

@@ -825,6 +825,10 @@ class UDFRunner:
             input_dtype = np.dtype(np.float32)
         elif input_dtype == np.complex128:
             input_dtype = np.dtype(np.complex64)
+        if corrections is None:
+            # the corrections the dataset carries (an FRMS6 dark file,
+            # SEQ sidecars), as the JAX package applies them
+            corrections = dataset.get_correction_data()
         if corrections is not None and not corrections.have_corrections():
             corrections = None
         if corrections is not None and input_dtype.kind not in "fc":

@@ -289,10 +289,18 @@ def test_import_leaves_jax_out():
         "          'udf.auto', 'udf.record', 'udf.blobfinder',\n"
         "          'udf.holography', 'utils', 'utils.generate',\n"
         "          'io.utils', 'io.dataset.base', 'io.dataset.raw',\n"
-        "          'io.dataset.memory', 'io.corrections'}\n"
+        "          'io.dataset.memory', 'io.corrections', 'ops.decode',\n"
+        "          'io.dataset.decode', 'io.dataset.utils', 'io.dataset.mib',\n"
+        "          'io.dataset.dm', 'io.dataset.k2is', 'io.dataset.frms6',\n"
+        "          'io.dataset.seq', 'io.dataset.tvips', 'io.dataset.blo',\n"
+        "          'io.dataset.empad', 'io.dataset.npy', 'io.dataset.mrc',\n"
+        "          'io.dataset.ser'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
+        "assert 'defusedxml' not in sys.modules\n"
+        "# nothing is built at import\n"
+        "assert sys.modules['libertem_tpu_torch.ops.decode']._lib is None\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run(
