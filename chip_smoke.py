@@ -101,7 +101,24 @@ from the root of the repository.  Phases, each fatal on failure:
     frames written, 5 frames bit for bit (PickUDF), detected by
     ``load("auto")``, with its wall time, GB/s, the reader's share, the
     consumer's wait and the C++ decode time a block; MIB r12 traced
-    once more.
+    once more;
+13. the last formats and the repaired API, each pass through
+    ``Context`` with the launch count set to 0 just before and read
+    just after, against float64 answers, with its wall time, GB/s, the
+    reader's share and the consumer's wait: (a) raw CSR at
+    event-counting scale (nav 256 x 256, sig 256 x 256, Poisson(400)
+    single electrons a frame, about 160 MB on disk for 8 GiB of dense
+    u16 frames), the blocks' entries densified on the card, against
+    scipy.sparse answers, plain, under a sync offset and over half the
+    scan, with the H2D bytes a block and the densify's device time;
+    (b) phase 2's scan pushed by a producer thread into a live ring
+    while ``run_udf_iter`` runs, then a producer that stops early, then
+    an iterator abandoned while the producer stalls (its reader must
+    end within 5 s); (c) the scan as an array-like (``np.memmap``);
+    (d) the scan as chunked HDF5, where h5py imports; (e) a user tile
+    UDF on the repaired API (``sig_slice.get(w, sig_only=True)``,
+    ``results["..."]``, ``params.items()``) and SumUDF's
+    ``raw_masked_data`` over half the scan under ``with Context()``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -314,6 +331,16 @@ def com_oracle(com: np.ndarray, nav=NAV, centre=(64.0, 64.0)) -> dict:
     }
 
 
+def centres_of_mass(moments: np.ndarray, centre) -> np.ndarray:
+    """(n, 2) centres from (n, 3) moments (mass, y mass, x mass): the
+    centre itself for a frame of no mass, as CoMUDF reports it."""
+    com = np.empty((len(moments), 2))
+    com[:] = centre
+    np.divide(moments[:, 1:], moments[:, :1], out=com,
+              where=moments[:, :1] != 0)
+    return com
+
+
 def oracle(data: np.ndarray, mask_stack: np.ndarray, plan=None,
            nav=NAV) -> dict:
     """float64 answers of ApplyMasks (``mask_stack``), CoM (r=32),
@@ -362,7 +389,7 @@ def oracle_at(frames, n, sig, nav, mask_stack, centre, r, plan=None) -> dict:
     var = m2 / n
     return {
         (0, "intensity"): proj[:, :k].reshape(nav + (k,)),
-        **com_oracle(proj[:, k + 1:k + 3] / proj[:, k:k + 1], nav,
+        **com_oracle(centres_of_mass(proj[:, k:k + 3], (cy, cx)), nav,
                      (cy, cx)),
         (2, "intensity"): s1.reshape(sig),
         (3, "intensity"): proj[:, k + 3].reshape(nav),
@@ -593,10 +620,12 @@ def check_results(label, res, want, failures, shift_floor=False) -> None:
         e, ok = max_err(got, ref, scale,
                         CRTOL if np.iscomplexobj(ref) else RTOL)
         if name in ("divergence", "curl") and not shift_floor:
-            field_scale = float(np.abs(want[(1, "field")]).max())
+            # (nan outside a roi, in both)
+            field_scale = float(np.nanmax(np.abs(want[(1, "field")])))
+            diff = np.abs(np.asarray(got, np.float64) - ref)
             ok = bool(np.all(
-                np.abs(np.asarray(got, np.float64) - ref)
-                <= RTOL * max(field_scale, 1.0)
+                (diff <= RTOL * max(field_scale, 1.0))
+                | (np.isnan(got) & np.isnan(ref))
             ))
         print(f"  {label} result {ui}/{name}: max abs err {e:.3g} vs "
               f"float64")
@@ -2653,6 +2682,496 @@ def formats_phase(ctx, lt, data, tmp, at, failures) -> dict:
     return launches
 
 
+# -- phase 13: raw CSR, live, array-like, HDF5 and the repaired API ----------
+
+EVT_NAV = (256, 256)
+EVT_SIG = (256, 256)
+EVT_RATE = 400       # single-electron events a frame (Poisson mean)
+EVT_SIGMA = 20.0     # px, the disk that half of them fall in
+CSR_SYNC = 100       # phase 13(a)'s sync offset
+LIVE_RING = 2048     # frames of 13(b)'s ring: blocks of up to 1024
+LIVE_EARLY = 40000   # frames pushed before 13(b)'s early finish()
+
+
+def write_events(dirpath: str, nav: tuple, sig: tuple):
+    """An event-counting scan as raw CSR: per frame Poisson(EVT_RATE)
+    single electrons, half in a Gaussian disk (sigma EVT_SIGMA) whose
+    centre wobbles with the scan position, half uniform; each frame's
+    hits counted per pixel (``<u2``), ``<i4`` pixel indices, ``<i8``
+    row pointers, and every 97th frame's first pixel listed twice.
+    Returns the TOML path, the scipy CSR matrix and the bytes on disk."""
+    import scipy.sparse as sp
+
+    n = int(np.prod(nav))
+    h, w = sig
+    chunk = 4096
+    seeds = np.random.SeedSequence(SEED + 13).spawn(-(-n // chunk))
+
+    def part(i):
+        rng = np.random.default_rng(seeds[i])
+        lo, hi = i * chunk, min(n, (i + 1) * chunk)
+        counts = rng.poisson(EVT_RATE, hi - lo)
+        frame = np.repeat(np.arange(hi - lo), counts)
+        first = np.repeat(np.cumsum(counts) - counts, counts)
+        disk = np.arange(len(frame)) - first < np.repeat(counts // 2, counts)
+        sy, sx = np.divmod(np.arange(lo, hi), nav[-1])
+        cy = h / 2 + 6 * np.sin(2 * np.pi * sy / nav[0])
+        cx = w / 2 + 6 * np.cos(2 * np.pi * sx / nav[-1])
+        ey = np.where(disk, rng.normal(cy[frame], EVT_SIGMA),
+                      rng.uniform(0, h, len(frame)))
+        ex = np.where(disk, rng.normal(cx[frame], EVT_SIGMA),
+                      rng.uniform(0, w, len(frame)))
+        py = np.clip(ey.astype(np.int64), 0, h - 1)
+        px = np.clip(ex.astype(np.int64), 0, w - 1)
+        keys, hits = np.unique(frame * (h * w) + py * w + px,
+                               return_counts=True)
+        return (np.bincount(keys // (h * w), minlength=hi - lo),
+                keys % (h * w), hits)
+
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(part, range(len(seeds))))
+    per = np.concatenate([p[0] for p in parts])
+    cols = np.concatenate([p[1] for p in parts]).astype("<i4")
+    vals = np.concatenate([p[2] for p in parts]).astype("<u2")
+    starts = np.concatenate(([0], np.cumsum(per)[:-1]))
+    dup = np.flatnonzero((np.arange(n) % 97 == 0) & (per > 0))
+    cols = np.insert(cols, starts[dup] + 1, cols[starts[dup]])
+    vals = np.insert(vals, starts[dup] + 1, 1).astype("<u2")
+    per[dup] += 1
+    indptr = np.concatenate(([0], np.cumsum(per))).astype("<i8")
+    files = {"indptr": indptr, "indices": cols, "data": vals}
+    for key, arr in files.items():
+        arr.tofile(os.path.join(dirpath, f"{key}.bin"))
+    toml = os.path.join(dirpath, "events.toml")
+    with open(toml, "w") as f:
+        f.write('[params]\nfiletype = "raw_csr"\n'
+                f"nav_shape = {list(nav)}\nsig_shape = {list(sig)}\n\n"
+                "[raw_csr]\n" + "".join(
+                    f'{key}_file = "{key}.bin"\n'
+                    f'{key}_dtype = "{arr.dtype.str}"\n'
+                    for key, arr in files.items()))
+    mat = sp.csr_matrix((vals, cols, indptr), shape=(n, h * w))
+    return toml, mat, sum(a.nbytes for a in files.values())
+
+
+def csr_oracle(mat, rows, roi, nav, sig, masks, centre, r) -> dict:
+    """float64 answers of ``format_udfs`` over a raw CSR scan from the
+    scipy matrix: dataset frame i is stored row ``rows[i]`` (a blank
+    frame where that is -1), the run over the ``roi``'s frames (nan
+    outside it in the nav results).  Products, column sums and sums of
+    squares of the matrix after ``sum_duplicates``, never the dense
+    frames."""
+    import scipy.sparse as sp
+
+    n = int(np.prod(nav))
+    sel = np.ones(n, bool) if roi is None else roi.reshape(-1)
+    keep = rows[sel]
+    d = mat[np.where(keep >= 0, keep, 0)]
+    d = sp.diags((keep >= 0).astype(np.float64)) @ d.astype(np.float64)
+    d = sp.csr_matrix(d)
+    d.sum_duplicates()
+    h, w = sig
+    k = masks.shape[0]
+    cy, cx = centre
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    disk = (((y - cy) ** 2 + (x - cx) ** 2) <= r ** 2).astype(np.float64)
+    operand = np.concatenate([
+        masks.reshape(k, -1).astype(np.float64),
+        np.stack([disk, y * disk, x * disk]).reshape(3, -1),
+        np.ones((1, h * w)),
+    ]).T
+    proj = np.asarray(d @ operand)
+    m = d.shape[0]
+    s1 = np.asarray(d.sum(axis=0)).reshape(-1)
+    sq = np.asarray(d.multiply(d).sum(axis=0)).reshape(-1)
+    mean = s1 / m
+    var = sq / m - mean ** 2
+
+    def full(a):
+        out = np.full((n,) + a.shape[1:], np.nan)
+        out[sel] = a
+        return out.reshape(nav + a.shape[1:])
+
+    com = np.full((n, 2), np.nan)
+    com[sel] = centres_of_mass(proj[:, k:k + 3], centre)
+    return {
+        (0, "intensity"): full(proj[:, :k]),
+        **com_oracle(com, nav, centre),
+        (2, "intensity"): s1.reshape(sig),
+        (3, "intensity"): full(proj[:, k + 3]),
+        (4, "num_frames"): np.array([float(m)]),
+        (4, "sum"): s1.reshape(sig),
+        (4, "mean"): mean.reshape(sig),
+        (4, "var"): var.reshape(sig),
+        (4, "std"): np.sqrt(var).reshape(sig),
+    }
+
+
+def truncated_oracle(want4, data, keep: int) -> dict:
+    """Phase 4's answers for the scan of which only the first ``keep``
+    frames arrived, the rest blank (no mass: CoM at the centre); the
+    per-pixel sums drop the frames that did not come (float64 sums of
+    squares in chunks, exact for these counts)."""
+    n = int(np.prod(NAV))
+    flat = data.reshape(n, -1)
+    k = want4[(0, "intensity")].shape[-1]
+
+    def cut(a, fill=0.0):
+        a = a.reshape(n, -1).copy()
+        a[keep:] = fill
+        return a
+
+    parts = in_chunks(np.arange(keep, n), lambda lo, ids: (
+        flat[ids].astype(np.float64).sum(0),
+        (flat[ids].astype(np.float64) ** 2).sum(0)))
+    gone1 = sum(p[0] for p in parts)
+    gone2 = sum(p[1] for p in parts)
+    mean4 = want4[(4, "mean")].reshape(-1)
+    sumsq = n * (want4[(4, "var")].reshape(-1) + mean4 ** 2) - gone2
+    s1 = want4[(4, "sum")].reshape(-1) - gone1
+    mean = s1 / n
+    var = sumsq / n - mean ** 2
+    return {
+        (0, "intensity"): cut(want4[(0, "intensity")]).reshape(NAV + (k,)),
+        **com_oracle(cut(want4[(1, "raw_com")], 64.0), NAV),
+        (2, "intensity"): s1.reshape(SIG),
+        (3, "intensity"): cut(want4[(3, "intensity")]).reshape(NAV),
+        (4, "num_frames"): np.array([float(n)]),
+        (4, "sum"): s1.reshape(SIG),
+        (4, "mean"): mean.reshape(SIG),
+        (4, "var"): var.reshape(SIG),
+        (4, "std"): np.sqrt(var).reshape(SIG),
+    }
+
+
+def run_row(label, ctx, secs, nbytes, launches) -> dict:
+    """Phase 13's line of a pass: wall, GB/s, the reader's share, the
+    consumer's wait, blocks and launches."""
+    st = dict(ctx.feed_stats)
+    row = dict(path=label, wall_s=secs, bytes=nbytes,
+               gbps=nbytes / secs / 1e9, reader_share=st["read_s"] / secs,
+               consumer_wait_share=st["wait_s"] / secs,
+               blocks=st["blocks"], h2d_bytes=st["h2d_bytes"],
+               launches=launches, fused=ctx.run_info["fused"])
+    print(f"{label}: {secs:.3f} s wall, {nbytes} bytes ({row['gbps']:.2f} "
+          f"GB/s); reader {row['reader_share']:.1%} of the wall, consumer "
+          f"waited {row['consumer_wait_share']:.1%}; {st['blocks']} blocks, "
+          f"fused {row['fused']}, fused_moments launches {launches}")
+    return row
+
+
+def slice11_phase(ctx, lt, path, data, want4, tmp, at, failures) -> dict:
+    """Phase 13: raw CSR at event-counting scale (densified on the
+    card), a live acquisition, an array-like, HDF5 where h5py imports,
+    and the repaired public API; each pass through ``Context`` with the
+    launch count set to 0 just before and read just after, against
+    float64 answers.  Returns the launch count of each pass."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from libertem_tpu_torch.io.dataset.base import densify_into
+    from libertem_tpu_torch.io.dataset.live import LiveDataSet
+    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.udf.base import UDFRunner
+
+    launches, rows = {}, []
+    n4 = int(np.prod(NAV))
+    main_bytes = data.nbytes
+
+    def counted(fn):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fused_moments.launches
+
+    def expect(label, ctx_, count):
+        blocks = ctx_.feed_stats["blocks"]
+        if count == 0 or count != blocks or not ctx_.run_info["fused"]:
+            failures.append(f"{label}: {count} launches for {blocks} "
+                            f"blocks, fused {ctx_.run_info['fused']}")
+
+    # -- (a) raw CSR ---------------------------------------------------------
+    t0 = time.perf_counter()
+    toml, mat, disk_bytes = write_events(tmp, EVT_NAV, EVT_SIG)
+    n = mat.shape[0]
+    px = int(np.prod(EVT_SIG))
+    dense_bytes = n * px * 2
+    print(f"13a data: {mat.nnz} entries of {n} frames ({mat.nnz / n:.0f} a "
+          f"frame), {disk_bytes} bytes on disk, {dense_bytes} dense as u16; "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    ds = ctx.load("raw_csr", path=toml)
+    udfs, masks, centre, r = format_udfs(lt, EVT_SIG)
+    prep = UDFRunner(udfs)._prepare(ds, ctx.device)
+    depth = prep["scheme"].depth
+    groups = -(-prep["masks_t"].shape[0] // MASK_GROUP)
+    half = np.zeros(EVT_NAV, bool)
+    half[:EVT_NAV[0] // 2] = True
+    ident = np.arange(n)
+    shifted = ident + CSR_SYNC
+    shifted[shifted >= n] = -1
+    for label, kw, rows_of, roi in (
+            ("13a raw CSR", {}, ident, None),
+            (f"13a raw CSR, sync_offset {CSR_SYNC}",
+             {"sync_offset": CSR_SYNC}, shifted, None),
+            ("13a raw CSR, roi of half the scan", {}, ident, half)):
+        ds = ctx.load("raw_csr", path=toml, **kw)
+        res, secs, count = counted(lambda: ctx.run_udf(
+            ds, format_udfs(lt, EVT_SIG)[0], roi=roi))
+        row = run_row(label, ctx, secs, disk_bytes, count)
+        frames = n if roi is None else int(roi.sum())
+        row.update(dense_bytes=frames * px * 2,
+                   dense_gbps=frames * px * 2 / secs / 1e9,
+                   h2d_per_block=row["h2d_bytes"] / max(row["blocks"], 1),
+                   dense_per_block=depth * px * 2)
+        rows.append(row)
+        launches[f"{label} (phase 13)"] = count
+        print(f"  {frames * px * 2} bytes dense ({row['dense_gbps']:.2f} GB/s "
+              f"of dense frames); H2D {row['h2d_per_block']:.0f} bytes a "
+              f"block of {depth} frames, dense {row['dense_per_block']} "
+              f"({row['h2d_per_block'] / row['dense_per_block']:.2%}) {at}")
+        if count != row["blocks"] * groups or not row["fused"]:
+            failures.append(f"{label}: {count} launches for {row['blocks']} "
+                            f"blocks x {groups} groups")
+        if row["h2d_per_block"] > 0.1 * row["dense_per_block"]:
+            failures.append(f"{label}: H2D bytes do not follow the entries")
+        t0 = time.perf_counter()
+        want = csr_oracle(mat, rows_of, roi, EVT_NAV, EVT_SIG, masks, centre,
+                          r)
+        print(f"  oracle: {time.perf_counter() - t0:.1f} s (scipy.sparse, "
+              f"float64)")
+        check_results(label, res, want, failures)
+    # the densify's device time: one traced run, and CUDA events on a
+    # block of the run
+    ds = ctx.load("raw_csr", path=toml)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.run_udf(ds, format_udfs(lt, EVT_SIG)[0])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    device_us = device_busy(prof)
+    # the densify's kernels: index_put_'s bounds checks (reductions of
+    # the long indices, an assert), the sort, the indexed add, the zero
+    dens_us = {k: v for k, v in device_us.items() if re.search(
+        r"index|[Ss]ort|[Ff]ill|_assert_async|ReduceOp<long", k)}
+    busy = sum(device_us.values()) / 1e6
+    print(f"13a trace: {traced_s:.3f} s wall, device activity {busy:.4f} s, "
+          f"idle share {1 - busy / traced_s:.2%}; densify items "
+          f"{sum(dens_us.values()) / 1e3:.3f} ms in all {at}")
+    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device {us / 1e3:9.3f} ms  {key[:90]}")
+    part = next(iter(ds.get_partitions()))
+    block = next(part.gen_blocks(prep["scheme"]))
+    triple = [torch.from_numpy(a[:block.nnz]).to(ctx.device)
+              for a in block.sparse]
+    dense = torch.empty((depth, px), dtype=torch.uint16, device=ctx.device)
+    densify_into(dense, *triple)
+    want_block = torch.from_numpy(block.data.reshape(depth, px)).to(
+        ctx.device)
+    if not torch.equal(dense, want_block):
+        failures.append("13a: the densify on the card differs from the "
+                        "host's np.add.at")
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(50):
+        densify_into(dense, *triple)
+    end.record()
+    torch.cuda.synchronize()
+    print(f"13a densify: {start.elapsed_time(end) / 50:.4f} ms a block of "
+          f"{block.nnz} entries ({depth} x {px}, CUDA events, "
+          f"50 calls); equal to the host's np.add.at {at}")
+    del mat, ds
+
+    # -- (b) live --------------------------------------------------------------
+    raw = np.memmap(path, dtype=np.uint16, mode="r", shape=(n4,) + SIG)
+
+    def producer(ds, upto, gate=None):
+        def push():
+            for lo in range(0, upto, 1024):
+                ds.push_frames(raw[lo:min(lo + 1024, upto)])
+            if gate is not None:
+                gate.wait()
+            else:
+                ds.finish()
+
+        t = threading.Thread(target=push, daemon=True)
+        t.start()
+        return t
+
+    live = LiveDataSet(nav_shape=NAV, sig_shape=SIG, dtype=np.uint16,
+                       ring_capacity=LIVE_RING, num_partitions=4).initialize()
+    feeder = producer(live, n4)
+    partials = []
+
+    def iterate():
+        for p in ctx.run_udf_iter(live, make_udfs(lt)):
+            partials.append(p)
+        return partials[-1]
+
+    final, secs, count = counted(iterate)
+    feeder.join(60)
+    rows.append(run_row("13b live, 5 UDFs through run_udf_iter", ctx, secs,
+                        main_bytes, count))
+    print(f"  {len(partials)} partials; block depth "
+          f"{ctx.feed_stats['blocks'] and n4 // ctx.feed_stats['blocks']} "
+          f"with a ring of {LIVE_RING} frames {at}")
+    launches["live (phase 13)"] = count
+    expect("13b live", ctx, count)
+    check_results("13b live", final.buffers, want4, failures)
+    del partials[:]
+    live = LiveDataSet(nav_shape=NAV, sig_shape=SIG, dtype=np.uint16,
+                       ring_capacity=LIVE_RING, num_partitions=4).initialize()
+    feeder = producer(live, LIVE_EARLY)
+    res, secs, count = counted(lambda: ctx.run_udf(live, make_udfs(lt)))
+    feeder.join(60)
+    rows.append(run_row(f"13b live, finish() after {LIVE_EARLY} frames", ctx,
+                        secs, main_bytes, count))
+    launches["live, early finish (phase 13)"] = count
+    expect("13b early finish", ctx, count)
+    valid = res[3]["intensity"].valid_mask.reshape(-1)
+    if not (valid[:LIVE_EARLY].all() and not valid[LIVE_EARLY:].any()):
+        failures.append("13b early finish: damage is not the frames pushed")
+    t0 = time.perf_counter()
+    want = truncated_oracle(want4, data, LIVE_EARLY)
+    print(f"  oracle: {time.perf_counter() - t0:.1f} s (float64 numpy)")
+    check_results("13b early finish", res, want, failures)
+    live = LiveDataSet(nav_shape=NAV, sig_shape=SIG, dtype=np.uint16,
+                       ring_capacity=LIVE_RING, num_partitions=4).initialize()
+    # the producer stalls inside the second partition's second block:
+    # the first partial comes (with the second partition's first
+    # block), and the reader waits in the ring for frames that do not
+    depth = UDFRunner(make_udfs(lt))._prepare(live, ctx.device)[
+        "scheme"].depth
+    stall = next(iter(live.get_partitions())).num_frames + depth + depth // 2
+    gate = threading.Event()
+    feeder = producer(live, stall, gate)
+    gen = ctx.run_udf_iter(live, make_udfs(lt))
+    next(gen)
+    t0 = time.perf_counter()
+    gen.close()
+    closed_s = time.perf_counter() - t0
+    while readers_alive() and time.perf_counter() - t0 < 5.0:
+        time.sleep(0.01)
+    ended_s = time.perf_counter() - t0
+    gate.set()
+    feeder.join(10)
+    print(f"13b abandoned after the first partial, the producer stalled at "
+          f"{stall} frames ({live.ring.frames_received} pushed): close() "
+          f"returned in {closed_s:.3f} s, the reader ended in "
+          f"{ended_s:.3f} s")
+    if readers_alive() or ended_s >= 5.0:
+        failures.append(f"13b abandoned iterator: reader alive "
+                        f"{bool(readers_alive())} after {ended_s:.3f} s")
+    if feeder.is_alive():
+        failures.append("13b abandoned iterator: the producer is stuck")
+    del live, gen
+
+    # -- (c) array-like --------------------------------------------------------
+    arr = np.memmap(path, dtype=np.uint16, mode="r", shape=NAV + SIG)
+    ds = ctx.load("dask", array=arr)
+    res, secs, count = counted(lambda: ctx.run_udf(ds, make_udfs(lt)))
+    rows.append(run_row("13c array-like (np.memmap)", ctx, secs, main_bytes,
+                        count))
+    launches["array-like (phase 13)"] = count
+    expect("13c array-like", ctx, count)
+    check_results("13c array-like", res, want4, failures)
+    del ds, arr
+
+    # -- (d) HDF5 --------------------------------------------------------------
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+        print("phase 13(d) was not run: h5py is not installed on this "
+              "machine")
+    if h5py is not None:
+        h5 = os.path.join(tmp, "scan.h5")
+        t0 = time.perf_counter()
+        with h5py.File(h5, "w") as f:
+            dset = f.create_dataset("scan/data", shape=NAV + SIG,
+                                    dtype=np.uint16, chunks=(1, 16) + SIG)
+            for y in range(0, NAV[0], 16):
+                dset[y:y + 16] = data[y:y + 16]
+        print(f"13d data: {os.path.getsize(h5)} bytes written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ds = ctx.load("hdf5", path=h5, ds_path="scan/data")
+        res, secs, count = counted(lambda: ctx.run_udf(ds, make_udfs(lt)))
+        rows.append(run_row("13d HDF5, chunks (1, 16, 128, 128)", ctx, secs,
+                            main_bytes, count))
+        launches["HDF5 (phase 13)"] = count
+        expect("13d HDF5", ctx, count)
+        check_results("13d HDF5", res, want4, failures)
+        ids = np.sort(np.random.default_rng(SEED + 13).choice(n4, 5, False))
+        roi = np.zeros(n4, bool)
+        roi[ids] = True
+        pick = ctx.run_udf(ds, lt.PickUDF(), roi=roi.reshape(NAV))
+        if not np.array_equal(pick["intensity"].raw_data,
+                              data.reshape((n4,) + SIG)[ids]):
+            failures.append("13d: picked frames are not bit for bit")
+        print("  13d: 5 picked frames bit for bit")
+        del ds
+        os.remove(h5)
+
+    # -- (e) the repaired API ---------------------------------------------
+    half = np.zeros(NAV, bool)
+    half[:NAV[0] // 2] = True
+    sel = np.flatnonzero(half)
+    wmap = np.linspace(0.5, 2.0, SIG[0] * SIG[1]).reshape(SIG).astype(
+        np.float32)
+
+    class Weighted(lt.UDF):
+        """Each tile weighted with its part of a frame-shaped map."""
+
+        def get_result_buffers(self):
+            return {"total": self.buffer("nav", dtype="float32")}
+
+        def get_tiling_preferences(self):
+            return {"depth": lt.UDF.TILE_DEPTH_DEFAULT,
+                    "total_size": SIG[1] * 32 * 4}
+
+        def process_tile(self, tile):
+            if self.meta.dataset_shape.sig_dims != 2:
+                raise ValueError("expected 2 sig dims")
+            w = dict(self.params.items())["w"]
+            cut = self.forbuf(self.meta.sig_slice.get(w, sig_only=True), tile)
+            self.results["total"] = self.results["total"] + (
+                tile * cut).sum(axis=(1, 2))
+
+    with lt.Context(device=ctx.device) as api_ctx:
+        ds = api_ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                          sig_shape=SIG)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            res, secs, count = counted(lambda: api_ctx.run_udf(
+                ds, [Weighted(w=wmap), lt.SumUDF()], roi=half))
+        rows.append(run_row("13e user tile UDF + SumUDF, roi of half",
+                            api_ctx, secs, main_bytes // 2, count))
+        tiles = len(UDFRunner([Weighted(w=wmap)])._prepare(
+            ds, api_ctx.device)["scheme"])
+        check_engines("13e", api_ctx, [False, False], failures)
+        flat = data.reshape(n4, -1)
+        wflat = wmap.reshape(-1).astype(np.float64)
+        parts = in_chunks(sel, lambda lo, ids: (
+            flat[ids].astype(np.float64) @ wflat,
+            flat[ids].astype(np.float64).sum(0)))
+        total = np.full(n4, np.nan)
+        total[sel] = np.concatenate([p[0] for p in parts])
+        s1 = sum(p[1] for p in parts).reshape(SIG)
+        check_results("13e", res, {(0, "total"): total.reshape(NAV)},
+                      failures)
+        masked = res[1]["intensity"].raw_masked_data
+        e, ok = max_err(masked.data, s1)
+        print(f"  13e: {tiles} sig tiles a frame; SumUDF raw_masked_data max "
+              f"abs err {e:.3g} vs float64, {int(masked.mask.sum())} masked")
+        if not ok or masked.mask.any():
+            failures.append(f"13e raw_masked_data: max err {e}")
+    print("phase 13 summary: " + json.dumps(rows))
+    return launches
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -3195,7 +3714,12 @@ def main() -> int:
         p12 = formats_phase(ctx, lt, data, tmp, at, failures)
         print(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-12: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 13. raw CSR, live, array-like, HDF5, the repaired API -------------
+        t0 = time.perf_counter()
+        p13 = slice11_phase(ctx, lt, path, data, want4, tmp, at, failures)
+        print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-13: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -3238,6 +3762,7 @@ def main() -> int:
             **p10,
             **p11,
             **p12,
+            **p13,
         },
         cases=cases,
     ), dict(

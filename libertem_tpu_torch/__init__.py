@@ -15,15 +15,22 @@ and block-compacted sparse mask stacks are supported.  Above the UDFs,
 the frames to a ``.npy`` file.  The FFT UDFs (``udf.blobfinder``'s
 correlations, ``udf.holography``) run with ``torch.fft`` on the
 device; datasets take a sync offset, an io backend and data of either
-byte order.
+byte order.  Datasets come from files of the detector formats, HDF5
+and raw CSR (sparse frames, densified on the card), any array-like
+(``load("dask", array=...)``) and a live acquisition that pushes
+frames into a ring while the pass runs (``io.dataset.live``).
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``.
 """
 from . import analysis, masks
-from .api import Context
+from .api import Context, ResultGenerator
+from .common.analysis import AnalysisResult, AnalysisResultSet
+from .common.buffers import AuxBufferWrapper, BufferWrapper
 from .common.exceptions import UDFException
+from .common.shape import Shape
+from .common.slice import Slice
 from .io.corrections import CorrectionSet
 from .udf import (
     ApplyMasksUDF,
@@ -38,11 +45,15 @@ from .udf import (
     StdDevUDF,
     SumSigUDF,
     SumUDF,
+    UDF,
 )
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Context", "CorrectionSet", "masks", "ApplyMasksUDF", "CoMUDF",
     "StdDevUDF", "SumSigUDF", "SumUDF", "LogsumUDF", "PickUDF", "FEMUDF",
     "CrystallinityUDF", "NoOpUDF", "UDFException", "AutoUDF", "RecordUDF",
-    "analysis",
+    "analysis", "ResultGenerator", "UDF", "Shape", "Slice", "BufferWrapper",
+    "AuxBufferWrapper", "AnalysisResult", "AnalysisResultSet", "__version__",
 ]

@@ -92,15 +92,25 @@ class Context:
         self.feed_stats: Optional[dict] = None
         self.run_info: Optional[dict] = None
 
+    def close(self) -> None:
+        """Nothing to release: a run's threads end with the run."""
+
+    def __enter__(self) -> "Context":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
     def load(self, filetype: str, *args, **kwargs) -> DataSet:
         """Open a dataset of a format id of ``io.dataset.filetypes``
         (``memory``, ``raw``, ``npy``, ``mib``, ``empad``, ``blo``,
         ``mrc``, ``seq``, ``tvips``, ``dm``, ``frms6``, ``k2is``,
-        ``ser``, or a registered one) with the JAX package's arguments
-        for it, or ``"auto"`` with a path: the format that
+        ``ser``, ``hdf5`` (needs h5py), ``raw_csr``, ``dask`` (any
+        array-like), or a registered one) with the JAX package's
+        arguments for it, or ``"auto"`` with a path: the format that
         ``io.dataset.detect`` finds, its detected arguments overridden
-        by the keywords given.  ``hdf5``, ``raw_csr`` and ``dask`` are
-        not yet ported and raise DataSetException.  Without a given
+        by the keywords given.  Without a given
         ``num_partitions`` the dataset splits into at least
         ``MIN_PARTITIONS`` partitions, as in the JAX package."""
         from .io.dataset import make

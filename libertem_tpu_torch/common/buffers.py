@@ -22,6 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .math import prod
 from .shape import Shape
 
 KINDS = ("nav", "sig", "single")
@@ -34,6 +35,7 @@ class BufferWrapper:
         kind: str,
         extra_shape: Sequence[int] = (),
         dtype="float32",
+        where: Optional[str] = None,
         use: Optional[str] = None,
     ):
         if kind not in KINDS:
@@ -43,6 +45,7 @@ class BufferWrapper:
         self._kind = kind
         self._extra_shape = tuple(int(s) for s in extra_shape)
         self._dtype = np.dtype(dtype)
+        self._where = where
         self._use = use
         self._ds_shape: Optional[Shape] = None
         self._roi: Optional[np.ndarray] = None
@@ -65,8 +68,15 @@ class BufferWrapper:
         return self._dtype
 
     @property
+    def where(self) -> Optional[str]:
+        return self._where
+
+    @property
     def use(self) -> Optional[str]:
         return self._use
+
+    def replace_dtype(self, dtype) -> None:
+        self._dtype = np.dtype(dtype)
 
     def set_shape_ds(self, ds_shape: Shape,
                      roi: Optional[np.ndarray] = None) -> None:
@@ -77,6 +87,11 @@ class BufferWrapper:
             roi = np.asarray(roi).reshape(-1).astype(bool)
             self._roi_count = int(np.count_nonzero(roi))
         self._roi = roi
+
+    @property
+    def roi(self) -> Optional[np.ndarray]:
+        """The bound roi, flat, or None."""
+        return self._roi
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -93,6 +108,10 @@ class BufferWrapper:
             return tuple(self._ds_shape.sig) + self._extra_shape
         # a 'single' buffer with no extra_shape is (1,), never 0-d
         return self._extra_shape if self._extra_shape else (1,)
+
+    @property
+    def size(self) -> int:
+        return prod(self.shape)
 
     def set_result(
         self,
@@ -172,6 +191,96 @@ class BufferWrapper:
         if self._data is None:
             return None
         return np.ma.MaskedArray(self.data, mask=~self.valid_mask)
+
+    @property
+    def _valid_mask(self) -> Optional[np.ndarray]:
+        """The validity of ``raw_data``, in its storage shape."""
+        m = self.raw_masked_data
+        return None if m is None else ~np.asarray(m.mask)
+
+    @property
+    def raw_masked_data(self) -> Optional[np.ma.MaskedArray]:
+        """``raw_data`` masked to its valid entries (the roi-compressed
+        flat-nav mask, not the nav-shaped one)."""
+        if self._data is None:
+            return None
+        if self._custom_mask is not None:
+            full = np.broadcast_to(
+                np.asarray(self._custom_mask, dtype=bool), self.data.shape
+            )
+            if self._kind == "nav":
+                flat = full.reshape(
+                    (self._ds_shape.nav.size,) + self._extra_shape
+                )
+                mask = flat[self._roi] if self._roi is not None else flat
+            else:
+                mask = full
+        elif self._kind == "nav":
+            vm = (
+                np.ones(self.shape[0], dtype=bool)
+                if self._valid_nav_mask is None
+                else np.asarray(self._valid_nav_mask, dtype=bool)
+            )
+            mask = np.broadcast_to(
+                vm.reshape((-1,) + (1,) * len(self._extra_shape)),
+                self._data.shape,
+            )
+        else:
+            any_valid = (
+                True if self._valid_nav_mask is None
+                else bool(np.any(self._valid_nav_mask))
+            )
+            mask = np.full(self._data.shape, any_valid, dtype=bool)
+        return np.ma.MaskedArray(self._data, mask=~mask)
+
+    def make_default_mask(self, valid_nav_mask: np.ndarray,
+                          dataset_shape: Shape,
+                          roi: Optional[np.ndarray] = None) -> np.ndarray:
+        """The storage-shaped validity of this kind of buffer for a
+        flat-nav ``valid_nav_mask`` (roi-compressed with a roi): nav
+        buffers broadcast it over ``extra_shape``, sig and single
+        buffers are valid everywhere."""
+        valid_nav_mask = np.asarray(valid_nav_mask, dtype=bool)
+        if self._kind == "nav":
+            n = (int(np.count_nonzero(roi)) if roi is not None
+                 else dataset_shape.nav.size)
+            mask = np.zeros((n,) + self._extra_shape, dtype=bool)
+            mask[:] = valid_nav_mask.reshape(
+                valid_nav_mask.shape + (1,) * len(self._extra_shape)
+            )
+            return mask
+        if self._kind == "sig":
+            return np.ones(tuple(dataset_shape.sig) + self._extra_shape,
+                           dtype=bool)
+        return np.ones(self._extra_shape, dtype=bool)
+
+    @property
+    def valid_slice_bounding(self) -> tuple:
+        """The smallest slice tuple of ``data`` that holds every valid
+        entry (it may hold invalid ones too)."""
+        vm = self.valid_mask
+        out = []
+        for ax in range(vm.ndim):
+            other = tuple(i for i in range(vm.ndim) if i != ax)
+            nz = np.flatnonzero(vm.any(axis=other))
+            out.append(slice(int(nz[0]), int(nz[-1]) + 1) if len(nz)
+                       else slice(0, 0))
+        return tuple(out)
+
+    def get_valid_slice_inner(self, axis: int = 0) -> tuple:
+        """The first run along ``axis`` over which every entry of the
+        other axes is valid, as a slice tuple of ``data``."""
+        vm = self.valid_mask
+        other = tuple(i for i in range(vm.ndim) if i != axis)
+        nz = np.flatnonzero(vm.all(axis=other))
+        if len(nz) == 0:
+            lo = hi = 0
+        else:
+            lo = int(nz[0])
+            breaks = np.flatnonzero(np.diff(nz) != 1)
+            hi = int(nz[breaks[0]] if len(breaks) else nz[-1]) + 1
+        return tuple(slice(lo, hi) if d == axis else slice(None)
+                     for d in range(vm.ndim))
 
     def __array__(self, dtype=None, copy=None):
         arr = self.data

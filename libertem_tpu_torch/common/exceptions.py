@@ -12,3 +12,7 @@ class UDFRunCancelled(Exception):
 
 class JobCancelledError(Exception):
     """The executor cancelled a job."""
+
+
+class ExecutorSpecException(Exception):
+    """Invalid executor specification."""

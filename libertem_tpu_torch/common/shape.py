@@ -47,11 +47,33 @@ class Shape:
     def dims(self) -> int:
         return len(self._nav) + len(self._sig)
 
+    @property
+    def nav_dims(self) -> int:
+        return len(self._nav)
+
+    @property
+    def sig_dims(self) -> int:
+        return len(self._sig)
+
+    def flatten_nav(self) -> "Shape":
+        """The nav axes collapsed into one."""
+        return Shape((prod(self._nav),) + self._sig, sig_dims=len(self._sig))
+
+    def flatten_sig(self) -> "Shape":
+        """The sig axes collapsed into one."""
+        return Shape(self._nav + (prod(self._sig),), sig_dims=1)
+
     def to_tuple(self) -> tuple[int, ...]:
         return self._nav + self._sig
 
     def __iter__(self) -> Iterator[int]:
         return iter(self.to_tuple())
+
+    def __getitem__(self, key):
+        return self.to_tuple()[key]
+
+    def __len__(self) -> int:
+        return self.dims
 
     def __eq__(self, other):
         if isinstance(other, Shape):
@@ -63,5 +85,33 @@ class Shape:
     def __hash__(self) -> int:
         return hash((self._nav, self._sig))
 
+    def __add__(self, other) -> "Shape":
+        """``shape + (a, b)`` appends sig axes."""
+        if not isinstance(other, tuple):
+            return NotImplemented
+        return Shape(self._nav + self._sig + other,
+                     sig_dims=len(self._sig) + len(other))
+
+    def __radd__(self, other) -> "Shape":
+        """``(a, b) + shape`` appends nav axes."""
+        if not isinstance(other, tuple):
+            return NotImplemented
+        return Shape(self._nav + other + self._sig, sig_dims=len(self._sig))
+
     def __repr__(self) -> str:
         return repr(self.to_tuple())
+
+
+class SigOnlyShape(Shape):
+    """A Shape of sig axes only (what ``shape.sig`` is)."""
+
+    def __init__(self, shape: Sequence[int]):
+        shape = tuple(int(s) for s in shape)
+        super().__init__(shape, sig_dims=len(shape))
+
+
+class NavOnlyShape(Shape):
+    """A Shape of nav axes only (what ``shape.nav`` is)."""
+
+    def __init__(self, shape: Sequence[int]):
+        super().__init__(tuple(int(s) for s in shape), sig_dims=0)

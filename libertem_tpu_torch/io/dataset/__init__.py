@@ -2,9 +2,10 @@
 and ``detect`` (counterpart of ``libertem_tpu/io/dataset/__init__.py``).
 
 ``filetypes`` maps a format id to ``"module:ClassName"`` (imported
-when first asked for) or to a class a caller registered.  The ids of
-the JAX package's formats that have no port yet (``NOT_PORTED``) raise
-DataSetException when asked for, and ``detect`` passes over them.
+when first asked for) or to a class a caller registered, in the JAX
+package's order.  Every format of the JAX package is ported
+(``NOT_PORTED`` is empty); a live acquisition is no format of the
+registry (``io.dataset.live.LiveDataSet``).
 """
 from __future__ import annotations
 
@@ -21,24 +22,23 @@ filetypes = {
     "memory": f"{_PKG}.memory:MemoryDataSet",
     "raw": f"{_PKG}.raw:RawFileDataSet",
     "npy": f"{_PKG}.npy:NPYDataSet",
+    "hdf5": f"{_PKG}.hdf5:H5DataSet",
     "mib": f"{_PKG}.mib:MIBDataSet",
     "empad": f"{_PKG}.empad:EMPADDataSet",
     "blo": f"{_PKG}.blo:BloDataSet",
     "mrc": f"{_PKG}.mrc:MRCDataSet",
     "seq": f"{_PKG}.seq:SEQDataSet",
     "tvips": f"{_PKG}.tvips:TVIPSDataSet",
+    "raw_csr": f"{_PKG}.raw_csr:RawCSRDataSet",
     "dm": f"{_PKG}.dm:DMDataSet",
     "frms6": f"{_PKG}.frms6:FRMS6DataSet",
     "k2is": f"{_PKG}.k2is:K2ISDataSet",
     "ser": f"{_PKG}.ser:SERDataSet",
+    "dask": f"{_PKG}.dask:DaskDataSet",
 }
 
 # format ids of the JAX package without a port yet, and why
-NOT_PORTED = {
-    "hdf5": "it needs h5py",
-    "raw_csr": "its sparse block path is not ported",
-    "dask": "it needs dask",
-}
+NOT_PORTED: dict = {}
 
 
 def register_dataset_cls(filetype: str, cls) -> None:
@@ -125,12 +125,14 @@ def make(filetype: str, *args, **kwargs) -> DataSet:
 _STATIC_EXTENSIONS = {
     "raw": {"raw", "bin"},
     "npy": {"npy"},
+    "hdf5": {"h5", "hdf5", "hspy", "nxs", "emd"},
     "mib": {"mib", "hdr"},
     "empad": {"xml", "raw"},
     "blo": {"blo"},
     "mrc": {"mrc", "mrcs", "rec", "ali", "st"},
     "seq": {"seq"},
     "tvips": {"tvips"},
+    "raw_csr": {"toml"},
     "dm": {"dm3", "dm4"},
     "frms6": {"frms6", "hdr"},
     "k2is": {"gtg", "bin"},

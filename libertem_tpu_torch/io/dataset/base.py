@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ...common.shape import Shape
 from ...common.slice import Slice
@@ -153,11 +154,20 @@ class DataTile:
         return f"<DataTile {self.tile_slice!r} scheme_idx={self.scheme_idx}>"
 
 
-@dataclass
 class Block:
     """One fixed-depth chunk of frames headed for the device.
 
-    data:          (depth, *sig) raw-dtype array, zero-padded
+    data:          (depth, *sig) raw-dtype array, zero-padded; for a
+                   sparse block densified on the host when first read
+    sparse:        or None: ``(vals, rows, cols)``, the block's nonzero
+                   entries (row in the block, flat pixel index; int32),
+                   zero-padded to a power-of-two entry budget (the
+                   padding adds 0 at (0, 0)).  The host feed ships
+                   the first ``nnz`` of them (the block's own) to the
+                   device instead of ``data`` and densifies them there
+                   (:func:`densify_into`)
+    nnz:           entries of ``sparse`` in use
+    block_shape:   (depth, *sig) of a sparse block
     global_offset: first frame's position in the (roi-compressed)
                    flat nav order
     coords:        (depth, nav_dims) int32 nav coordinates of the
@@ -165,10 +175,56 @@ class Block:
     valid:         number of non-padding frames (<= depth)
     """
 
-    data: np.ndarray
-    global_offset: int
-    coords: np.ndarray
-    valid: int
+    def __init__(self, global_offset: int, coords: np.ndarray, valid: int,
+                 data: Optional[np.ndarray] = None,
+                 sparse: Optional[tuple] = None,
+                 block_shape: Optional[tuple] = None,
+                 nnz: Optional[int] = None):
+        self.global_offset = global_offset
+        self.coords = coords
+        self.valid = valid
+        self.sparse = sparse
+        self.block_shape = block_shape
+        self.nnz = nnz
+        self._data = data
+
+    @property
+    def data(self) -> np.ndarray:
+        if self._data is None:
+            vals, rows, cols = self.sparse
+            depth, sig = self.block_shape[0], tuple(self.block_shape[1:])
+            out = np.zeros((depth, int(np.prod(sig))), dtype=vals.dtype)
+            # add, not assign: duplicate entries sum, as on the device
+            np.add.at(out, (rows, cols), vals)
+            self._data = out.reshape((depth,) + sig)
+        return self._data
+
+
+# the signed type of each unsigned one's width: the device adds
+# unsigned entries in it (the same bits, wrapping as the unsigned type
+# would), since torch's accumulating index_put_ has no unsigned 16-64
+# bit kernels
+_SIGNED_OF = {
+    torch.uint8: torch.int8, torch.uint16: torch.int16,
+    torch.uint32: torch.int32, torch.uint64: torch.int64,
+}
+
+
+def densify_into(dense, vals, rows, cols) -> None:
+    """Zero ``dense`` ((depth, pixels) tensor, padding rows included)
+    and add ``vals`` at ``(rows, cols)``, on ``dense``'s device:
+    duplicate entries sum in ``dense``'s dtype, as in the JAX package's
+    ``zeros.at[r, c].add(v)``."""
+    dense.zero_()
+    signed = _SIGNED_OF.get(dense.dtype)
+    if signed is not None:
+        dense, vals = dense.view(signed), vals.view(signed)
+    dense.index_put_((rows.long(), cols.long()), vals, accumulate=True)
+
+
+class ReadCancelled(Exception):
+    """The host feed stopped while a read waited for data (a live
+    acquisition's ring) or for a staging slot."""
 
 
 class Partition:
@@ -184,6 +240,9 @@ class Partition:
         self.num_frames = int(num_frames)
         self.idx = int(idx)
         self.io_backend = io_backend
+        # set by the host feed that reads this partition: a read that
+        # blocks waiting for data gives up (ReadCancelled) once it is
+        self.stop_event: Optional[threading.Event] = None
 
     def __repr__(self):
         return (
@@ -373,6 +432,14 @@ class Partition:
                 data=data, global_offset=goff + off, coords=coords,
                 valid=valid,
             )
+
+    def sparse_nnz_budget(self, scheme: TilingScheme,
+                          roi: Optional[np.ndarray] = None
+                          ) -> Optional[int]:
+        """For a format whose blocks are sparse, the largest entry
+        budget of any of this partition's blocks (the host feed sizes
+        its staging by it); None for dense blocks."""
+        return None
 
     def _get_read_ranges(self, tiling_scheme, roi=None) -> list:
         """Dataset-space (start, stop) spans of the depth-blocks
@@ -607,11 +674,19 @@ class DataSet:
         return CorrectionSet()
 
     def get_max_io_size(self) -> Optional[int]:
+        """The most bytes of frames a block may hold for this dataset
+        (None: no cap of its own); the tiling caps its depth by it."""
         return None
 
     def adjust_tileshape(self, tileshape, roi):
         """The dataset's say on a run's ``(depth, *sig tile)``: kept."""
         return tileshape
+
+    @classmethod
+    def get_default_io_backend(cls) -> str:
+        """The id of the io backend a file format reads through when
+        none is given: ``buffered`` (``preadv``)."""
+        return BufferedBackend.id_
 
     @classmethod
     def get_supported_io_backends(cls) -> list:

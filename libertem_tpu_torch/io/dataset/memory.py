@@ -110,3 +110,42 @@ class MemoryDataSet(DataSet):
                 self._data, self._tiledelay,
                 self.meta, start, stop - start, idx=idx,
             )
+
+
+class MemoryFile:
+    """A file-table entry for data in memory: frames ``start_idx`` to
+    ``end_idx`` of ``data``.  The partitions read the array itself;
+    this carries the fileset of code written against the file-table
+    API."""
+
+    def __init__(self, path, start_idx, end_idx, native_dtype,
+                 sig_shape, data, check_cast=True):
+        self.path = path
+        self.start_idx = int(start_idx)
+        self.end_idx = int(end_idx)
+        self.native_dtype = native_dtype
+        self.sig_shape = tuple(sig_shape)
+        self.data = data
+        self.check_cast = check_cast
+
+    @property
+    def num_frames(self) -> int:
+        return self.end_idx - self.start_idx
+
+
+class FileSet:
+    """An ordered collection of file-table entries."""
+
+    def __init__(self, files, frame_header_bytes=0, frame_footer_bytes=0):
+        self._files = list(files)
+        self.frame_header_bytes = frame_header_bytes
+        self.frame_footer_bytes = frame_footer_bytes
+
+    def __iter__(self):
+        return iter(self._files)
+
+    def __len__(self):
+        return len(self._files)
+
+    def __getitem__(self, idx):
+        return self._files[idx]

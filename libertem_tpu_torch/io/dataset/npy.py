@@ -148,6 +148,19 @@ class NPYDataSet(DataSet):
         self._offset = offset
         return self
 
+    def _get_fileset(self):
+        """The one-file file table of the npy file."""
+        from .memory import FileSet
+        return FileSet([
+            NPYFile(
+                path=self._path, start_idx=0,
+                end_idx=self.meta.image_count,
+                native_dtype=self.meta.raw_dtype,
+                sig_shape=tuple(self.meta.shape.sig),
+                file_header=self._offset,
+            ),
+        ])
+
     def get_cache_key(self) -> dict:
         return {
             "path": self._path,

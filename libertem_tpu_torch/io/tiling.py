@@ -105,7 +105,7 @@ class Negotiator:
     staging budget into one static :class:`TilingScheme` per run.
 
     Same rules as the JAX package: about ``TARGET_BLOCK_BYTES`` of
-    input-dtype data per block, clamped to [8, 4096] frames unless a
+    input-dtype data per block (less where the dataset caps a read), clamped to [8, 4096] frames unless a
     UDF asks for a depth, no deeper than the largest partition,
     rounded up to a multiple of 8; a PARTITION-method UDF gets whole
     partitions (at most 2 GB each); the frame splits into sig tiles
@@ -126,12 +126,17 @@ class Negotiator:
         read_dtype,
         max_partition_frames: Optional[int] = None,
         corrections=None,
+        max_io_size: Optional[int] = None,
     ) -> TilingScheme:
+        """``max_io_size``: the dataset's cap on a block's bytes
+        (``DataSet.get_max_io_size``), below ``TARGET_BLOCK_BYTES``."""
         if max_partition_frames is None:
             max_partition_frames = dataset_shape.nav.size
         itemsize = np.dtype(read_dtype).itemsize
         frame_bytes = dataset_shape.sig.size * itemsize
         target_block_bytes = self.TARGET_BLOCK_BYTES
+        if max_io_size is not None:
+            target_block_bytes = min(target_block_bytes, int(max_io_size))
 
         methods = [str(u.get_method()) for u in udfs]
         prefs = [u.get_tiling_preferences() for u in udfs]

@@ -73,10 +73,16 @@ import torch
 
 from ..common.buffers import ArrayWithMask, AuxBufferWrapper, BufferWrapper
 from ..common.exceptions import UDFException
+from ..warnings import UseDiscouragedWarning
 from ..common.shape import Shape
 from ..common.slice import Slice
 from ..io.corrections import CorrectionSet
-from ..io.dataset.base import DataSet, Partition
+from ..io.dataset.base import (
+    DataSet,
+    Partition,
+    ReadCancelled,
+    densify_into,
+)
 from ..io.tiling import (
     TILE_DEPTH_DEFAULT,
     TILE_DEPTH_MAX,
@@ -93,8 +99,24 @@ from ..ops.sparse_masks import (
 )
 
 
+class _LegacyBufferView(np.ndarray):
+    """A host buffer as ``self.results["name"]`` returns it: an ndarray
+    view that also answers ``.raw_data`` and ``.data``, as the result
+    buffers of older versions did."""
+
+    @property
+    def raw_data(self):
+        return np.asarray(self)
+
+    @property
+    def data(self):
+        return np.asarray(self)
+
+
 class UDFData:
-    """Attribute-style accessor over a dict of arrays; records writes."""
+    """Attribute-style accessor over a dict of arrays; records writes.
+    Dict-style access (``results["x"]``) works too, with a
+    UseDiscouragedWarning."""
 
     def __init__(self, data: dict):
         object.__setattr__(self, "_data", dict(data))
@@ -110,14 +132,45 @@ class UDFData:
         self._data[k] = v
         self._touched.add(k)
 
+    def __getitem__(self, k):
+        warnings.warn(
+            "dict-style access on UDF results is discouraged; use "
+            "attribute access (self.results.name)",
+            UseDiscouragedWarning, stacklevel=2,
+        )
+        v = self._data[k]
+        if isinstance(v, np.ndarray):
+            return v.view(_LegacyBufferView)
+        return v
+
+    def __setitem__(self, k, v):
+        self._data[k] = v
+        self._touched.add(k)
+
+    def __contains__(self, k) -> bool:
+        return k in self._data
+
     def _get(self, k):
         return self._data[k]
+
+    def get(self, k, default=None):
+        return self._data.get(k, default)
+
+    def keys(self):
+        return self._data.keys()
+
+    def items(self):
+        return self._data.items()
+
+    def as_dict(self) -> dict:
+        return dict(self._data)
 
 
 class UDFParams:
     """Attribute access to a UDF's constructor arguments; while a UDF
     processes frames, its aux arguments resolve to the rows of those
-    frames (``aux_views``)."""
+    frames (``aux_views``).  ``keys``, ``items`` and ``as_dict`` list
+    the arguments as given."""
 
     def __init__(self, kwargs: dict, aux_views: Optional[dict] = None):
         object.__setattr__(self, "_kwargs", kwargs)
@@ -132,10 +185,27 @@ class UDFParams:
         except KeyError:
             raise AttributeError(k) from None
 
+    def __getitem__(self, k):
+        if k in self._aux_views:
+            return self._aux_views[k]
+        return self._kwargs[k]
+
+    def __contains__(self, k) -> bool:
+        return k in self._kwargs
+
     def get(self, k, default=None):
         if k in self._aux_views:
             return self._aux_views[k]
         return self._kwargs.get(k, default)
+
+    def keys(self):
+        return self._kwargs.keys()
+
+    def items(self):
+        return self._kwargs.items()
+
+    def as_dict(self) -> dict:
+        return dict(self._kwargs)
 
 
 class UDFMethod(str, enum.Enum):
@@ -160,22 +230,32 @@ class UDFMeta:
     frame in the roi-compressed nav order), ``sig_slice`` (the sig
     tile, a :class:`Slice`) and ``tiling_scheme_idx``.  On the host
     engine the same fields hold numpy arrays over the block's valid
-    frames, and ``array_backend`` is ``"numpy"`` (``"torch"`` on the
-    device engine).  During ``get_task_data``, ``coordinates`` holds
-    the numpy coordinates of every frame of the run (of the partition,
-    when the engine calls it again per partition).
+    frames, ``array_backend`` is ``"numpy"`` (``"torch"`` on the
+    device engine) and ``slice`` is the block's (or frame's, or
+    tile's) flat-nav :class:`Slice`.  During ``get_task_data``,
+    ``coordinates`` holds the numpy coordinates of every frame of the
+    run, and ``slice`` covers them (of the partition, when the engine
+    calls it again per partition; ``partition_slice`` too then).
+    ``device_class`` is the run's device type (``"cuda"`` or
+    ``"cpu"``), ``corrections`` the run's CorrectionSet or None.
     """
 
     def __init__(self, dataset_shape: Shape, dataset_dtype, input_dtype,
                  roi: Optional[np.ndarray] = None,
                  tiling_scheme: Optional[TilingScheme] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 corrections: Optional[CorrectionSet] = None,
+                 threads_per_worker: int = 1,
+                 partition_slice: Optional[Slice] = None):
         self.dataset_shape = dataset_shape
         self.dataset_dtype = np.dtype(dataset_dtype)
         self.input_dtype = np.dtype(input_dtype)
         self._roi = roi
         self.tiling_scheme = tiling_scheme
         self.device = torch.device("cpu") if device is None else device
+        self.device_class = self.device.type
+        self.corrections = corrections
+        self.threads_per_worker = threads_per_worker
         self.array_backend = "torch"
         self.coordinates = None
         self.tile_valid = None
@@ -184,6 +264,10 @@ class UDFMeta:
         self.sig_slice: Optional[Slice] = None
         self.tiling_scheme_idx = 0
         self._valid_nav_mask: Optional[np.ndarray] = None
+        # the concrete slices, where there are (host engine,
+        # get_task_data); None on the device engine
+        self._slice: Optional[Slice] = None
+        self._partition_slice: Optional[Slice] = partition_slice
 
     @property
     def roi(self) -> Optional[np.ndarray]:
@@ -193,6 +277,44 @@ class UDFMeta:
         return np.asarray(self._roi, dtype=bool).reshape(
             tuple(self.dataset_shape.nav)
         )
+
+    @roi.setter
+    def roi(self, value) -> None:
+        self._roi = value
+
+    @property
+    def slice(self) -> Slice:
+        """The flat-nav :class:`Slice` being processed, where the
+        engine has a concrete one: on the host engine and during
+        ``get_task_data``.  The device engine raises AttributeError:
+        use ``global_offset``, ``coordinates`` and ``sig_slice``
+        there."""
+        if self._slice is not None:
+            return self._slice
+        raise AttributeError(
+            "meta.slice is not available on the device engine; use "
+            "meta.global_offset / meta.coordinates / meta.sig_slice "
+            "(see UDFMeta docs)"
+        )
+
+    @property
+    def partition_slice(self) -> Slice:
+        """The current partition's flat-nav :class:`Slice` (roi-
+        compressed), where the engine has a concrete one (a host
+        ``process_partition``, ``get_task_data`` per partition); else
+        AttributeError."""
+        if self._partition_slice is not None:
+            return self._partition_slice
+        raise AttributeError(
+            "partition_slice is not available on the device engine; "
+            "use meta.coordinates / meta.global_offset (see UDFMeta "
+            "docs)"
+        )
+
+    @property
+    def partition_shape(self) -> Shape:
+        """The current partition's shape, roi-compressed."""
+        return self.partition_slice.shape
 
     @property
     def sig_shape(self) -> tuple:
@@ -279,12 +401,18 @@ class UDF:
         self.task_data: Optional[UDFData] = None
         self._host_mode = False
 
+    def copy(self) -> "UDF":
+        """A new instance with the same constructor arguments."""
+        return type(self)(**self._kwargs)
+
     def get_result_buffers(self) -> dict:
         raise NotImplementedError()
 
     @staticmethod
-    def buffer(kind, extra_shape=(), dtype="float32", use=None):
-        return BufferWrapper(kind, extra_shape, dtype, use)
+    def buffer(kind, extra_shape=(), dtype="float32", where=None, use=None):
+        """A result buffer declaration (``where`` is accepted for the
+        JAX package's signature; the engine places the state)."""
+        return BufferWrapper(kind, extra_shape, dtype, where, use)
 
     @classmethod
     def aux_data(cls, data, kind="nav", extra_shape=(), dtype="float32"):
@@ -301,6 +429,18 @@ class UDF:
             f"{type(self).__name__} declares non-nav buffers and must "
             f"implement merge(dest, src)"
         )
+
+    def merge_all(self, ordered_results: Sequence[UDFData]) -> dict:
+        """Fold a sequence of partial sig/single states (``UDFData``)
+        pairwise with ``merge``, into a dict.  The engine folds with
+        ``merge`` as it goes and never calls this; it is for code that
+        folds recorded partial results."""
+        if not ordered_results:
+            return {}
+        acc = UDFData(dict(ordered_results[0].items()))
+        for src in ordered_results[1:]:
+            self.merge(acc, src)
+        return acc.as_dict()
 
     def get_results(self) -> dict:
         return {}
@@ -372,6 +512,32 @@ class UDF:
             b.kind != "nav" for b in decls.values()
             if b.use != "result_only"
         )
+
+
+# markers of the process_* and hook methods a UDF implements; the
+# engine finds them by name, so the mixins carry no behaviour
+class UDFFrameMixin:
+    """Declares process_frame(frame)."""
+
+
+class UDFTileMixin:
+    """Declares process_tile(tile)."""
+
+
+class UDFPartitionMixin:
+    """Declares process_partition(partition)."""
+
+
+class UDFPreprocessMixin:
+    """Declares preprocess()."""
+
+
+class UDFPostprocessMixin:
+    """Declares postprocess()."""
+
+
+class UDFMergeAllMixin:
+    """Declares merge_all(ordered_results)."""
 
 
 class NoOpUDF(UDF):
@@ -553,42 +719,49 @@ class HostFeed:
     A background thread reads each block straight into one of
     ``SLOTS`` page-locked host buffers and, on the CUDA path, copies it
     to the matching device buffer with ``non_blocking=True`` on a side
-    stream.  The ordering rules:
+    stream.  A sparse block (raw CSR) is read into page-locked staging
+    for its ``(vals, rows, cols)`` entries instead, sized once for the
+    largest entry budget of the run; only the block's entries cross to
+    the device, where the side stream zeroes the slot's dense buffer
+    and adds them into it (``densify_into``), so the steps see a dense
+    block as before.  The ordering rules:
 
     * the step that reads a device buffer waits (on the device) for the
-      event recorded after its copy;
+      event recorded after its copy (and densify);
     * a copy into a device buffer waits (on the device) for the event
       recorded after the previous step that read it;
     * the thread refills a host buffer only after the copy out of it
       has finished (a host wait on the copy event), and only after the
       consumer has released the slot.
 
-    On the CPU the host buffers are the blocks themselves.  Each item
-    is usable until the consumer asks for the next one: ``Block.data``
-    is the pinned host slot itself, which the host engine reads in
-    place (with ``host_reads``, the consumer also waits on the host for
-    the slot's copy, so what the host engine does to the slot cannot
-    reach the device).  Without ``to_device`` (no UDF runs on the
-    device engine) nothing is copied and the device block is None.
+    On the CPU the host buffers are the blocks themselves (a sparse
+    block is densified into one by the thread).  Each item is usable
+    until the consumer asks for the next one: ``Block.data`` is the
+    pinned host slot itself, which the host engine reads in place (with
+    ``host_reads``, the consumer also waits on the host for the slot's
+    copy, so what the host engine does to the slot cannot reach the
+    device).  Without ``to_device`` (no UDF runs on the device engine)
+    nothing is copied and the device block is None.
+
+    Stopping (the consumer went away): the thread gives up where it
+    waits for a slot, and a read that waits for data gives up too
+    (``Partition.stop_event``, ``ReadCancelled``).
     """
 
     SLOTS = 3
 
     def __init__(self, block_shape: tuple, dtype, device: torch.device,
                  to_device: bool = True, host_reads: bool = False):
+        self._block_shape = tuple(block_shape)
+        self._tdtype = _torch_dtype(dtype)
         self._device = device
         self._cuda = device.type == "cuda" and to_device
         self._to_device = to_device
         self._host_reads = host_reads
-        tdtype = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
-        self._host = [
-            torch.empty(block_shape, dtype=tdtype,
-                        pin_memory=self._cuda)
-            for _ in range(self.SLOTS)
-        ]
+        self._host = self._dev = self._staging = self._dev_staging = None
         if self._cuda:
             self._dev = [
-                torch.empty(block_shape, dtype=tdtype, device=device)
+                torch.empty(block_shape, dtype=self._tdtype, device=device)
                 for _ in range(self.SLOTS)
             ]
             self._copied = [torch.cuda.Event() for _ in range(self.SLOTS)]
@@ -596,44 +769,118 @@ class HostFeed:
                 torch.cuda.Event() for _ in range(self.SLOTS)
             ]
             self._stream = torch.cuda.Stream(device)
-        else:
-            self._dev = self._host
         # read_s: the reader filling host buffers; slot_wait_s: the
         # reader waiting for a free slot (the consumer is behind);
-        # wait_s: the consumer waiting for a block (the feed is behind)
+        # wait_s: the consumer waiting for a block (the feed is behind);
+        # h2d_bytes: what crossed to the device
         self.stats = {
             "read_s": 0.0, "slot_wait_s": 0.0, "wait_s": 0.0, "blocks": 0,
+            "h2d_bytes": 0,
         }
+
+    def _allocate(self, nnz: Optional[int]) -> None:
+        """The host buffers: dense slots, or (``nnz``: the largest
+        entry budget of a sparse run) staging for that many entries a
+        slot, beside dense CPU slots to densify into on the CPU."""
+        pin = self._cuda
+        if nnz is None or not self._cuda:
+            self._host = [
+                torch.empty(self._block_shape, dtype=self._tdtype,
+                            pin_memory=pin)
+                for _ in range(self.SLOTS)
+            ]
+            if not self._cuda:
+                self._dev = self._host
+        if nnz is None:
+            return
+        types = (self._tdtype, torch.int32, torch.int32)
+        self._staging = [
+            tuple(torch.empty(nnz, dtype=t, pin_memory=pin) for t in types)
+            for _ in range(self.SLOTS)
+        ]
+        if self._cuda:
+            self._dev_staging = [
+                tuple(torch.empty(nnz, dtype=t, device=self._device)
+                      for t in types)
+                for _ in range(self.SLOTS)
+            ]
 
     def run(self, partitions: Sequence[Partition], scheme: TilingScheme,
             roi: Optional[np.ndarray] = None):
         """Yield ``(partition index, device block, Block)`` for every
         block of every partition (of the roi's frames), in order."""
+        budgets = [p.sparse_nnz_budget(scheme, roi) for p in partitions]
+        sparse = any(b is not None for b in budgets)
+        self._allocate(max(b or 0 for b in budgets) if sparse else None)
         free = threading.Semaphore(self.SLOTS)
         stop = threading.Event()
         q: queue.Queue = queue.Queue()
         slot_of_next = [0]
         sig = tuple(scheme.dataset_shape.sig)
 
-        def acquire() -> np.ndarray:
+        def wait_for_slot() -> int:
             t0 = time.perf_counter()
             while not free.acquire(timeout=0.1):
                 if stop.is_set():
-                    raise _FeedStopped()
+                    raise ReadCancelled()
             slot = slot_of_next[0] % self.SLOTS
             if self._cuda:
                 self._copied[slot].synchronize()
             self.stats["slot_wait_s"] += time.perf_counter() - t0
-            return self._host[slot].numpy().reshape(
-                (scheme.depth,) + sig
-            )
+            return slot
+
+        def acquire() -> np.ndarray:
+            slot = wait_for_slot()
+            return self._host[slot].numpy().reshape((scheme.depth,) + sig)
+
+        def acquire_sparse(nnz: int) -> tuple:
+            slot = wait_for_slot()
+            return tuple(a[:nnz].numpy() for a in self._staging[slot])
+
+        def to_device(slot: int, block) -> None:
+            """The slot's copy to the device (densified there when the
+            block is sparse: its own entries, not the budget's
+            padding), on the side stream; on the CPU, a sparse block
+            densified into the slot."""
+            if block.sparse is not None:
+                n = block.nnz
+                if not self._cuda:
+                    if self._to_device:
+                        densify_into(self._dev[slot], *(
+                            torch.from_numpy(a[:n]) for a in block.sparse))
+                    return
+                self.stats["h2d_bytes"] += sum(
+                    a[:n].nbytes for a in block.sparse)
+            elif not self._cuda:
+                return
+            else:
+                self.stats["h2d_bytes"] += self._host[slot].nbytes
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(self._consumed[slot])
+                if block.sparse is None:
+                    self._dev[slot].copy_(self._host[slot],
+                                          non_blocking=True)
+                else:
+                    staged = []
+                    for d, h in zip(self._dev_staging[slot],
+                                    self._staging[slot]):
+                        d[:n].copy_(h[:n], non_blocking=True)
+                        staged.append(d[:n])
+                    densify_into(self._dev[slot], *staged)
+                self._copied[slot].record(self._stream)
 
         def worker():
             try:
                 if self._cuda:
                     torch.cuda.set_device(self._device)
                 for pi, part in enumerate(partitions):
-                    blocks = part.gen_blocks(scheme, roi, out=acquire)
+                    part.stop_event = stop
+                    blocks = (
+                        part.gen_blocks(scheme, roi,
+                                        sparse_out=acquire_sparse)
+                        if sparse else
+                        part.gen_blocks(scheme, roi, out=acquire)
+                    )
                     while True:
                         t0 = time.perf_counter()
                         waited = self.stats["slot_wait_s"]
@@ -646,18 +893,10 @@ class HostFeed:
                             break
                         slot = slot_of_next[0] % self.SLOTS
                         slot_of_next[0] += 1
-                        if self._cuda:
-                            with torch.cuda.stream(self._stream):
-                                self._stream.wait_event(
-                                    self._consumed[slot]
-                                )
-                                self._dev[slot].copy_(
-                                    self._host[slot], non_blocking=True
-                                )
-                                self._copied[slot].record(self._stream)
+                        to_device(slot, block)
                         q.put(("item", (pi, slot, block)))
                 q.put(("done", None))
-            except _FeedStopped:
+            except ReadCancelled:
                 pass
             except BaseException as e:  # handed to the consumer
                 q.put(("error", e))
@@ -691,10 +930,6 @@ class HostFeed:
         finally:
             stop.set()
             thread.join(timeout=60)
-
-
-class _FeedStopped(Exception):
-    """The consumer went away while the reader waited for a slot."""
 
 
 class UDFRunner:
@@ -829,6 +1064,9 @@ class UDFRunner:
             # the corrections the dataset carries (an FRMS6 dark file,
             # SEQ sidecars), as the JAX package applies them
             corrections = dataset.get_correction_data()
+        # meta.corrections: the run's set, empty or not, as in the JAX
+        # package; the engine drops an empty one
+        meta_corrections = corrections
         if corrections is not None and not corrections.have_corrections():
             corrections = None
         if corrections is not None and input_dtype.kind not in "fc":
@@ -846,6 +1084,7 @@ class UDFRunner:
             input_dtype=input_dtype,
             roi=roi,
             device=device,
+            corrections=meta_corrections,
         )
         for udf in udfs:
             udf.meta = meta
@@ -853,6 +1092,7 @@ class UDFRunner:
             udfs, meta0.shape, input_dtype,
             max_partition_frames=max(1, max_part_frames),
             corrections=corrections,
+            max_io_size=dataset.get_max_io_size(),
         )
         scheme = self._dataset_scheme(dataset, scheme, roi)
         meta.tiling_scheme = scheme
@@ -868,6 +1108,9 @@ class UDFRunner:
         meta.coordinates = np.stack(
             np.unravel_index(flat_ids, nav_shape), axis=-1
         ).astype(np.int32).reshape(n_nav, len(nav_shape))
+        sig = tuple(meta0.shape.sig)
+        meta._slice = Slice((0,) * (1 + len(sig)),
+                            Shape((n_nav,) + sig, sig_dims=len(sig)))
         plan = []
         try:
             for udf in udfs:
@@ -886,7 +1129,10 @@ class UDFRunner:
                 udf.task_data = UDFData(udf.get_task_data() or {})
                 plan.append(entry)
         finally:
+            # the probe must not see the run's slice: a UDF that reads
+            # meta.slice runs on the host engine
             meta.coordinates = None
+            meta._slice = None
         self._auto_host_fallback(plan, meta, scheme, input_dtype,
                                  min(scheme.depth, max(1, max_part_frames)))
         # the 64-bit clamp above is for the device; a run whose UDFs
@@ -1276,11 +1522,18 @@ class UDFRunner:
                 np.unravel_index(partition.local_frame_ids(roi), nav_shape),
                 axis=-1,
             ).astype(np.int32)
+            sig = tuple(meta.dataset_shape.sig)
+            meta._slice = meta._partition_slice = Slice(
+                (partition.roi_offset(roi),) + (0,) * len(sig),
+                Shape((partition.frames_in_roi(roi),) + sig,
+                      sig_dims=len(sig)),
+            )
             try:
                 udf.cleanup()
                 udf.task_data = UDFData(udf.get_task_data() or {})
             finally:
                 meta.coordinates = None
+                meta._slice = meta._partition_slice = None
 
     @staticmethod
     def _bind_device_postprocess(prep, state, part_state, goff0, n_sel):
@@ -1632,7 +1885,15 @@ class UDFRunner:
                     host_global, part["host"], goff0, n_sel,
                     init_rows=part["host_init"],
                 )
-            damage[goff0:goff0 + n_sel] = True
+            arrived = getattr(dataset, "frames_valid_count", None)
+            if arrived is None:
+                damage[goff0:goff0 + n_sel] = True
+            else:
+                # a live acquisition that finished early: the frames
+                # past the last one pushed read as zeros, not merged
+                ids = part["partition"].local_frame_ids(roi)
+                cut = int(np.searchsorted(ids, int(arrived())))
+                damage[goff0:goff0 + cut] = True
             if pm is not None:
                 pm.partition_done(n_sel, ident=part["pi"])
 

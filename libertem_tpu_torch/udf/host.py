@@ -20,6 +20,7 @@ import copy
 import numpy as np
 
 from ..common.exceptions import UDFException
+from ..common.shape import Shape
 from ..common.slice import Slice
 from ..common.sparse import to_backend
 from .base import UDFData, UDFParams
@@ -135,6 +136,9 @@ class HostUDFRunner:
                 elif entry.method in ("tile", "partition"):
                     udf.results = UDFData(views)
                     meta.coordinates = coords
+                    meta._slice = self._slice(goff, valid)
+                    if entry.method == "partition":
+                        meta._partition_slice = meta._slice
                     xe = to_backend(x, backend)
                     if entry.method == "tile":
                         udf.process_tile(xe)
@@ -158,6 +162,17 @@ class HostUDFRunner:
                 udf.results = None
                 udf.params = UDFParams(udf._kwargs)
                 meta.array_backend = "torch"
+                # the meta is shared with the device UDFs of the run
+                meta._slice = meta._partition_slice = None
+
+    def _slice(self, goff: int, n: int, sig_slice=None) -> Slice:
+        """The flat-nav Slice of ``n`` frames from ``goff`` (of a sig
+        tile, when given)."""
+        if sig_slice is None:
+            sig_slice = self._whole_sig_slice
+        return Slice((goff,) + tuple(sig_slice.origin),
+                     Shape((n,) + tuple(sig_slice.shape),
+                           sig_dims=sig_slice.shape.dims))
 
     def _process_frames(self, entry, x, views, aux, coords, backend,
                         global_u, part_u, goff, valid) -> None:
@@ -173,6 +188,7 @@ class HostUDFRunner:
                                    {k: v[i] for k, v in aux.items()})
             udf.results = UDFData(frame_views)
             meta.coordinates = coords[i:i + 1]
+            meta._slice = self._slice(goff + i, 1)
             udf.process_frame(to_backend(x[i], backend))
             res = udf.results
             # assignments (rather than in-place updates of the views)
@@ -209,6 +225,7 @@ class HostUDFRunner:
             udf.results = UDFData(tile_views)
             meta.sig_slice = sig_slice
             meta.tiling_scheme_idx = k
+            meta._slice = self._slice(goff, valid, sig_slice)
             try:
                 udf.process_tile(tile)
             finally:

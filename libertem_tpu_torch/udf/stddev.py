@@ -101,3 +101,14 @@ class StdDevUDF(UDF):
             "std": np.sqrt(var),
             "mean": self.results.sum / n,
         }
+
+
+def run_stddev(ctx, dataset, roi=None, progress=False, use_numba=True):
+    """``StdDevUDF`` over ``dataset`` (of ``roi``): its buffers by name,
+    as arrays.  ``use_numba`` is accepted for the JAX package's
+    signature and not used."""
+    res = ctx.run_udf(dataset, StdDevUDF(), roi=roi, progress=progress)
+    return {
+        k: res[k].data
+        for k in ("num_frames", "sum", "varsum", "var", "std", "mean")
+    }

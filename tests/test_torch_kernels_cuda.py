@@ -876,3 +876,97 @@ def test_fused_path_sync_offset_byte_order_on_card(card, tmp_path, so,
         got = runs[0][3]["intensity"].data.reshape(-1)
         np.testing.assert_allclose(got[ok], want, rtol=RTOL)
         assert np.all(got[~ok] == 0)
+
+
+def _write_events(dirpath, n, sig, seed):
+    """Raw CSR of ``n`` frames of random single-electron hits, every
+    7th frame's first pixel listed twice: the TOML path."""
+    import os
+    rng = np.random.default_rng(seed)
+    px = sig[0] * sig[1]
+    counts = rng.poisson(40, n)
+    cols = rng.integers(0, px, counts.sum()).astype("<i4")
+    vals = rng.integers(1, 5, counts.sum()).astype("<u2")
+    indptr = np.concatenate(([0], np.cumsum(counts)))
+    dup = np.flatnonzero((np.arange(n) % 7 == 0) & (counts > 0))
+    cols = np.insert(cols, indptr[dup] + 1, cols[indptr[dup]])
+    vals = np.insert(vals, indptr[dup] + 1, 3).astype("<u2")
+    counts[dup] += 1
+    indptr = np.concatenate(([0], np.cumsum(counts))).astype("<i8")
+    for name, arr in (("indptr", indptr), ("indices", cols), ("data", vals)):
+        arr.tofile(os.path.join(dirpath, f"{name}.bin"))
+    path = os.path.join(dirpath, "events.toml")
+    with open(path, "w") as f:
+        f.write('[params]\nfiletype = "raw_csr"\n'
+                f"nav_shape = [12, {n // 12}]\nsig_shape = {list(sig)}\n\n"
+                '[raw_csr]\nindptr_file = "indptr.bin"\n'
+                'indptr_dtype = "<i8"\nindices_file = "indices.bin"\n'
+                'indices_dtype = "<i4"\ndata_file = "data.bin"\n'
+                'data_dtype = "<u2"\n')
+    return path
+
+
+@pytest.mark.cuda
+def test_densify_on_card(card):
+    """The raw CSR densify on the card against its CPU version, exact
+    for integer data (unsigned types wrap as on the CPU)."""
+    from libertem_tpu_torch.io.dataset.base import densify_into
+
+    rng = np.random.default_rng(8)
+    for dtype, hi in ((torch.uint8, 200), (torch.uint16, 60000),
+                      (torch.uint32, 1 << 31), (torch.int64, 1 << 40),
+                      (torch.float32, 1000)):
+        vals = torch.from_numpy(rng.integers(0, hi, 4096)).to(dtype)
+        rows = torch.from_numpy(rng.integers(0, 64, 4096).astype(np.int32))
+        cols = torch.from_numpy(rng.integers(0, 512, 4096).astype(np.int32))
+        cpu = torch.empty((64, 1024), dtype=dtype)
+        densify_into(cpu, vals, rows, cols)
+        dev = torch.full((64, 1024), 3, device=card).to(dtype)
+        densify_into(dev, vals.to(card), rows.to(card), cols.to(card))
+        if dtype.is_floating_point:
+            assert torch.allclose(dev.cpu(), cpu, rtol=1e-6)
+        else:
+            assert torch.equal(dev.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_new_formats_on_card(card, tmp_path):
+    """Raw CSR (densified on the card, its H2D bytes the entries'), a
+    live ring fed by a thread, and an array-like: the card's fused run
+    against the same run on the CPU, the kernel launched once a block."""
+    import threading
+
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.io.dataset.live import LiveDataSet
+
+    sig = (64, 64)
+    csr = _write_events(str(tmp_path), 120, sig, 4)
+    data = np.random.default_rng(5).poisson(3.0, (12, 10) + sig).astype(
+        np.uint16)
+
+    def load(kind, ctx):
+        if kind == "raw_csr":
+            return ctx.load("raw_csr", path=csr, num_partitions=3)
+        if kind == "dask":
+            return ctx.load("dask", array=data)
+        ds = LiveDataSet(nav_shape=(12, 10), sig_shape=sig, dtype="uint16",
+                         ring_capacity=64, num_partitions=3)
+        threading.Thread(target=lambda: (ds.push_frames(data),
+                                         ds.finish()), daemon=True).start()
+        return ds
+
+    for kind in ("raw_csr", "live", "dask"):
+        runs, launched, stats = [], [], []
+        for device in (card, "cpu"):
+            ctx = lt.Context(device=device)
+            before = fused_moments.launches
+            runs.append(ctx.run_udf(load(kind, ctx), _ring_udfs(lt)))
+            launched.append(fused_moments.launches - before)
+            stats.append(dict(ctx.feed_stats))
+            assert ctx.run_info["fused"]
+        _compare_runs(*runs)
+        # 14 mask rows: two launches a block
+        assert launched == [2 * stats[0]["blocks"], 0]
+        if kind == "raw_csr":
+            dense = 120 * 64 * 64 * 2
+            assert 0 < stats[0]["h2d_bytes"] < dense / 4

@@ -294,11 +294,14 @@ def test_import_leaves_jax_out():
         "          'io.dataset.dm', 'io.dataset.k2is', 'io.dataset.frms6',\n"
         "          'io.dataset.seq', 'io.dataset.tvips', 'io.dataset.blo',\n"
         "          'io.dataset.empad', 'io.dataset.npy', 'io.dataset.mrc',\n"
-        "          'io.dataset.ser'}\n"
+        "          'io.dataset.ser', 'io.dataset.hdf5', 'io.dataset.raw_csr',\n"
+        "          'io.dataset.dask', 'io.dataset.live', 'warnings'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
         "assert 'defusedxml' not in sys.modules\n"
+        "# h5py is imported when an HDF5 file is opened, not before\n"
+        "assert 'h5py' not in sys.modules\n"
         "# nothing is built at import\n"
         "assert sys.modules['libertem_tpu_torch.ops.decode']._lib is None\n"
     )
