@@ -118,7 +118,26 @@ from the root of the repository.  Phases, each fatal on failure:
     (d) the scan as chunked HDF5, where h5py imports; (e) a user tile
     UDF on the repaired API (``sig_slice.get(w, sig_only=True)``,
     ``results["..."]``, ``params.items()``) and SumUDF's
-    ``raw_masked_data`` over half the scan under ``with Context()``.
+    ``raw_masked_data`` over half the scan under ``with Context()``;
+14. the executors and what surrounds a run, on phase 2's scan with
+    phase 4's UDFs against phase 4's float64 answers, each pass with the
+    launch count set to 0 just before and read just after, printing its
+    wall time, GB/s and launches: (a) ``Context.make_with("inline")``,
+    ``make_with("sharded")`` (one card) and
+    ``Context(executor=InlineJobExecutor())``, each with its
+    ``run_udf:start``/``run_udf:end`` events, and the debug executor;
+    (b) ``run_udf(sync=False)`` under ``asyncio.run``, ``run_udf_iter
+    (sync=False)`` with two live plots (the BF image and CoM's field
+    magnitude, recording every update), ``plots=True`` with
+    ``Dummy2DPlot``, and an async iterator closed after two partials
+    (its reader must end within 1 s); (c) the delayed executor: no
+    launch and no read at return, one pass at the first access, none
+    at the second; (d) ``export_dataset`` of the scan to ``.npy``
+    (equal to the scan, then loaded and run again); (e)
+    ``convert_transposed_to_npy`` of a 256 MiB (sig, nav)-ordered cut;
+    (f) snooze: an idle check releases the caching allocator's blocks,
+    the next run wakes it; (g) the four example scripts with
+    ``libertem_tpu`` replaced by ``libertem_tpu_torch``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -3172,6 +3191,295 @@ def slice11_phase(ctx, lt, path, data, want4, tmp, at, failures) -> dict:
     return launches
 
 
+# -- phase 14: executors, async, delayed, export, snooze, examples -----------
+
+# phase 14(e): frames of the scan written in (sig, nav) order, 256 MiB
+TRANSPOSED_FRAMES = 8192
+EXAMPLES = ("custom_udf", "holography", "strain_mapping",
+            "virtual_detector")
+
+
+def picklable_udfs(lt):
+    """Phase 4's five UDFs with mask factories that pickle (the debug
+    executor round-trips the UDFs' arguments through pickle)."""
+    import functools
+    h, w = SIG
+    return [
+        lt.ApplyMasksUDF(mask_factories=[
+            functools.partial(lt.masks.circular, 64, 64, w, h, 16),
+            functools.partial(lt.masks.ring, 64, 64, w, h, 60, 40),
+        ]),
+        *make_udfs(lt)[1:],
+    ]
+
+
+def slice12_phase(lt, path, data, want4, n_blocks, tmp, at,
+                  failures) -> dict:
+    """Phase 14: the executors (``make_with``), the async run and
+    iterator with live plots, the delayed executor, ``export_dataset``
+    and its re-load, ``convert_transposed_to_npy``, snooze and the four
+    example scripts, on phase 2's scan with phase 4's UDFs against
+    ``want4``; each pass with the launch count set to 0 just before and
+    read just after.  Returns the launch count of each pass."""
+    import asyncio
+    import contextlib
+    import io
+    import warnings
+
+    import torch
+
+    from libertem_tpu_torch.contrib.convert_transposed import (
+        convert_transposed_to_npy,
+    )
+    from libertem_tpu_torch.executor import InlineJobExecutor
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.viz.base import Dummy2DPlot, Live2DPlot
+
+    launches, rows = {}, []
+    nbytes = data.nbytes
+
+    def load(ctx):
+        return ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                        sig_shape=SIG)
+
+    def counted(fn):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fused_moments.launches
+
+    def row(label, secs, count, res=None, want_launches=n_blocks):
+        launches[f"{label} (phase 14)"] = count
+        rows.append(dict(path=label, wall_s=secs, gbps=nbytes / secs / 1e9,
+                         launches=count))
+        print(f"{label}: {secs:.3f} s wall, {nbytes / secs / 1e9:.2f} GB/s "
+              f"of the scan; fused_moments launches {count} {at}")
+        if count != want_launches:
+            failures.append(f"{label}: {count} launches, expected "
+                            f"{want_launches}")
+        if res is not None:
+            check_results(label, res, want4, failures)
+
+    # -- (a) the executors -------------------------------------------------
+    print(f"14a: {torch.cuda.device_count()} CUDA device(s)")
+    for label, make in (
+            ("14a make_with('inline')", lambda: lt.Context.make_with("inline")),
+            ("14a make_with('sharded')",
+             lambda: lt.Context.make_with("sharded")),
+            ("14a Context(executor=InlineJobExecutor())",
+             lambda: lt.Context(executor=InlineJobExecutor()))):
+        ctx = make()
+        events = []
+        for topic in ("run_udf:start", "run_udf:end"):
+            ctx.executor.subscribe(topic, lambda t, m: events.append(t))
+        ds = load(ctx)
+        res, secs, count = counted(lambda: ctx.run_udf(ds, make_udfs(lt)))
+        row(label, secs, count, res)
+        print(f"  devices {[str(d) for d in ctx.executor.devices]}, "
+              f"events {events}")
+        if events != ["run_udf:start", "run_udf:end"]:
+            failures.append(f"{label}: events {events}")
+        ctx.close()
+    ctx = lt.Context(executor=InlineJobExecutor(debug=True))
+    ds = load(ctx)
+    res, secs, count = counted(lambda: ctx.run_udf(ds, picklable_udfs(lt)))
+    row("14a InlineJobExecutor(debug=True)", secs, count, res)
+
+    # -- (b) async ---------------------------------------------------------
+    ctx = lt.Context.make_with("inline")
+    ds = load(ctx)
+    res, secs, count = counted(
+        lambda: asyncio.run(ctx.run_udf(ds, make_udfs(lt), sync=False)))
+    row("14b run_udf(sync=False)", secs, count, res)
+
+    class Recording(Live2DPlot):
+        """Keeps each update's damage count and data."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.updates = []
+
+        def update(self, damage, force=False):
+            self.updates.append((int(np.count_nonzero(damage)),
+                                 np.array(self.data)))
+
+        def display(self):
+            pass
+
+    def bf(intensity):
+        return intensity[..., 0]
+
+    def magnitude(field):
+        return np.hypot(field[..., 0], field[..., 1])
+
+    udfs = make_udfs(lt)
+    plots = [Recording(ds, udfs[0], channel=("intensity", bf)),
+             Recording(ds, udfs[1], channel=("field", magnitude))]
+
+    async def drain():
+        damages, last = [], None
+        async for part in ctx.run_udf_iter(ds, udfs, sync=False,
+                                           plots=plots):
+            damages.append(int(np.count_nonzero(part.damage.data)))
+            last = part
+        return damages, last
+
+    (damages, last), secs, count = counted(lambda: asyncio.run(drain()))
+    row("14b run_udf_iter(sync=False, plots=[BF, |field|])", secs, count,
+        last.buffers)
+    print(f"  partials' merged frames {damages}; plot updates "
+          f"{[len(p.updates) for p in plots]}")
+    if not damages or any(b <= a for a, b in zip(damages, damages[1:])) \
+            or damages[-1] != int(np.prod(NAV)):
+        failures.append(f"14b: partials' damage {damages}")
+    for p, want in ((plots[0], want4[(0, "intensity")][..., 0]),
+                    (plots[1], magnitude(last.buffers[1]["field"].data))):
+        e, ok = max_err(p.updates[-1][1], want)
+        print(f"  14b plot {p.title}: final data max abs err {e:.3g}")
+        if not ok or len(p.updates) != len(damages) + 1:
+            failures.append(f"14b plot {p.title}: err {e}, "
+                            f"{len(p.updates)} updates")
+    ctx.plot_class = Dummy2DPlot
+    res, secs, count = counted(
+        lambda: ctx.run_udf(ds, make_udfs(lt), plots=True))
+    row("14b run_udf(plots=True), Dummy2DPlot", secs, count, res)
+
+    async def abandon():
+        agen = ctx.run_udf_iter(ds, make_udfs(lt), sync=False)
+        n = 0
+        async for _ in agen:
+            n += 1
+            if n == 2:
+                break
+        await agen.aclose()
+
+    asyncio.run(abandon())
+    t0 = time.perf_counter()
+    while readers_alive() and time.perf_counter() - t0 < 1.0:
+        time.sleep(0.01)
+    ended_s = time.perf_counter() - t0
+    print(f"  14b async iterator closed after two partials: readers alive "
+          f"{len(readers_alive())} after {ended_s:.3f} s")
+    if readers_alive():
+        failures.append("14b: HostFeed reader alive 1 s after aclose()")
+
+    # -- (c) delayed -------------------------------------------------------
+    dctx = lt.Context.make_with("delayed")
+    dds = load(dctx)
+    res, secs, count = counted(lambda: dctx.run_udf(dds, make_udfs(lt)))
+    print(f"14c delayed run_udf returned in {secs:.3f} s: {count} launches, "
+          f"feed_stats {dctx.feed_stats}")
+    if count != 0 or dctx.feed_stats is not None:
+        failures.append(f"14c: {count} launches and feed_stats "
+                        f"{dctx.feed_stats} at return")
+    _, secs, count = counted(lambda: res[0]["intensity"].data)
+    row("14c delayed, first access", secs, count, res)
+    _, secs, count = counted(lambda: [r[k].data for r in res for k in r])
+    print(f"  14c second access: {count} launches, {secs:.3f} s")
+    if count != 0:
+        failures.append(f"14c: the second access launched {count}")
+
+    # -- (d) export --------------------------------------------------------
+    out = os.path.join(tmp, "export.npy")
+    _, secs, count = counted(lambda: ctx.export_dataset(ds, path=out))
+    print(f"14d export_dataset: {secs:.3f} s, {nbytes / secs / 1e9:.2f} GB/s "
+          f"written; fused_moments launches {count}; engines "
+          f"{ctx.run_info['engines']} {at}")
+    rows.append(dict(path="14d export_dataset", wall_s=secs,
+                     gbps=nbytes / secs / 1e9, launches=count))
+    written = np.load(out, mmap_mode="r")
+    flat, wflat = data.reshape(-1, *SIG), written.reshape(-1, *SIG)
+    same = written.shape == data.shape and all(in_chunks(
+        np.arange(len(flat)),
+        lambda lo, ids: np.array_equal(wflat[lo:lo + len(ids)],
+                                       flat[lo:lo + len(ids)]), chunk=4096))
+    print(f"  14d file {written.shape} {written.dtype}: equal to the scan "
+          f"{same}")
+    if not same or count != 0:
+        failures.append(f"14d: file equal {same}, {count} launches")
+    del written, wflat
+    eds = ctx.load("npy", path=out)
+    res, secs, count = counted(lambda: ctx.run_udf(eds, make_udfs(lt)))
+    row("14d the exported .npy re-loaded", secs, count, res)
+    os.remove(out)
+
+    # -- (e) convert_transposed_to_npy -------------------------------------
+    k = min(TRANSPOSED_FRAMES, len(flat))
+    cut = flat[:k].reshape(k, -1)
+    src = os.path.join(tmp, "transposed.raw")
+    dst = os.path.join(tmp, "converted.npy")
+    np.ascontiguousarray(cut.T).tofile(src)
+    nav_e = (k // NAV[1], NAV[1])
+    t0 = time.perf_counter()
+    convert_transposed_to_npy(src, dst, nav_shape=nav_e, sig_shape=SIG,
+                              dtype=np.uint16)
+    secs = time.perf_counter() - t0
+    same = np.array_equal(np.load(dst, mmap_mode="r").reshape(k, -1), cut)
+    print(f"14e convert_transposed_to_npy: {cut.nbytes} bytes in {secs:.3f} "
+          f"s ({cut.nbytes / secs / 1e9:.2f} GB/s); equal to the transpose "
+          f"{same} {at}")
+    rows.append(dict(path="14e convert_transposed_to_npy", wall_s=secs,
+                     gbps=cut.nbytes / secs / 1e9, launches=0))
+    if not same:
+        failures.append("14e: the converted file is not the transpose")
+    os.remove(src)
+    os.remove(dst)
+
+    # -- (f) snooze --------------------------------------------------------
+    sctx = lt.Context.make_with("inline", snooze_timeout=3600)
+    sds = load(sctx)
+    manager = sctx.snooze_manager
+    sctx.run_udf(sds, make_udfs(lt))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(sctx.device)
+    # an hour idle, then the manager's own check
+    manager._last_activity -= 7200
+    manager._check()
+    after = torch.cuda.memory_reserved(sctx.device)
+    print(f"14f snooze: snoozing {manager.is_snoozing}; memory_reserved "
+          f"{before} -> {after} bytes")
+    if not manager.is_snoozing or not after < before:
+        failures.append(f"14f: snoozing {manager.is_snoozing}, reserved "
+                        f"{before} -> {after}")
+    res, secs, count = counted(lambda: sctx.run_udf(sds, make_udfs(lt)))
+    row("14f the run after the snooze", secs, count, res)
+    if manager.is_snoozing:
+        failures.append("14f: the run did not wake the manager")
+    sctx.close()
+    ctx.close()
+
+    # -- (g) the example scripts -------------------------------------------
+    for name in EXAMPLES:
+        src_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "examples", f"{name}.py")
+        with open(src_path) as f:
+            code = f.read().replace("libertem_tpu", "libertem_tpu_torch")
+        out = io.StringIO()
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    warnings.catch_warnings():
+                # custom_udf's MaxFrameUDF warns that it goes to the
+                # host engine
+                warnings.simplefilter("ignore", UserWarning)
+                exec(compile(code, src_path, "exec"),  # noqa: S102
+                     {"__name__": "__main__", "__file__": src_path})
+            torch.cuda.synchronize()
+        except Exception as e:  # each one's own asserts included
+            failures.append(f"14g example {name}: {type(e).__name__}: {e}")
+            print(f"14g example {name}: FAILED {type(e).__name__}: {e}")
+            continue
+        secs = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        print(f"14g example {name}: ok in {secs:.3f} s, fused_moments "
+              f"launches {fused_moments.launches}; last line "
+              f"{lines[-1] if lines else ''!r}")
+    print("phase 14 summary: " + json.dumps(rows))
+    return launches
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -3719,7 +4027,13 @@ def main() -> int:
         p13 = slice11_phase(ctx, lt, path, data, want4, tmp, at, failures)
         print(f"phase 13: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-13: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 14. executors, async, delayed, export, snooze, examples --------
+        t0 = time.perf_counter()
+        p14 = slice12_phase(lt, path, data, want4, n_blocks, tmp, at,
+                            failures)
+        print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-14: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -3763,6 +4077,7 @@ def main() -> int:
             **p11,
             **p12,
             **p13,
+            **p14,
         },
         cases=cases,
     ), dict(

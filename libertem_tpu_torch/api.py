@@ -1,22 +1,33 @@
 """Context: the public entry point (counterpart of
-``libertem_tpu/api.py``): datasets, UDF runs, ``map`` and the
-analyses."""
+``libertem_tpu/api.py``): datasets, UDF runs (synchronous, awaitable,
+lazy, with live plots), ``map``, export and the analyses, on the
+devices of an executor."""
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .common.backend import resolve_device
+from .common.snooze import keep_alive
+from .executor.base import JobExecutor
+from .executor.inline import InlineJobExecutor
 from .io.corrections import CorrectionSet
 from .io.dataset.base import DataSet
-from .udf.base import UDF, UDFRunner
+from .udf.base import UDF, UDFResults, UDFRunner
 
-# the least partition count of a loaded dataset: the JAX package's
-# max(4, 2 x workers), with one worker (the card)
+# the least partition count of a loaded dataset; a Context splits into
+# max(MIN_PARTITIONS, 2 x its executor's workers), as the JAX package
 MIN_PARTITIONS = 4
+
+# what a run on more than one device waits for
+MULTI_DEVICE_TODO = (
+    "runs over more than one device are not ported yet (ROADMAP queue "
+    "1, the multi-device loop: _run_loop_sharded, _make_sharded_fold, "
+    "_collapse_sharded); use make_with('inline') or one device"
+)
 
 
 class SingleUDFResults(dict):
@@ -37,22 +48,62 @@ class SingleUDFResults(dict):
 class ResultGenerator:
     """Iterator of partial results (``UDFResults``, one per merged
     partition; the last is the final result) of
-    :meth:`Context.run_udf_iter`, with mid-run parameter patches."""
+    :meth:`Context.run_udf_iter`, with mid-run parameter patches.
+    Live ``plots`` are updated with every partial, and once more,
+    forced, with the last.  The run's end (exhaustion or
+    :meth:`close`) sends ``run_udf:end`` and lets the snooze manager
+    sleep again."""
 
-    def __init__(self, gen, runner: UDFRunner, ctx: "Context"):
+    def __init__(self, gen, runner: UDFRunner, ctx: "Context",
+                 plots=None, udfs=None):
         self._gen = gen
         self._runner = runner
         self._ctx = ctx
+        self._plots = plots
+        self._udfs = udfs
+        self._last = None
+        self._ended = False
+        manager = ctx.snooze_manager
+        if manager is not None:
+            manager.keep_alive_enter()
 
     def __iter__(self):
         return self
 
     def __next__(self):
         try:
-            return next(self._gen)
+            res = next(self._gen)
+        except StopIteration:
+            if self._plots and self._last is not None:
+                self._ctx._update_plots(self._plots, self._last,
+                                        self._udfs, final=True)
+                self._plots = None
+            self._emit_end()
+            raise
+        except BaseException:
+            self._emit_end()
+            raise
         finally:
             self._ctx.feed_stats = self._runner.feed_stats
             self._ctx.run_info = self._runner.run_info
+        if self._plots:
+            self._last = res
+            try:
+                self._ctx._update_plots(self._plots, res, self._udfs)
+            except BaseException:
+                # a failing plot abandons the run: the reader stops
+                self.close()
+                raise
+        return res
+
+    def _emit_end(self):
+        if self._ended:
+            return
+        self._ended = True
+        self._ctx._emit_run_event("run_udf:end", self._udfs)
+        manager = self._ctx.snooze_manager
+        if manager is not None:
+            manager.keep_alive_exit()
 
     def update_parameters_experimental(self, patches):
         """One dict of constructor arguments per UDF (``{}`` for no
@@ -65,35 +116,176 @@ class ResultGenerator:
     def close(self):
         """Abandon the run: stops the host feed's reader, releases its
         slots and runs the UDFs' cleanup."""
-        self._gen.close()
+        try:
+            self._gen.close()
+        finally:
+            self._emit_end()
+
+    def __del__(self):
+        # dropped without an end: the snooze manager must not stay awake
+        if not getattr(self, "_ended", True):
+            self._emit_end()
 
 
-def _not_ported(plots, sync) -> None:
-    if plots:
-        raise NotImplementedError(
-            "plots are not ported yet: they come with the visualisation "
-            "layer (ROADMAP queue 1, item 10)")
-    if not sync:
-        raise NotImplementedError(
-            "sync=False is not ported yet: it comes with the executors "
-            "(ROADMAP queue 1, item 9)")
+class AsyncResultGenerator:
+    """The async counterpart of :class:`ResultGenerator`
+    (``run_udf_iter(..., sync=False)``): ``async for``, ``await
+    .update_parameters_experimental(...)``, ``athrow`` and ``aclose``.
+    A producer thread drains the run up to 8 partials ahead (each a
+    host copy, never a view of device state); ``aclose`` stops it and
+    closes the run there, in the thread that ran it."""
+
+    def __init__(self, agen, sync_gen: ResultGenerator):
+        self._agen = agen
+        self._sync_gen = sync_gen
+        self._started = False
+
+    def __aiter__(self):
+        return self
+
+    def __anext__(self):
+        self._started = True
+        return self._agen.__anext__()
+
+    async def update_parameters_experimental(self, patches):
+        self._sync_gen.update_parameters_experimental(patches)
+
+    def athrow(self, *args):
+        self._started = True
+        return self._agen.athrow(*args)
+
+    async def aclose(self):
+        await self._agen.aclose()
+        if not self._started:
+            # no producer ever ran the run: close it here
+            self._sync_gen.close()
 
 
 class Context:
-    """Loads datasets and runs UDFs on one device: the CUDA card by
-    default (raising when there is none), or the CPU when asked for
-    with ``device="cpu"``."""
+    """Loads datasets and runs UDFs on the devices of an executor:
+    ``InlineJobExecutor()`` (the CUDA card, raising when there is none)
+    by default, or ``InlineJobExecutor(device=device)`` for a
+    ``device`` given (``"cpu"``).  ``plot_class``: the live plots of
+    ``plots=True`` (matplotlib's by default); ``snooze_timeout``:
+    seconds idle after which the CUDA caching allocator releases its
+    free blocks."""
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None):
-        self.device = resolve_device(device)
+    def __init__(self, executor: Optional[JobExecutor] = None,
+                 plot_class=None, snooze_timeout: Optional[float] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        from .common.tracing import maybe_setup_tracing
+        maybe_setup_tracing("libertem-tpu-torch")
+        if executor is not None and device is not None:
+            raise ValueError(
+                "pass either an executor or a device, not both")
+        if executor is None:
+            executor = InlineJobExecutor(device=device)
+        self.executor = executor
+        self.device = executor.main_device
+        self._plot_class = plot_class
+        self.snooze_manager = None
+        if snooze_timeout is not None:
+            from .common.snooze import SnoozeManager
+            self.snooze_manager = SnoozeManager(
+                down=self._snooze_down, timeout=snooze_timeout)
+        executor._snooze_manager = self.snooze_manager
         # host feed timings of the last run (HostFeed.stats, with the
         # host engine's time in "host_s") and what it ran
         # (UDFRunner.run_info: engines, fused, compacted blocks)
         self.feed_stats: Optional[dict] = None
         self.run_info: Optional[dict] = None
 
+    def _snooze_down(self) -> None:
+        """The snooze manager's ``down``: no run is in flight (runs
+        hold it awake), so the caching allocator releases its free
+        blocks; nothing to release on the CPU."""
+        if any(d.type == "cuda" for d in self.executor.devices):
+            torch.cuda.empty_cache()
+
+    @property
+    def plot_class(self):
+        """The live-plot class of ``plots=True``: matplotlib's
+        (``viz.mpl.MPLLive2DPlot``) unless one was given."""
+        if self._plot_class is None:
+            from .viz.mpl import MPLLive2DPlot
+            self._plot_class = MPLLive2DPlot
+        return self._plot_class
+
+    @plot_class.setter
+    def plot_class(self, value):
+        self._plot_class = value
+
+    @classmethod
+    def make_with(
+        cls, executor_spec: str = "inline", /, *,
+        cpus=None, gpus=None, tpus=None, main_process_gpu=None,
+        plot_class=None, snooze_timeout=None, **kwargs,
+    ) -> "Context":
+        """A Context with a named executor, the JAX package's names:
+
+        ``"inline"``, ``"synchronous"``, ``"threads"``, ``"concurrent"``
+            one device (the card): :class:`InlineJobExecutor`
+        ``"sharded"``, ``"tpu"``, ``"dask"``, ``"dask-make-default"``,
+        ``"dask-integration"``, ``"pipelined"``
+            every CUDA device (``tpus=``: their indices):
+            :class:`ShardedJobExecutor`
+        ``"delayed"``
+            lazy results, computed on first access:
+            :class:`DelayedJobExecutor` (``**kwargs`` go to it)
+
+        ``cpus=``/``gpus=`` are refused where the JAX package refuses
+        them; ``gpus`` and ``main_process_gpu`` need a CUDA device."""
+        from .common.exceptions import ExecutorSpecException
+
+        limited = ("inline", "synchronous", "dask-integration", "delayed")
+        if cpus is not None and executor_spec in limited:
+            raise ExecutorSpecException(
+                f"Executor type {executor_spec} does not support "
+                f"specifying CPU workers at this time")
+        if gpus is not None and executor_spec in limited + ("threads",):
+            raise ExecutorSpecException(
+                f"Executor type {executor_spec} does not support "
+                f"specifying GPU workers at this time")
+        if gpus or main_process_gpu is True or (
+                isinstance(main_process_gpu, int)
+                and not isinstance(main_process_gpu, bool)):
+            from .utils.devices import detect
+            if not detect()["cudas"]:
+                raise ExecutorSpecException(
+                    "Cannot specify GPU workers as no GPUs detected"
+                    if gpus else
+                    "main_process_gpu requested but no CUDA device is "
+                    "available on this host")
+        opts = dict(plot_class=plot_class, snooze_timeout=snooze_timeout)
+        if executor_spec in ("inline", "synchronous"):
+            return cls(executor=InlineJobExecutor(), **opts)
+        if executor_spec in ("threads", "concurrent"):
+            from .executor.compat import ConcurrentJobExecutor
+            return cls(executor=ConcurrentJobExecutor(), **opts)
+        if executor_spec in ("sharded", "tpu", "pipelined", "dask",
+                             "dask-make-default", "dask-integration"):
+            from .executor.sharded import ShardedJobExecutor
+            devices = None
+            if tpus is not None:
+                devices = [torch.device("cuda", int(i)) for i in tpus]
+            return cls(executor=ShardedJobExecutor(devices=devices),
+                       **opts)
+        if executor_spec == "delayed":
+            from .executor.delayed import DelayedJobExecutor
+            return cls(executor=DelayedJobExecutor(**kwargs), **opts)
+        raise ExecutorSpecException(
+            f"Argument `executor_spec` is {executor_spec}. Allowed "
+            f'are "synchronous", "inline", "threads", "dask", '
+            f'"dask-integration", "dask-make-default", "delayed", '
+            f'"pipelined" (or this framework\'s "sharded"/"tpu").'
+        )
+
     def close(self) -> None:
-        """Nothing to release: a run's threads end with the run."""
+        """Stops the snooze manager's timer and closes the executor; a
+        run's threads end with the run."""
+        if self.snooze_manager is not None:
+            self.snooze_manager.close()
+        self.executor.close()
 
     def __enter__(self) -> "Context":
         return self
@@ -110,14 +302,32 @@ class Context:
         array-like), or a registered one) with the JAX package's
         arguments for it, or ``"auto"`` with a path: the format that
         ``io.dataset.detect`` finds, its detected arguments overridden
-        by the keywords given.  Without a given
-        ``num_partitions`` the dataset splits into at least
-        ``MIN_PARTITIONS`` partitions, as in the JAX package."""
+        by the keywords given.  Without a given ``num_partitions`` the
+        dataset splits into at least max(``MIN_PARTITIONS``, 2 x the
+        executor's workers) partitions, as in the JAX package."""
         from .io.dataset import make
         ds = make(filetype, *args, **kwargs)
-        ds.set_num_cores(MIN_PARTITIONS)
+        workers = self.executor.get_available_workers()
+        ds.set_num_cores(max(MIN_PARTITIONS, 2 * len(workers)))
         return ds.initialize()
 
+    def export_dataset(self, dataset: DataSet, *, path: str,
+                       progress=False, overwrite: bool = False) -> None:
+        """Write the dataset's frames to a ``.npy`` file of its full
+        shape (``io.writers.write_dataset_npy``); an existing file is
+        kept unless ``overwrite``."""
+        if not str(path).endswith(".npy"):
+            raise ValueError(
+                f"unrecognized file extension in {path!r}: only .npy "
+                "is currently supported")
+        if not overwrite and os.path.isfile(path):
+            raise FileExistsError(
+                f"cannot export dataset to existing path {path}; use "
+                "overwrite=True to force export")
+        from .io.writers import write_dataset_npy
+        return write_dataset_npy(self, dataset, path, progress=progress)
+
+    @keep_alive
     def run_udf(
         self,
         dataset: DataSet,
@@ -142,24 +352,61 @@ class Context:
         ``backends`` restricts the engines for this run (``("numpy",)``
         sends every UDF that can run there to the host engine).
         ``progress``: True for a tqdm bar, or a
-        ``common.progress.ProgressReporter``.  ``plots`` and
-        ``sync=False`` are not ported yet and raise.
+        ``common.progress.ProgressReporter``.  ``plots``: True (a
+        ``plot_class`` plot of every 2-D channel of each UDF), a list
+        of channel lists per UDF (a name, or ``(name, fn)``), or
+        ``viz.base.Live2DPlot`` objects; each is updated as partitions
+        merge.  ``sync=False`` returns an awaitable of the results
+        instead (:meth:`run_udf_async`).  With the delayed executor the
+        results are lazy: the pass runs on the first access to data.
 
         Returns a dict of result buffers for a single UDF, or a list of
         dicts for a sequence of UDFs."""
-        _not_ported(plots, sync)
+        if not sync:
+            return self.run_udf_async(
+                dataset, udf, roi=roi, corrections=corrections,
+                progress=progress, backends=backends, plots=plots,
+            )
         udfs, single = self._normalize_udfs(udf)
-        runner = UDFRunner(udfs, backends=backends)
-        results = runner.run_for_dataset(
-            dataset, self.device, roi=self._normalize_roi(roi, dataset),
-            corrections=corrections, progress=progress,
-        )
-        self.feed_stats = runner.feed_stats
-        self.run_info = runner.run_info
-        wrapped = [
-            SingleUDFResults(b, results.damage) for b in results.buffers
-        ]
-        return wrapped[0] if single else wrapped
+        roi = self._normalize_roi(roi, dataset)
+        device = self._run_device()
+        if getattr(self.executor, "is_delayed", False) and not plots:
+            # the events mark the lazy results' construction; the pass
+            # runs on the first access to data
+            self._emit_run_event("run_udf:start", udfs, dataset)
+            try:
+                from .executor.delayed import make_delayed_results
+                return make_delayed_results(
+                    self, dataset, udfs, single, roi, corrections,
+                    progress=progress, backends=backends,
+                )
+            finally:
+                self._emit_run_event("run_udf:end", udfs)
+        plots = self._prepare_plots(plots, dataset, udfs, roi)
+        runner = self._runner(udfs, backends)
+        self._emit_run_event("run_udf:start", udfs, dataset)
+        try:
+            if plots:
+                gen = runner.run_for_dataset_iter(
+                    dataset, device, roi=roi, corrections=corrections,
+                    progress=progress)
+                try:
+                    results = None
+                    for results in gen:
+                        self._update_plots(plots, results, udfs)
+                finally:
+                    # a failing plot stops the reader here
+                    gen.close()
+                self._update_plots(plots, results, udfs, final=True)
+            else:
+                results = runner.run_for_dataset(
+                    dataset, device, roi=roi, corrections=corrections,
+                    progress=progress)
+        finally:
+            self.feed_stats = runner.feed_stats
+            self.run_info = runner.run_info
+            self._emit_run_event("run_udf:end", udfs)
+        return self._wrap(results, single)
 
     def run_udf_iter(
         self,
@@ -171,21 +418,171 @@ class Context:
         backends=None,
         plots=None,
         sync: bool = True,
-    ) -> ResultGenerator:
+    ):
         """Live partial results: a :class:`ResultGenerator` of
         ``UDFResults`` (``.buffers``, one dict per UDF, and
         ``.damage``), one after every merged partition, the last of them
         the final result.  Its ``update_parameters_experimental`` patches
         the UDFs' arguments from the next partition on; ``close()``
-        abandons the run.  Arguments as :meth:`run_udf`."""
-        _not_ported(plots, sync)
+        abandons the run.  ``sync=False`` gives an
+        :class:`AsyncResultGenerator` (``async for``), its partials made
+        on a producer thread.  Arguments as :meth:`run_udf`."""
+        if not sync:
+            sync_gen = self.run_udf_iter(
+                dataset, udf, roi=roi, corrections=corrections,
+                progress=progress, backends=backends, plots=plots,
+            )
+            from .common.async_utils import async_generator_eager
+            return AsyncResultGenerator(
+                async_generator_eager(sync_gen, queue_size=8), sync_gen)
         udfs, _ = self._normalize_udfs(udf)
-        runner = UDFRunner(udfs, backends=backends)
+        roi = self._normalize_roi(roi, dataset)
+        device = self._run_device()
+        plots = self._prepare_plots(plots, dataset, udfs, roi)
+        runner = self._runner(udfs, backends)
+        self._emit_run_event("run_udf:start", udfs, dataset)
         gen = runner.run_for_dataset_iter(
-            dataset, self.device, roi=self._normalize_roi(roi, dataset),
-            corrections=corrections, progress=progress,
+            dataset, device, roi=roi, corrections=corrections,
+            progress=progress,
         )
-        return ResultGenerator(gen, runner, self)
+        return ResultGenerator(gen, runner, self, plots=plots, udfs=udfs)
+
+    async def run_udf_iter_async(self, dataset, udf, roi=None,
+                                 corrections=None, progress=False,
+                                 backends=None, plots=None):
+        """Async generator of the partial results; the plots are
+        updated on the producer thread."""
+        agen = self.run_udf_iter(
+            dataset, udf, roi=roi, corrections=corrections,
+            progress=progress, backends=backends, plots=plots, sync=False,
+        )
+        try:
+            async for item in agen:
+                yield item
+        finally:
+            await agen.aclose()
+
+    async def run_udf_async(self, dataset, udf, roi=None,
+                            corrections=None, progress=False,
+                            backends=None, plots=None):
+        """:meth:`run_udf` on a pool thread, awaited
+        (``run_udf(..., sync=False)``)."""
+        from .common.async_utils import sync_to_async
+        return await sync_to_async(
+            self.run_udf, dataset, udf, roi=roi, corrections=corrections,
+            progress=progress, backends=backends, plots=plots,
+        )
+
+    def _runner(self, udfs, backends) -> UDFRunner:
+        return UDFRunner(
+            udfs, backends=backends,
+            debug=getattr(self.executor, "_debug", False),
+            threads_per_worker=getattr(
+                self.executor, "threads_per_worker", 1),
+        )
+
+    def _run_devices(self):
+        """The executor's devices when there are several, else None
+        (the single-device loop)."""
+        devs = self.executor.devices
+        return devs if len(devs) > 1 else None
+
+    def _run_device(self) -> torch.device:
+        """The device of a run: the executor's one device.  Several
+        would need the multi-device loop, which is not ported: raise
+        rather than run on one of them."""
+        if self._run_devices() is not None:
+            raise NotImplementedError(MULTI_DEVICE_TODO)
+        return self.executor.main_device
+
+    def _emit_run_event(self, topic, udfs, dataset=None):
+        subs = getattr(self.executor, "subscriptions", None)
+        if subs is None:
+            return
+        msg = {"udfs": [type(u).__name__ for u in udfs]}
+        if dataset is not None:
+            msg["dataset_shape"] = tuple(dataset.shape)
+        subs.send(topic, msg)
+
+    @staticmethod
+    def _wrap(results: UDFResults, single: bool):
+        wrapped = [SingleUDFResults(b, results.damage)
+                   for b in results.buffers]
+        return wrapped[0] if single else wrapped
+
+    def _prepare_plots(self, plots, dataset, udfs, roi):
+        """``plots=``: True gives a ``plot_class`` plot of every 2-D
+        channel of each UDF; a list of channel lists (one a UDF: names
+        or ``(name, fn)``) gives those, each name checked; plot objects
+        (anything with ``new_data``) pass through.  One dry run serves
+        every plot."""
+        if not plots:
+            return None
+        from .viz.base import Live2DPlot
+        chan_lists = (
+            isinstance(plots, (list, tuple))
+            and all(isinstance(p, (list, tuple)) for p in plots)
+            and all(all(isinstance(pp, (str, list, tuple)) for pp in p)
+                    for p in plots)
+        )
+        prepared = []
+        if plots is True or chan_lists:
+            dry = UDFRunner(udfs).dry_run(dataset, roi)
+            if plots is True:
+                channels = []
+                for idx, udf in enumerate(udfs):
+                    chans = [
+                        k for k, buf in dry.buffers[idx].items()
+                        if buf.data is not None
+                        and len(np.squeeze(buf.data).shape) == 2
+                    ]
+                    if not chans:
+                        warnings.warn(
+                            f"No plottable channels found for UDF "
+                            f"#{idx}: {type(udf).__name__}, not plotting.")
+                    channels.append(chans)
+            else:
+                channels = plots
+                for idx, udf_channels in enumerate(channels):
+                    for ch in udf_channels:
+                        name = ch[0] if isinstance(ch, (list, tuple)) \
+                            else ch
+                        if name not in dry.buffers[idx]:
+                            raise ValueError(
+                                f"channel {name} not found, have: "
+                                f"{list(dry.buffers[idx].keys())}")
+            for idx, (udf, udf_channels) in enumerate(zip(udfs, channels)):
+                for channel in udf_channels:
+                    if isinstance(channel, list):
+                        channel = tuple(channel)
+                    p = self.plot_class(
+                        dataset, udf, roi=roi, channel=channel,
+                        udfresult=UDFResults((dry.buffers[idx],),
+                                             dry.damage),
+                    )
+                    p.display()
+                    prepared.append(p)
+            return prepared or None
+        for p in plots:
+            if isinstance(p, Live2DPlot) or hasattr(p, "new_data"):
+                prepared.append(p)
+        return prepared or None
+
+    @staticmethod
+    def _update_plots(plots, results, udfs, final=False):
+        """Each plot's UDF's buffers of a (partial) result, with the
+        nav damage; the results are host copies already, so this adds
+        no device synchronisation."""
+        damage = np.asarray(results.damage.data)
+        for p in plots:
+            get_udf = getattr(p, "get_udf", None)
+            udf = get_udf() if get_udf is not None else getattr(
+                p, "udf", None)
+            try:
+                idx = udfs.index(udf)
+            except ValueError:
+                idx = 0
+            p.new_data(results.buffers[idx], damage, force=final)
 
     def inspect_udf(self, udf: UDF, dataset: DataSet, roi=None):
         """The result buffers ``udf`` declares on ``dataset`` (kind,
@@ -216,6 +613,7 @@ class Context:
 
     # -- analyses ---------------------------------------------------------
 
+    @keep_alive
     def run(self, analysis, roi=None, progress=False,
             corrections: Optional[CorrectionSet] = None):
         """Run an analysis (``create_*_analysis``) and post-process its

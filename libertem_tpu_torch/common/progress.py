@@ -155,3 +155,36 @@ class ProgressManager:
                     self._num_part_total - len(self._complete)
                 )
         self._reporter.end(self.state)
+
+
+class CommsDispatcher:
+    """Drains a WorkerQueue on a background thread, handing each
+    ``(topic, message)`` to the topic's callbacks; used by
+    ``executor.base.TaskCommHandler.monitor``."""
+
+    def __init__(self, queue, subscriptions: dict):
+        self._queue = queue
+        self._subscriptions = subscriptions
+        self._thread = None
+
+    def __enter__(self):
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._queue.put(("STOP", {}))
+        self._thread.join(timeout=10)
+        self._thread = None
+        return False
+
+    def _drain(self):
+        while True:
+            with self._queue.get(block=True) as ((topic, msg), _):
+                if topic == "STOP":
+                    return
+                for callback in self._subscriptions.get(topic, ()):
+                    try:
+                        callback(topic, msg)
+                    except Exception:
+                        pass

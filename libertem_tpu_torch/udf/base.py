@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import enum
+import pickle
 import queue
 import threading
 import time
@@ -937,8 +938,15 @@ class UDFRunner:
     UDFs fused when each can join the fused moments op, else generic;
     the host UDFs on the host engine, on the same blocks."""
 
-    def __init__(self, udfs: Sequence[UDF], backends=None):
+    def __init__(self, udfs: Sequence[UDF], backends=None,
+                 debug: bool = False, threads_per_worker: int = 1):
+        """``backends`` restricts the engines for this runner's runs;
+        ``debug`` round-trips the UDFs through pickle before each run
+        (``InlineJobExecutor(debug=True)``); ``threads_per_worker``,
+        the executor's, is the UDFs' ``meta.threads_per_worker``."""
         self._udfs = list(udfs)
+        self._debug = debug
+        self._threads_per_worker = max(1, int(threads_per_worker))
         self._backends = (
             None if backends is None
             else (backends,) if isinstance(backends, str)
@@ -952,6 +960,21 @@ class UDFRunner:
         # fused pass's compaction plan, used or not (else None); after
         # a parameter patch, what the run does from then on
         self.run_info: Optional[dict] = None
+
+    def _debug_check_picklable(self) -> None:
+        """Each UDF's class and arguments through a pickle round trip,
+        and the UDF rebuilt from them: an argument that cannot cross a
+        process boundary fails here, before the run."""
+        for udf in self._udfs:
+            try:
+                clone_kwargs = pickle.loads(pickle.dumps(udf._kwargs))
+                pickle.loads(pickle.dumps(type(udf)))
+                type(udf)(**clone_kwargs)
+            except Exception as e:
+                raise UDFException(
+                    f"{type(udf).__name__} is not pickle-safe "
+                    f"(debug=True check): {e}"
+                ) from e
 
     def update_parameters_experimental(self, patches: Sequence[dict]
                                        ) -> None:
@@ -1037,6 +1060,8 @@ class UDFRunner:
                  roi: Optional[np.ndarray] = None,
                  corrections: Optional[CorrectionSet] = None) -> dict:
         udfs = self._udfs
+        if self._debug:
+            self._debug_check_picklable()
         meta0 = dataset.meta
         nav_shape = tuple(meta0.shape.nav)
         if roi is not None:
@@ -1085,6 +1110,7 @@ class UDFRunner:
             roi=roi,
             device=device,
             corrections=meta_corrections,
+            threads_per_worker=self._threads_per_worker,
         )
         for udf in udfs:
             udf.meta = meta

@@ -1,13 +1,16 @@
-"""Rendering of result arrays (counterpart of the part of
-``libertem_tpu/viz/base.py`` that the analyses call): damage-aware
-normalisation into RGBA images with matplotlib, imported only when an
-image is rendered, and a 2-D vector field on an isoluminant colour
-wheel in pure numpy (built in CIE L*u*v*: constant lightness, hue the
-vector's angle, chroma its scaled magnitude).
+"""Rendering of result arrays and live plots (counterpart of
+``libertem_tpu/viz/base.py``): damage-aware normalisation into RGBA
+images with matplotlib, imported only when an image is rendered; a
+2-D vector field on an isoluminant colour wheel in pure numpy (built in
+CIE L*u*v*: constant lightness, hue the vector's angle, chroma its
+scaled magnitude); PNG encoding (PIL); and :class:`Live2DPlot`, the
+base of the plots that ``Context.run_udf(plots=...)`` updates.
 """
 from __future__ import annotations
 
+import io
 import math
+import time
 
 import numpy as np
 
@@ -198,3 +201,179 @@ def rgb_from_2dvector(y, x, vmax=None):
         chroma * np.sin(hue),
     )
     return (rgb * 255).astype(np.uint8)
+
+
+def encode_image(rgba: np.ndarray, save_kwargs=None) -> io.BytesIO:
+    """An RGBA array as a PNG in a BytesIO (PIL, imported here)."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(rgba).save(buf, format="PNG",
+                               **(save_kwargs or {}))
+    buf.seek(0)
+    return buf
+
+
+def get_plottable_2D_channels(buffers) -> list:
+    """The names of the buffers whose squeezed data is 2-D: the
+    channels a live plot can show."""
+    return [
+        k for k, buf in buffers.items()
+        if getattr(buf, "data", None) is not None
+        and len(np.asarray(buf.data).squeeze().shape) == 2
+    ]
+
+
+class Live2DPlot:
+    """A 2-D plot that fills in while a UDF run goes on.  The channel
+    is resolved and checked at construction against a dry run's
+    buffers (passed as ``udfresult``, or made here), so a wrong name or
+    a UDF without a 2-D channel fails before any data is read.
+
+    ``channel`` may be ``None`` (first plottable 2D channel), a buffer
+    name, a ``(name, fn)`` tuple, or a callable
+    ``(udf_results, damage) -> (ndarray, damage)``.
+    """
+
+    def __init__(
+        self, dataset, udf, roi=None, channel=None, title=None,
+        min_delta: float = 0.0, udfresult=None,
+    ):
+        if udfresult is None:
+            from ..udf.base import UDFRunner
+            udfresult = UDFRunner([udf]).dry_run(dataset, roi)
+        eligible = get_plottable_2D_channels(udfresult.buffers[0])
+        extract = None
+        if channel is None and not callable(channel):
+            if not eligible:
+                raise ValueError(
+                    f"No plottable 2D channel found for "
+                    f"{udf.__class__.__name__}"
+                )
+            channel = eligible[0]
+            channel_title = channel
+        if callable(channel):
+            extract = channel
+            channel_title = channel.__name__
+            channel = None
+        elif isinstance(channel, (tuple, list)):
+            channel, func = channel
+            if channel not in udfresult.buffers[0]:
+                raise ValueError(
+                    f"channel {channel} not found, have: "
+                    f"{list(udfresult.buffers[0].keys())}"
+                )
+            kind = udfresult.buffers[0][channel].kind
+            if kind == "nav":
+                def extract(udf_results, damage, channel=channel,
+                            func=func):
+                    return (func(udf_results[channel].data), damage)
+            else:
+                def extract(udf_results, damage, channel=channel,
+                            func=func):
+                    return (func(udf_results[channel].data), True)
+            channel_title = f"{func.__name__}({channel})"
+        else:
+            if channel not in eligible:
+                raise ValueError(
+                    f"channel {channel} not found or not plottable, "
+                    f"have: {eligible!r}"
+                )
+            channel_title = channel
+
+        self._extract = extract
+        self.channel = channel
+        if title is None:
+            title = f"{udf.__class__.__name__}: {channel_title}"
+        self.title = title
+        self.dataset = dataset
+        self.udf = udf
+        self.roi = roi
+        self.min_delta = min_delta
+        self.last_update = 0.0
+        self.data, _ = self.extract(
+            udfresult.buffers[0],
+            np.asarray(udfresult.damage.data)
+            if hasattr(udfresult.damage, "data")
+            else udfresult.damage,
+        )
+        self.damage = None
+
+    def get_udf(self):
+        """The plot's UDF: the run matches plots to its UDFs' results
+        by it."""
+        return self.udf
+
+    def extract(self, udf_results: dict, damage):
+        """Pull the channel out of a (partial) results dict.  For a
+        named channel, the plotted data is the buffer's masked view
+        and the damage is its validity mask; a callable channel
+        derives both itself."""
+        if self._extract is None:
+            buffer = udf_results[self.channel]
+            return (
+                buffer.masked_data.squeeze(),
+                np.asarray(buffer.valid_mask).squeeze(),
+            )
+        return self._extract(udf_results, damage)
+
+    def new_data(self, udf_results: dict, damage, force: bool = False):
+        """A (partial) result's buffers of the plot's UDF and the nav
+        damage, after each merged partition: unless the last update
+        was less than ``min_delta`` s ago (``force`` overrides), the
+        channel is extracted, its damage intersected with where it is
+        finite (over any trailing axes, e.g. RGB), and :meth:`update`
+        called with it."""
+        t0 = time.time()
+        if (not force) and t0 - self.last_update < self.min_delta:
+            return  # don't update if we recently updated
+        (self.data, damage) = self.extract(udf_results, damage)
+        finite = np.isfinite(self.data)
+        if hasattr(damage, "shape"):
+            start_axis = len(damage.shape)
+            stop_axis = len(np.asarray(self.data).shape)
+            if stop_axis > start_axis:
+                # reduce surplus axes (RGB channels etc.)
+                finite = np.all(
+                    finite, axis=tuple(range(start_axis, stop_axis))
+                )
+        damage = damage & finite
+        self.damage = damage
+        self.update(damage, force=force)
+        self.last_update = time.time()
+
+    def update(self, damage, force=False):
+        """Render ``self.data``; implemented by subclasses."""
+        raise NotImplementedError()
+
+    def display(self):
+        """Show the plot (e.g. in the current notebook cell)."""
+        raise NotImplementedError()
+
+
+class Dummy2DPlot(Live2DPlot):
+    """A plot that draws nothing: for tests and headless runs."""
+
+    def update(self, damage, force=False):
+        pass
+
+    def display(self):
+        pass
+
+
+def make_colormap():
+    """A cyclic matplotlib colormap of :func:`rgb_from_2dvector`'s hue
+    wheel, for colorbars beside vector-field images."""
+    from matplotlib import colors
+    angles_rad = np.arange(360) / 180 * np.pi
+    yy, xx = -np.sin(angles_rad), -np.cos(angles_rad)
+    cols = rgb_from_2dvector(y=yy, x=xx) / 255
+    return colors.LinearSegmentedColormap.from_list(
+        "libertem_cyclic", cols
+    )
+
+
+def __getattr__(name):
+    # building the colormap imports matplotlib: only when asked for
+    if name == "libertem_cyclic":
+        return make_colormap()
+    raise AttributeError(name)

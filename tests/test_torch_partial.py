@@ -374,8 +374,28 @@ def test_patch_count_and_unported_options_raise():
         with pytest.raises(ValueError, match="one entry per UDF"):
             g.update_parameters_experimental([{}])
         g.close()
-    for kw in ({"plots": True}, {"sync": False}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ctx.run_udf(ds, port.SumUDF(), **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ctx.run_udf_iter(ds, port.SumUDF(), **kw)
+    # plots= and sync=False are ported now: both give the JAX
+    # package's results
+    import asyncio
+
+    from libertem_tpu.viz.base import Dummy2DPlot as JaxDummy
+
+    from libertem_tpu_torch.viz.base import Dummy2DPlot
+    ctx.plot_class = Dummy2DPlot
+    jctx = _jctx()
+    jctx.plot_class = JaxDummy
+    res = ctx.run_udf(ds, port.SumUDF(), plots=True)
+    jres = jctx.run_udf(jds, libertem_tpu.udf.SumUDF(), plots=True)
+    _close(res["intensity"].data, jres["intensity"].data, "plots=True")
+    res = asyncio.run(ctx.run_udf(ds, port.SumUDF(), sync=False))
+    _close(res["intensity"].data, jres["intensity"].data, "sync=False")
+
+    async def last(c, d, udf):
+        out = None
+        async for out in c.run_udf_iter(d, udf, sync=False, plots=True):
+            pass
+        return out.buffers[0]["intensity"].data
+
+    _close(asyncio.run(last(ctx, ds, port.SumUDF())),
+           asyncio.run(last(jctx, jds, libertem_tpu.udf.SumUDF())),
+           "async iterator with plots")

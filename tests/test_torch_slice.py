@@ -295,13 +295,24 @@ def test_import_leaves_jax_out():
         "          'io.dataset.seq', 'io.dataset.tvips', 'io.dataset.blo',\n"
         "          'io.dataset.empad', 'io.dataset.npy', 'io.dataset.mrc',\n"
         "          'io.dataset.ser', 'io.dataset.hdf5', 'io.dataset.raw_csr',\n"
-        "          'io.dataset.dask', 'io.dataset.live', 'warnings'}\n"
+        "          'io.dataset.dask', 'io.dataset.live', 'warnings',\n"
+        "          'executor', 'executor.base', 'executor.inline',\n"
+        "          'executor.sharded', 'executor.delayed', 'executor.compat',\n"
+        "          'executor.async_adapter', 'executor.cli',\n"
+        "          'executor.utils.delayed_unpack', 'common.subscriptions',\n"
+        "          'common.tracing', 'common.threading', 'common.async_utils',\n"
+        "          'common.snooze', 'common.scheduler', 'utils.devices',\n"
+        "          'io.writers', 'contrib', 'contrib.convert_transposed',\n"
+        "          'viz', 'viz.mpl', 'viz.gms', 'viz.bqp'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
         "assert 'defusedxml' not in sys.modules\n"
-        "# h5py is imported when an HDF5 file is opened, not before\n"
+        "# h5py is imported when an HDF5 file is opened, not before;\n"
+        "# matplotlib and PIL when a plot or an image is made\n"
         "assert 'h5py' not in sys.modules\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "assert 'PIL' not in sys.modules\n"
         "# nothing is built at import\n"
         "assert sys.modules['libertem_tpu_torch.ops.decode']._lib is None\n"
     )
