@@ -137,11 +137,33 @@ from the root of the repository.  Phases, each fatal on failure:
     ``convert_transposed_to_npy`` of a 256 MiB (sig, nav)-ordered cut;
     (f) snooze: an idle check releases the caching allocator's blocks,
     the next run wakes it; (g) the four example scripts with
-    ``libertem_tpu`` replaced by ``libertem_tpu_torch``.
+    ``libertem_tpu`` replaced by ``libertem_tpu_torch``;
+15. the multi-device loop on card 0, on phase 2's scan with phase 4's
+    UDFs against its float64 answers, each pass with the launch count
+    set to 0 just before and read just after, printing its wall time,
+    GB/s, each worker's reader share and its launches: (a) one device,
+    ``ShardedJobExecutor(devices=[cuda:0, cuda:0])`` and
+    ``make_with("sharded", tpus=[0, 0, 0, 0])``, twice in turns, 64
+    launches each, the two- and four-worker passes traced once more,
+    and one more pass printing ``last_sharded_stats``;
+    (b) 6a's corrections (M = 12) over a roi of every third frame on 2
+    workers; (c) ``run_udf_iter`` on 2 workers with phase 8's patch
+    after the second partial (one partial a super-step), then an
+    iterator abandoned after two partials (its readers must end within
+    1 s); (d) 7b's numpy UDF beside the fused pass on 2 workers; (e)
+    13b's live ring on 2 workers (block-cyclic shards), whole and with
+    an early ``finish()``; (f) one pass over every card, where there
+    are several.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card the script exits non-zero and prints no result.
+
+Two other entry points: ``python3 chip_smoke.py --every-card`` drives
+the multi-device loop over every card of a host with several
+(:func:`every_card_main`), and ``python3 chip_smoke.py --time-paths DIR
+SCAN`` times the end-to-end passes of the checkout at DIR, for
+comparing two checkouts in turns on one card (:func:`time_paths_main`).
 """
 from __future__ import annotations
 
@@ -3480,6 +3502,288 @@ def slice12_phase(lt, path, data, want4, n_blocks, tmp, at,
     return launches
 
 
+# -- phase 15: the multi-device loop, several workers on the card ------------
+
+
+def shard_steps(n: int, n_dev: int, depth: int) -> list:
+    """Per worker of a contiguous split of ``n`` frames, its super-steps'
+    ``(first, end)`` frame ranges (the multi-device loop's split)."""
+    bounds = np.linspace(0, n, n_dev + 1).astype(np.int64)
+    return [[(int(lo), int(min(lo + depth, b1)))
+             for lo in range(int(b0), int(b1), depth)]
+            for b0, b1 in zip(bounds[:-1], bounds[1:])]
+
+
+def shard_readers_alive() -> list:
+    return [t for t in threading.enumerate() if t.is_alive() and (
+        t.name == "HostFeed-reader" or t.name.startswith("shard-reader"))]
+
+
+def check_roi(label, res, want, failures) -> None:
+    """Phase 15(b)'s results over the roi's frames (nav rows
+    roi-compressed) against the float64 answers of those frames; the
+    centres of mass of corrected frames take their own magnitude as
+    the floor."""
+    for (ui, name), ref in want.items():
+        if name in FROM_COM:
+            continue
+        buf = res[ui][name]
+        got = buf.raw_data if buf.kind == "nav" else buf.data
+        got = np.asarray(got).reshape(np.asarray(ref).shape)
+        scale = (float(np.abs(want[(1, "raw_com")]).max())
+                 if name == "raw_com" else None)
+        e, ok = max_err(got, ref, scale)
+        print(f"  {label} result {ui}/{name}: max abs err {e:.3g} vs "
+              f"float64")
+        if not ok:
+            failures.append(f"{label} result {ui}/{name}: max err {e}")
+
+
+def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
+                  failures) -> dict:
+    """Phase 15: the multi-device loop with two and four workers on
+    card 0 (one card suffices: each worker has its own shard, reader,
+    pinned slots, copy stream and state), on phase 2's scan with phase
+    4's UDFs against ``want4``; each pass with the launch count set to 0
+    just before and read just after, printing its wall time, GB/s,
+    each worker's reader share and its launches.  Returns the launch
+    count of each pass."""
+    import torch
+
+    from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+    from libertem_tpu_torch.io.dataset.live import LiveDataSet
+    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.udf.base import UDFRunner
+
+    launches, rows = {}, []
+    n = int(np.prod(NAV))
+    nbytes = data.nbytes
+    card0 = torch.device("cuda", 0)
+    h, w = SIG
+
+    def load(ctx):
+        return ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                        sig_shape=SIG)
+
+    def sharded(n_dev):
+        return lt.Context(executor=ShardedJobExecutor(
+            devices=[card0] * n_dev))
+
+    def counted(fn):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fused_moments.launches
+
+    def row(label, ctx, secs, count, want_launches, size=nbytes):
+        st = ctx.feed_stats
+        workers = st.get("workers", [st])
+        shares = [wk["read_s"] / secs for wk in workers]
+        launches[f"{label} (phase 15)"] = count
+        rows.append(dict(path=label, wall_s=secs, gbps=size / secs / 1e9,
+                         workers=len(workers), reader_shares=shares,
+                         consumer_wait_share=st["wait_s"] / secs,
+                         blocks=[wk["blocks"] for wk in workers],
+                         launches=count))
+        print(f"{label}: {secs:.3f} s wall, {size / secs / 1e9:.2f} GB/s; "
+              f"readers {', '.join(f'{s:.1%}' for s in shares)} of the "
+              f"wall, consumer waited {st['wait_s'] / secs:.1%}; blocks "
+              f"{[wk['blocks'] for wk in workers]}; fused_moments "
+              f"launches {count} {at}")
+        if count != want_launches:
+            failures.append(f"{label}: {count} launches, expected "
+                            f"{want_launches}")
+
+    def expected(n_frames, n_dev, groups=1, d=depth):
+        return groups * sum(len(s) for s in shard_steps(n_frames, n_dev, d))
+
+    # -- (a) one card, one, two and four workers, twice in turns ----------
+    passes = (
+        ("15a single device", lambda: lt.Context()),
+        ("15a 2 workers on cuda:0, ShardedJobExecutor", lambda: sharded(2)),
+        ("15a 4 workers, make_with('sharded', tpus=[0, 0, 0, 0])",
+         lambda: lt.Context.make_with("sharded", tpus=[0, 0, 0, 0])),
+    )
+    for label, make in passes + passes[::-1]:
+        ctx = make()
+        ds = load(ctx)
+        n_dev = len(ctx.executor.devices)
+        res, secs, count = counted(lambda: ctx.run_udf(ds, make_udfs(lt)))
+        row(label, ctx, secs, count, expected(n, n_dev))
+        if count != n_blocks:
+            failures.append(f"{label}: {count} launches, not {n_blocks}")
+        check_results(label, res, want4, failures)
+        ctx.close()
+    for n_dev in (2, 4):
+        print(f"15a {n_dev} workers traced:")
+        ctx = sharded(n_dev)
+        traced_run(ctx, load(ctx), make_udfs(lt), at)
+        ctx.close()
+    ctx2 = sharded(2)
+    ds2 = load(ctx2)
+    os.environ["LIBERTEM_TPU_SHARDED_STATS"] = "1"
+    try:
+        runner = UDFRunner(make_udfs(lt))
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        runner.run_for_dataset(ds2, devices=[card0] * 2)
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["LIBERTEM_TPU_SHARDED_STATS"]
+    print(f"15a 2 workers with LIBERTEM_TPU_SHARDED_STATS (each stage "
+          f"synchronised): {secs:.3f} s, {fused_moments.launches} "
+          f"launches; last_sharded_stats "
+          f"{json.dumps(runner.last_sharded_stats)} {at}")
+
+    # -- (b) corrections and a sparse roi on 2 workers ---------------------
+    corrections = make_corrections(lt)
+    roi = np.zeros(n, dtype=bool)
+    roi[::3] = True
+    ids = np.flatnonzero(roi)
+    n_ring = len(ring_stack(lt)) + 4
+    res, secs, count = counted(lambda: ctx2.run_udf(
+        ds2, make_ring_udfs(lt), roi=roi.reshape(NAV),
+        corrections=corrections))
+    row("15b 2 workers, corrections, M=12, roi of every third frame", ctx2,
+        secs, count, expected(len(ids), 2, -(-n_ring // MASK_GROUP)),
+        size=len(ids) * h * w * 2)
+    flat = data.reshape(n, -1)
+    t0 = time.perf_counter()
+    want = oracle_at(lambda lo, hi: flat[ids[lo:hi]], len(ids), SIG,
+                     (len(ids) // 2, 2), ring_stack(lt), (64, 64), 32,
+                     corrections.make_plan(SIG))
+    print(f"  oracle 15b: {time.perf_counter() - t0:.1f} s (float64 numpy)")
+    check_roi("15b", res, want, failures)
+
+    # -- (c) run_udf_iter on 2 workers, phase 8's patch, then abandoned ----
+    new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
+                          lt.masks.ring(64, 64, w, h, 30, 10)])
+    damages = []
+
+    def iterate():
+        gen = ctx2.run_udf_iter(ds2, make_udfs(lt))
+        last = None
+        for i, last in enumerate(gen):
+            damages.append(int(np.count_nonzero(last.damage.data)))
+            if i == 1:
+                gen.update_parameters_experimental([
+                    {"mask_factories": [lambda m=m: m for m in new_masks]},
+                    {}, {}, {}, {}])
+        return last
+
+    final, secs, count = counted(iterate)
+    row("15c 2 workers, run_udf_iter, patch after the second partial",
+        ctx2, secs, count, expected(n, 2))
+    steps = shard_steps(n, 2, depth)
+    print(f"  15c {len(damages)} partials (a super-step each, then the "
+          f"final), merged frames {damages[:3]} ... {damages[-2:]}")
+    if (len(damages) != max(len(s) for s in steps) + 1
+            or any(b < a for a, b in zip(damages, damages[1:]))
+            or damages[-1] != n):
+        failures.append(f"15c: partials' damage {damages}")
+    old = np.zeros(n, dtype=bool)
+    for s in steps:
+        for lo, hi in s[:2]:
+            old[lo:hi] = True
+    t0 = time.perf_counter()
+    patched = want4[(0, "intensity")].reshape(n, 2).copy()
+    patched[~old] = projections64(data, new_masks.reshape(2, -1),
+                                  np.flatnonzero(~old))
+    print(f"  oracle 15c: {time.perf_counter() - t0:.1f} s (float64 numpy)")
+    check_results("15c final", [final.buffers[ui] for ui in range(5)], {
+        (0, "intensity"): patched.reshape(NAV + (2,)),
+        **{k: v for k, v in want4.items() if k[0] != 0},
+    }, failures)
+    gen = ctx2.run_udf_iter(ds2, make_udfs(lt))
+    next(gen)
+    next(gen)
+    t0 = time.perf_counter()
+    gen.close()
+    while shard_readers_alive() and time.perf_counter() - t0 < 1.0:
+        time.sleep(0.01)
+    ended = time.perf_counter() - t0
+    print(f"  15c iterator abandoned after two partials: reader threads "
+          f"alive {len(shard_readers_alive())} after {ended:.3f} s")
+    if shard_readers_alive():
+        failures.append("15c: reader threads alive 1 s after close()")
+
+    # -- (d) a numpy UDF beside the fused pass on 2 workers ----------------
+    res, secs, count = counted(lambda: ctx2.run_udf(ds2, mixed_udfs(lt)))
+    row("15d 2 workers, fused + host engine", ctx2, secs, count,
+        expected(n, 2))
+    check_engines("15d", ctx2, [False, False, False, True], failures)
+    print(f"  15d host engine {ctx2.feed_stats['host_s']:.3f} s of the "
+          f"wall")
+    check_results("15d", res, {
+        (0, "intensity"): want4[(2, "intensity")],
+        **{(1, k): want4[(4, k)]
+           for k in ("num_frames", "sum", "mean", "var", "std")},
+        (2, "intensity"): want4[(0, "intensity")][..., :1],
+    }, failures)
+    if not (np.array_equal(res[3]["frame_max"].data,
+                           data.max(axis=(2, 3)).astype(np.float32))
+            and np.array_equal(res[3]["pixel_max"].data,
+                               data.max(axis=(0, 1)).astype(np.float32))):
+        failures.append("15d numpy UDF maxima are not exact")
+    else:
+        print("  15d result 3/frame_max, 3/pixel_max: exact")
+
+    # -- (e) the live ring on 2 workers, block-cyclic ----------------------
+    raw = np.memmap(path, dtype=np.uint16, mode="r", shape=(n,) + SIG)
+
+    def live_run(upto):
+        live = LiveDataSet(nav_shape=NAV, sig_shape=SIG, dtype=np.uint16,
+                           ring_capacity=LIVE_RING,
+                           num_partitions=4).initialize()
+
+        def push():
+            for lo in range(0, upto, 1024):
+                live.push_frames(raw[lo:min(lo + 1024, upto)])
+            live.finish()
+
+        t = threading.Thread(target=push, daemon=True)
+        t.start()
+        out = counted(lambda: ctx2.run_udf(live, make_udfs(lt)))
+        t.join(60)
+        if t.is_alive():
+            failures.append("15e: the producer is stuck")
+        return out
+
+    for label, upto in (("15e live, 2 workers, block-cyclic", n),
+                        (f"15e live, 2 workers, finish() after {LIVE_EARLY} "
+                         "frames", LIVE_EARLY)):
+        res, secs, count = live_run(upto)
+        blocks = sum(wk["blocks"] for wk in ctx2.feed_stats["workers"])
+        row(label, ctx2, secs, count, blocks)
+        print(f"  block depth {n // max(blocks, 1)} with a ring of "
+              f"{LIVE_RING} frames")
+        if upto == n:
+            check_results(label, res, want4, failures)
+            continue
+        valid = res[3]["intensity"].valid_mask.reshape(-1)
+        if not (valid[:upto].all() and not valid[upto:].any()):
+            failures.append("15e early finish: damage is not the frames "
+                            "pushed")
+        check_results(label, res, truncated_oracle(want4, data, upto),
+                      failures)
+
+    # -- (f) every card ----------------------------------------------------
+    if torch.cuda.device_count() > 1:
+        ctx = lt.Context(executor=ShardedJobExecutor())
+        ds = load(ctx)
+        n_dev = len(ctx.executor.devices)
+        res, secs, count = counted(lambda: ctx.run_udf(ds, make_udfs(lt)))
+        row(f"15f every card ({n_dev})", ctx, secs, count,
+            expected(n, n_dev))
+        check_results("15f", res, want4, failures)
+    else:
+        print("15f was not run: this machine has one CUDA device")
+    ctx2.close()
+    print("phase 15 summary: " + json.dumps(rows))
+    return launches
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -4033,7 +4337,13 @@ def main() -> int:
                             failures)
         print(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-14: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 15. the multi-device loop, several workers on the card ---------
+        t0 = time.perf_counter()
+        p15 = slice13_phase(lt, path, data, want4, depth, n_blocks, at,
+                            failures)
+        print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-15: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -4078,6 +4388,7 @@ def main() -> int:
             **p12,
             **p13,
             **p14,
+            **p15,
         },
         cases=cases,
     ), dict(
@@ -4101,5 +4412,275 @@ def main() -> int:
     return 0
 
 
+# -- other entry points: every card, and two checkouts end to end ----------
+
+
+def time_paths_main(tree: str, scan: str) -> int:
+    """``python3 chip_smoke.py --time-paths DIR SCAN``: imports
+    ``libertem_tpu_torch`` from the checkout at DIR and prints one JSON
+    line of wall seconds, each pass three times: the main path (the raw
+    u16 scan at SCAN through ``Context().run_udf`` with phase 4's five
+    UDFs), the same scan pushed by a producer thread into a live ring
+    of 2048 frames (phase 13b), and two and four workers on card 0
+    (phase 15a; ``null`` where the checkout has no multi-device loop).
+    SCAN is written first when it is missing (:func:`write_dataset`).
+    To compare two checkouts, run it for each in turns on one card (A,
+    B, B, A)."""
+    label, tree = tree, os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+    from libertem_tpu_torch.io.dataset.live import LiveDataSet
+
+    if not lt.__file__.startswith(tree):
+        raise RuntimeError(f"imported {lt.__file__}, not from {tree}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA card")
+    if not os.path.exists(scan):
+        write_dataset(scan)
+    n = int(np.prod(NAV))
+    raw = np.memmap(scan, dtype=np.uint16, mode="r", shape=(n,) + SIG)
+
+    def load(ctx):
+        return ctx.load("raw", path=scan, dtype="uint16", nav_shape=NAV,
+                        sig_shape=SIG)
+
+    def timed(ctx, ds):
+        t0 = time.perf_counter()
+        ctx.run_udf(ds, make_udfs(lt))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def live(ctx):
+        ds = LiveDataSet(nav_shape=NAV, sig_shape=SIG,
+                         dtype=np.uint16, ring_capacity=2048,
+                         num_partitions=4).initialize()
+
+        def push():
+            for lo in range(0, n, 1024):
+                ds.push_frames(raw[lo:lo + 1024])
+            ds.finish()
+
+        t = threading.Thread(target=push, daemon=True)
+        t.start()
+        secs = timed(ctx, ds)
+        t.join(60)
+        return secs
+
+    card = torch.device("cuda", 0)
+    ctx = lt.Context()
+    ds = load(ctx)
+    timed(ctx, ds)  # builds the kernel, warms the page cache
+    res = {"tree": label,
+           "main": [timed(ctx, ds) for _ in range(3)],
+           "live": [live(ctx) for _ in range(3)]}
+    for n_dev in (2, 4):
+        wctx = lt.Context(executor=ShardedJobExecutor(
+            devices=[card] * n_dev))
+        wds = load(wctx)
+        try:
+            res[f"{n_dev} workers"] = [timed(wctx, wds) for _ in range(3)]
+        except NotImplementedError:
+            res[f"{n_dev} workers"] = None
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def every_card_main() -> int:
+    """``python3 chip_smoke.py --every-card``: the multi-device loop over
+    every CUDA card of a host with two or more (it exits non-zero on
+    one), in one process, on phase 2's 2 GiB scan, each pass with the
+    launch count set to 0 just before and read just after, printing its
+    wall time, GB/s, each worker's reader share and its launches:
+
+    1. the main path (phase 4's five UDFs), one worker a card (the
+       first pass carries each card's CUDA start-up), two workers a
+       card, and one worker a card again, against phase 4's float64
+       answers, 64 launches each;
+    2. phase 6a's corrections (M = 12) over a roi of every third frame,
+       against the float64 answers of those frames;
+    3. the generic path over a roi of half the scan (phase 6b's
+       Logsum, FEM and Sum) and phase 7c's aux shifts, complex masks,
+       hooks and compacted spots, against their float64 (complex128)
+       answers: every card reads its own copy of the aux rows and mask
+       stacks;
+    4. phase 7b's numpy UDF beside the fused pass, its maxima exact;
+    5. ``run_udf_iter`` with phase 8's patch after the second partial,
+       against the patched float64 answers.
+
+    Every worker's sig and single state crosses to card 0 for the
+    fold, and its nav rows to the host.  The last lines are the passes'
+    JSON summary, the first card's name and power limit, and ``{"ok":
+    true, "device": {...}}``."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --every-card: needs two or more CUDA cards",
+              file=sys.stderr)
+        return 1
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+    from libertem_tpu_torch.ops import build
+    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    card = card_line()
+    at = f"[{len(cards)} x {card}]"
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout)
+    t0 = time.perf_counter()
+    build.build(["fused_moments"])
+    print(f"build: {time.perf_counter() - t0:.1f} s; {len(cards)} cards")
+    failures, rows = [], []
+    h, w = SIG
+    n = int(np.prod(NAV))
+
+    def counted(fn):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        return out, time.perf_counter() - t0, fused_moments.launches
+
+    def row(label, ctx, secs, count, want_launches, size):
+        st = ctx.feed_stats
+        shares = [wk["read_s"] / secs for wk in st["workers"]]
+        rows.append(dict(path=label, wall_s=secs, gbps=size / secs / 1e9,
+                         workers=len(shares), reader_shares=shares,
+                         consumer_wait_share=st["wait_s"] / secs,
+                         launches=count))
+        print(f"{label}: {secs:.3f} s wall, {size / secs / 1e9:.2f} GB/s; "
+              f"readers {', '.join(f'{s:.0%}' for s in shares)} of the "
+              f"wall; fused_moments launches {count} {at}")
+        if want_launches is not None and count != want_launches:
+            failures.append(f"{label}: {count} launches, expected "
+                            f"{want_launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scan.raw")
+        data = write_dataset(path)
+        bf_adf = np.stack([lt.masks.circular(64, 64, w, h, 16),
+                           lt.masks.ring(64, 64, w, h, 60, 40)])
+        want4 = oracle(data, bf_adf, nav=NAV)
+        ctx = lt.Context(executor=ShardedJobExecutor(devices=cards))
+        ds = ctx.load("raw", path=path, dtype="uint16", nav_shape=NAV,
+                      sig_shape=SIG)
+        print(f"devices {[str(d) for d in ctx.executor.devices]}, "
+              f"{ds.get_num_partitions()} partitions")
+
+        # -- 1. the main path, one and two workers a card -----------------
+        two = lt.Context(executor=ShardedJobExecutor(
+            devices=[d for d in cards for _ in (0, 1)]))
+        for label, c in (
+                ("1 main path, a worker a card (with each card's start-up)",
+                 ctx),
+                ("1 main path, two workers a card", two),
+                ("1 main path, a worker a card", ctx)):
+            res, secs, count = counted(lambda: c.run_udf(ds, make_udfs(lt)))
+            row(label, c, secs, count, n // 1024, data.nbytes)
+            check_results(label, res, want4, failures)
+        traced_run(ctx, ds, make_udfs(lt), at)
+
+        # -- 2. corrections over a roi of every third frame ----------------
+        corrections = make_corrections(lt)
+        roi = np.zeros(n, dtype=bool)
+        roi[::3] = True
+        ids = np.flatnonzero(roi)
+        res, secs, count = counted(lambda: ctx.run_udf(
+            ds, make_ring_udfs(lt), roi=roi.reshape(NAV),
+            corrections=corrections))
+        groups = -(-(len(ring_stack(lt)) + 4) // MASK_GROUP)
+        row("2 corrections, M=12, every third frame", ctx, secs, count,
+            groups * sum(len(s) for s in shard_steps(
+                len(ids), len(cards), 1024)), len(ids) * h * w * 2)
+        flat = data.reshape(n, -1)
+        check_roi("2", res, oracle_at(
+            lambda lo, hi: flat[ids[lo:hi]], len(ids), SIG,
+            (len(ids) // 2, 2), ring_stack(lt), (64, 64), 32,
+            corrections.make_plan(SIG)), failures)
+
+        # -- 3. the generic path over half the scan ---------------------------
+        half = np.zeros(NAV, dtype=bool)
+        half[:, :NAV[1] // 2] = True
+        for label, udfs, want in (
+                ("3 generic: Logsum, FEM, Sum", generic_udfs,
+                 lambda: oracle_generic(data, half)),
+                ("3 generic: aux shifts, complex masks, hooks, spots",
+                 generic_aux_udfs,
+                 lambda: oracle_generic_aux(lt, data, half))):
+            res, secs, count = counted(lambda: ctx.run_udf(
+                ds, udfs(lt), roi=half))
+            row(label, ctx, secs, count, 0, data.nbytes // 2)
+            check_results(label, res, want(), failures)
+
+        # -- 4. a numpy UDF beside the fused pass -----------------------------
+        res, secs, count = counted(lambda: ctx.run_udf(ds, mixed_udfs(lt)))
+        row("4 fused + host engine", ctx, secs, count, n // 1024,
+            data.nbytes)
+        check_results("4", res, {
+            (0, "intensity"): want4[(2, "intensity")],
+            (2, "intensity"): want4[(0, "intensity")][..., :1],
+        }, failures)
+        if not (np.array_equal(res[3]["frame_max"].data,
+                               data.max(axis=(2, 3)).astype(np.float32))
+                and np.array_equal(res[3]["pixel_max"].data,
+                                   data.max(axis=(0, 1)).astype(np.float32))):
+            failures.append("4: the numpy UDF's maxima are not exact")
+
+        # -- 5. run_udf_iter with a patch after the second partial --------
+        new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
+                              lt.masks.ring(64, 64, w, h, 30, 10)])
+
+        def iterate():
+            gen = ctx.run_udf_iter(ds, make_udfs(lt))
+            last = None
+            for i, last in enumerate(gen):
+                if i == 1:
+                    gen.update_parameters_experimental([
+                        {"mask_factories": [lambda m=m: m
+                                            for m in new_masks]},
+                        {}, {}, {}, {}])
+            return last
+
+        final, secs, count = counted(iterate)
+        row("5 run_udf_iter, patch after the second partial", ctx, secs,
+            count, n // 1024, data.nbytes)
+        old = np.zeros(n, dtype=bool)
+        for steps in shard_steps(n, len(cards), 1024):
+            for lo, hi in steps[:2]:
+                old[lo:hi] = True
+        patched = want4[(0, "intensity")].reshape(n, 2).copy()
+        patched[~old] = projections64(data, new_masks.reshape(2, -1),
+                                         np.flatnonzero(~old))
+        check_results("5", [final.buffers[ui] for ui in range(5)], {
+            (0, "intensity"): patched.reshape(NAV + (2,)),
+            **{k: v for k, v in want4.items() if k[0] != 0},
+        }, failures)
+
+    print("every card summary: " + json.dumps(rows))
+    if failures:
+        for f in failures:
+            print("FAIL:", f, file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--every-card"]:
+        sys.exit(every_card_main())
+    if sys.argv[1:2] == ["--time-paths"] and len(sys.argv) == 4:
+        sys.exit(time_paths_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

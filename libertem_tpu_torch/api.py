@@ -22,13 +22,6 @@ from .udf.base import UDF, UDFResults, UDFRunner
 # max(MIN_PARTITIONS, 2 x its executor's workers), as the JAX package
 MIN_PARTITIONS = 4
 
-# what a run on more than one device waits for
-MULTI_DEVICE_TODO = (
-    "runs over more than one device are not ported yet (ROADMAP queue "
-    "1, the multi-device loop: _run_loop_sharded, _make_sharded_fold, "
-    "_collapse_sharded); use make_with('inline') or one device"
-)
-
 
 class SingleUDFResults(dict):
     """One UDF's result buffers by name, with attribute access and the
@@ -389,7 +382,7 @@ class Context:
             if plots:
                 gen = runner.run_for_dataset_iter(
                     dataset, device, roi=roi, corrections=corrections,
-                    progress=progress)
+                    progress=progress, devices=self._run_devices())
                 try:
                     results = None
                     for results in gen:
@@ -401,7 +394,7 @@ class Context:
             else:
                 results = runner.run_for_dataset(
                     dataset, device, roi=roi, corrections=corrections,
-                    progress=progress)
+                    progress=progress, devices=self._run_devices())
         finally:
             self.feed_stats = runner.feed_stats
             self.run_info = runner.run_info
@@ -443,7 +436,7 @@ class Context:
         self._emit_run_event("run_udf:start", udfs, dataset)
         gen = runner.run_for_dataset_iter(
             dataset, device, roi=roi, corrections=corrections,
-            progress=progress,
+            progress=progress, devices=self._run_devices(),
         )
         return ResultGenerator(gen, runner, self, plots=plots, udfs=udfs)
 
@@ -482,17 +475,15 @@ class Context:
         )
 
     def _run_devices(self):
-        """The executor's devices when there are several, else None
-        (the single-device loop)."""
+        """The executor's devices when there are several (the
+        multi-device loop, a worker each), else None (the single-device
+        loop)."""
         devs = self.executor.devices
         return devs if len(devs) > 1 else None
 
     def _run_device(self) -> torch.device:
-        """The device of a run: the executor's one device.  Several
-        would need the multi-device loop, which is not ported: raise
-        rather than run on one of them."""
-        if self._run_devices() is not None:
-            raise NotImplementedError(MULTI_DEVICE_TODO)
+        """The device of a run: the executor's main device (the first
+        worker's, with several)."""
         return self.executor.main_device
 
     def _emit_run_event(self, topic, udfs, dataset=None):

@@ -107,7 +107,7 @@ class DelayedResults(dict):
 def make_delayed_results(context, dataset, udfs, single, roi, corrections,
                          progress=False, backends=None):
     """Lazy results of a run of ``udfs`` through ``context``: the pass
-    runs once, on the context's device, at the first access to
+    runs once, on the context's devices, at the first access to
     data."""
     decls = [dict(b) for b in
              context._runner(udfs, backends).dry_run(dataset, roi).buffers]
@@ -121,7 +121,8 @@ def make_delayed_results(context, dataset, udfs, single, roi, corrections,
                 try:
                     state["results"] = runner.run_for_dataset(
                         dataset, context._run_device(), roi=roi,
-                        corrections=corrections, progress=progress)
+                        corrections=corrections, progress=progress,
+                        devices=context._run_devices())
                 finally:
                     context.feed_stats = runner.feed_stats
                     context.run_info = runner.run_info

@@ -2,10 +2,12 @@
 ``libertem_tpu/executor/sharded.py``).
 
 With one device a run takes the single-device loop, with the same
-results and launches as :class:`InlineJobExecutor`.  The multi-device
-loop (the JAX package's ``_run_loop_sharded``) is not ported yet: a
-run on more than one device raises NotImplementedError rather than
-using one of them.
+results and launches as :class:`InlineJobExecutor`.  With several, a
+run takes the multi-device loop (``UDFRunner._run_loop_sharded``): one
+worker per entry of ``devices``, each with its own shard of the nav
+axis, reader, pinned slots and copy stream, in this process.  A device
+given twice is two workers on it (``devices=["cuda:0", "cuda:0"]``,
+or ``Context.make_with("sharded", tpus=[0, 0])``).
 """
 from __future__ import annotations
 

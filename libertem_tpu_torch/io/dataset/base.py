@@ -222,6 +222,19 @@ def densify_into(dense, vals, rows, cols) -> None:
     dense.index_put_((rows.long(), cols.long()), vals, accumulate=True)
 
 
+def read_ids_across(partitions, ids: np.ndarray, out: np.ndarray) -> None:
+    """Dataset frames ``ids`` (sorted; they may span partitions) into
+    ``out`` (a block of ``len(ids)`` or more frames), zeros in the rows
+    past them: each partition's share with its
+    :meth:`Partition.read_ids_into`."""
+    for p in partitions:
+        a = int(np.searchsorted(ids, p.start_frame))
+        b = int(np.searchsorted(ids, p.start_frame + p.num_frames))
+        if b > a:
+            p.read_ids_into(ids[a:b], out[a:b])
+    out[len(ids):] = 0
+
+
 class ReadCancelled(Exception):
     """The host feed stopped while a read waited for data (a live
     acquisition's ring) or for a staging slot."""
@@ -340,15 +353,27 @@ class Partition:
                                   out[a:b])
         return out
 
+    def read_ids_into(self, ids: np.ndarray, out: np.ndarray) -> None:
+        """Dataset frames ``ids`` (sorted, in this partition) into
+        ``out[:len(ids)]``, under the sync offset: one read per run of
+        consecutive ids, straight into ``out``.  For ids that cover
+        less than half their span (a sparse roi) this is the JAX
+        package's rule; where they cover more, the JAX package reads
+        the covering span and takes the ids from it, which on an H100
+        machine's host made ``chip_smoke.py``'s 7c (a roi of half the
+        scan) 4.4 times slower than these runs: a fresh array and a
+        gather a block, where the runs land in the pinned slot."""
+        for a, b in _runs(ids):
+            self.read_frames_into(int(ids[a]), int(ids[b - 1]) + 1,
+                                  out[a:b])
+
     def _read_selected_with_offset(self, ids: np.ndarray) -> np.ndarray:
         """Dataset frames ``ids`` (sorted) as ``(len(ids), *sig)``,
         under the sync offset, one read per run of consecutive ids."""
         ids = np.asarray(ids, dtype=np.int64)
         out = np.empty((len(ids),) + tuple(self.meta.shape.sig),
                        self.meta.native_dtype)
-        for a, b in _runs(ids):
-            self.read_frames_into(int(ids[a]), int(ids[b - 1]) + 1,
-                                  out[a:b])
+        self.read_ids_into(ids, out)
         return out
 
     def local_frame_ids(self, roi: Optional[np.ndarray]) -> np.ndarray:
@@ -400,9 +425,11 @@ class Partition:
         """Stream this partition's (roi-selected) frames as
         zero-padded fixed-depth blocks.
 
-        A roi is read run by run: each stretch of consecutive selected
-        frames is one read straight into the block, so no frame
-        outside the roi is read.  ``out`` hands out the destination
+        A roi is read run by run (:meth:`read_ids_into`): each stretch
+        of consecutive selected frames is one read straight into the
+        block, so no frame outside the roi is read; the multi-device
+        loop reads its workers' chunks the same way
+        (:func:`read_ids_across`).  ``out`` hands out the destination
         array of each block (the host feed passes its pinned staging
         buffers, so frames are read straight into memory the card can
         copy from); by default every block gets a fresh array.
@@ -419,10 +446,7 @@ class Partition:
                 np.empty((depth,) + sig, self.meta.native_dtype)
                 if out is None else out()
             )
-            for a, b in _runs(chunk):
-                self.read_frames_into(
-                    int(chunk[a]), int(chunk[b - 1]) + 1, data[a:b]
-                )
+            self.read_ids_into(chunk, data)
             data[valid:] = 0
             coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
             if nav_shape:

@@ -55,12 +55,17 @@ expanded from the roi to the full nav shape there.  A parameter patch
 (``update_parameters_experimental``) applies from the next partition
 on; progress goes to a ``common.progress.ProgressReporter``.
 
-Not ported yet: the sharded loop.
+With several devices (``devices=``) the run takes the multi-device
+loop instead (``UDFRunner._run_loop_sharded``): one worker per device
+entry, each with its own shard of the nav axis, feed and state, folded
+with the UDFs' ``merge`` for every result.
 """
 from __future__ import annotations
 
 import contextlib
 import enum
+import logging
+import os
 import pickle
 import queue
 import threading
@@ -79,10 +84,12 @@ from ..common.shape import Shape
 from ..common.slice import Slice
 from ..io.corrections import CorrectionSet
 from ..io.dataset.base import (
+    Block,
     DataSet,
     Partition,
     ReadCancelled,
     densify_into,
+    read_ids_across,
 )
 from ..io.tiling import (
     TILE_DEPTH_DEFAULT,
@@ -98,6 +105,8 @@ from ..ops.sparse_masks import (
     gather_blocks,
     plan_compaction,
 )
+
+log = logging.getLogger(__name__)
 
 
 class _LegacyBufferView(np.ndarray):
@@ -744,9 +753,16 @@ class HostFeed:
     device).  Without ``to_device`` (no UDF runs on the device engine)
     nothing is copied and the device block is None.
 
+    The slot and copy logic is in :meth:`acquire_slot`,
+    :meth:`host_block`, :meth:`push` (reader side) and :meth:`take`,
+    :meth:`release` (consumer side); :meth:`run` drives them from its
+    one reader thread, the multi-device loop drives one feed per
+    worker from its reader pool.
+
     Stopping (the consumer went away): the thread gives up where it
     waits for a slot, and a read that waits for data gives up too
-    (``Partition.stop_event``, ``ReadCancelled``).
+    (``Partition.stop_event``, ``ReadCancelled``).  :meth:`close`
+    releases the buffers.
     """
 
     SLOTS = 3
@@ -760,6 +776,8 @@ class HostFeed:
         self._to_device = to_device
         self._host_reads = host_reads
         self._host = self._dev = self._staging = self._dev_staging = None
+        self._free: Optional[threading.Semaphore] = None
+        self._next = 0
         if self._cuda:
             self._dev = [
                 torch.empty(block_shape, dtype=self._tdtype, device=device)
@@ -778,6 +796,20 @@ class HostFeed:
             "read_s": 0.0, "slot_wait_s": 0.0, "wait_s": 0.0, "blocks": 0,
             "h2d_bytes": 0,
         }
+
+    def open(self, nnz: Optional[int] = None) -> None:
+        """The host buffers (:meth:`_allocate`) and an empty slot
+        ring: every slot free, the next one slot 0."""
+        self._allocate(nnz)
+        self._free = threading.Semaphore(self.SLOTS)
+        self._next = 0
+
+    def close(self) -> None:
+        """Release the buffers, once the side stream's copies are
+        done."""
+        if self._cuda:
+            self._stream.synchronize()
+        self._host = self._dev = self._staging = self._dev_staging = None
 
     def _allocate(self, nnz: Optional[int]) -> None:
         """The host buffers: dense slots, or (``nnz``: the largest
@@ -806,69 +838,108 @@ class HostFeed:
                 for _ in range(self.SLOTS)
             ]
 
+    # -- reader side -----------------------------------------------------
+
+    def acquire_slot(self, stop: threading.Event) -> int:
+        """The next slot, once the consumer has released it and the
+        copy out of it has finished; ReadCancelled once ``stop`` is
+        set."""
+        t0 = time.perf_counter()
+        while not self._free.acquire(timeout=0.1):
+            if stop.is_set():
+                raise ReadCancelled()
+        slot = self._next % self.SLOTS
+        self._next += 1
+        if self._cuda:
+            self._copied[slot].synchronize()
+        self.stats["slot_wait_s"] += time.perf_counter() - t0
+        return slot
+
+    def host_block(self, slot: int, shape: tuple) -> np.ndarray:
+        """The slot's host buffer as a numpy array of ``shape``."""
+        return self._host[slot].numpy().reshape(shape)
+
+    def staging(self, slot: int, nnz: int) -> tuple:
+        """The slot's sparse staging, ``nnz`` entries of each of
+        ``(vals, rows, cols)``."""
+        return tuple(a[:nnz].numpy() for a in self._staging[slot])
+
+    def push(self, slot: int, block) -> None:
+        """The slot's copy to the device (densified there when the
+        block is sparse: its own entries, not the budget's padding),
+        on the side stream; on the CPU, a sparse block densified into
+        the slot."""
+        if block.sparse is not None:
+            n = block.nnz
+            if not self._cuda:
+                if self._to_device:
+                    densify_into(self._dev[slot], *(
+                        torch.from_numpy(a[:n]) for a in block.sparse))
+                return
+            self.stats["h2d_bytes"] += sum(
+                a[:n].nbytes for a in block.sparse)
+        elif not self._cuda:
+            return
+        else:
+            self.stats["h2d_bytes"] += self._host[slot].nbytes
+        with torch.cuda.device(self._device), \
+                torch.cuda.stream(self._stream):
+            self._stream.wait_event(self._consumed[slot])
+            if block.sparse is None:
+                self._dev[slot].copy_(self._host[slot], non_blocking=True)
+            else:
+                staged = []
+                for d, h in zip(self._dev_staging[slot],
+                                self._staging[slot]):
+                    d[:n].copy_(h[:n], non_blocking=True)
+                    staged.append(d[:n])
+                densify_into(self._dev[slot], *staged)
+            self._copied[slot].record(self._stream)
+
+    # -- consumer side -----------------------------------------------------
+
+    def take(self, slot: int) -> Optional[torch.Tensor]:
+        """The slot's device block, for a step on the current stream of
+        the feed's device (which waits for the copy); None without
+        ``to_device``."""
+        if self._cuda:
+            torch.cuda.current_stream(self._device).wait_event(
+                self._copied[slot]
+            )
+            if self._host_reads:
+                self._copied[slot].synchronize()
+        self.stats["blocks"] += 1
+        return self._dev[slot] if self._to_device else None
+
+    def release(self, slot: int) -> None:
+        """The consumer is done with the slot: the next copy into its
+        device buffer waits for the steps enqueued so far."""
+        if self._cuda:
+            self._consumed[slot].record(
+                torch.cuda.current_stream(self._device)
+            )
+        self._free.release()
+
     def run(self, partitions: Sequence[Partition], scheme: TilingScheme,
             roi: Optional[np.ndarray] = None):
         """Yield ``(partition index, device block, Block)`` for every
         block of every partition (of the roi's frames), in order."""
         budgets = [p.sparse_nnz_budget(scheme, roi) for p in partitions]
         sparse = any(b is not None for b in budgets)
-        self._allocate(max(b or 0 for b in budgets) if sparse else None)
-        free = threading.Semaphore(self.SLOTS)
+        self.open(max(b or 0 for b in budgets) if sparse else None)
         stop = threading.Event()
         q: queue.Queue = queue.Queue()
-        slot_of_next = [0]
-        sig = tuple(scheme.dataset_shape.sig)
-
-        def wait_for_slot() -> int:
-            t0 = time.perf_counter()
-            while not free.acquire(timeout=0.1):
-                if stop.is_set():
-                    raise ReadCancelled()
-            slot = slot_of_next[0] % self.SLOTS
-            if self._cuda:
-                self._copied[slot].synchronize()
-            self.stats["slot_wait_s"] += time.perf_counter() - t0
-            return slot
+        # the slot of the block gen_blocks is reading
+        last = [0]
+        shape = (scheme.depth,) + tuple(scheme.dataset_shape.sig)
 
         def acquire() -> np.ndarray:
-            slot = wait_for_slot()
-            return self._host[slot].numpy().reshape((scheme.depth,) + sig)
+            last[0] = self.acquire_slot(stop)
+            return self.host_block(last[0], shape)
 
         def acquire_sparse(nnz: int) -> tuple:
-            slot = wait_for_slot()
-            return tuple(a[:nnz].numpy() for a in self._staging[slot])
-
-        def to_device(slot: int, block) -> None:
-            """The slot's copy to the device (densified there when the
-            block is sparse: its own entries, not the budget's
-            padding), on the side stream; on the CPU, a sparse block
-            densified into the slot."""
-            if block.sparse is not None:
-                n = block.nnz
-                if not self._cuda:
-                    if self._to_device:
-                        densify_into(self._dev[slot], *(
-                            torch.from_numpy(a[:n]) for a in block.sparse))
-                    return
-                self.stats["h2d_bytes"] += sum(
-                    a[:n].nbytes for a in block.sparse)
-            elif not self._cuda:
-                return
-            else:
-                self.stats["h2d_bytes"] += self._host[slot].nbytes
-            with torch.cuda.stream(self._stream):
-                self._stream.wait_event(self._consumed[slot])
-                if block.sparse is None:
-                    self._dev[slot].copy_(self._host[slot],
-                                          non_blocking=True)
-                else:
-                    staged = []
-                    for d, h in zip(self._dev_staging[slot],
-                                    self._staging[slot]):
-                        d[:n].copy_(h[:n], non_blocking=True)
-                        staged.append(d[:n])
-                    densify_into(self._dev[slot], *staged)
-                self._copied[slot].record(self._stream)
+            last[0] = self.acquire_slot(stop)
+            return self.staging(last[0], nnz)
 
         def worker():
             try:
@@ -892,10 +963,8 @@ class HostFeed:
                         )
                         if block is None:
                             break
-                        slot = slot_of_next[0] % self.SLOTS
-                        slot_of_next[0] += 1
-                        to_device(slot, block)
-                        q.put(("item", (pi, slot, block)))
+                        self.push(last[0], block)
+                        q.put(("item", (pi, last[0], block)))
                 q.put(("done", None))
             except ReadCancelled:
                 pass
@@ -915,22 +984,12 @@ class HostFeed:
                 if kind == "error":
                     raise payload
                 pi, slot, block = payload
-                if self._cuda:
-                    torch.cuda.current_stream(self._device).wait_event(
-                        self._copied[slot]
-                    )
-                    if self._host_reads:
-                        self._copied[slot].synchronize()
-                self.stats["blocks"] += 1
-                yield pi, self._dev[slot] if self._to_device else None, block
-                if self._cuda:
-                    self._consumed[slot].record(
-                        torch.cuda.current_stream(self._device)
-                    )
-                free.release()
+                yield pi, self.take(slot), block
+                self.release(slot)
         finally:
             stop.set()
             thread.join(timeout=60)
+            self.close()
 
 
 class UDFRunner:
@@ -960,6 +1019,9 @@ class UDFRunner:
         # fused pass's compaction plan, used or not (else None); after
         # a parameter patch, what the run does from then on
         self.run_info: Optional[dict] = None
+        # the multi-device loop's stage timings (with
+        # LIBERTEM_TPU_SHARDED_STATS set), else None
+        self.last_sharded_stats: Optional[dict] = None
 
     def _debug_check_picklable(self) -> None:
         """Each UDF's class and arguments through a pickle round trip,
@@ -995,32 +1057,77 @@ class UDFRunner:
             udf.on_params_updated()
         self._params_patched = True
 
-    def run_for_dataset(self, dataset: DataSet, device: torch.device,
+    def run_for_dataset(self, dataset: DataSet,
+                        device: Optional[torch.device] = None,
                         roi: Optional[np.ndarray] = None,
                         corrections: Optional[CorrectionSet] = None,
-                        progress=False) -> UDFResults:
+                        progress=False, devices=None) -> UDFResults:
+        """The final results of a run (:meth:`run_for_dataset_iter`)."""
         gen = self.run_for_dataset_iter(
             dataset, device, roi=roi, corrections=corrections,
-            progress=progress, yield_partial=False,
+            progress=progress, yield_partial=False, devices=devices,
         )
         result = next(gen)
         for _ in gen:  # runs the cleanup
             pass
         return result
 
-    def run_for_dataset_iter(self, dataset: DataSet, device: torch.device,
+    def run_for_dataset_iter(self, dataset: DataSet,
+                             device: Optional[torch.device] = None,
                              roi: Optional[np.ndarray] = None,
                              corrections: Optional[CorrectionSet] = None,
-                             progress=False, yield_partial: bool = True):
+                             progress=False, yield_partial: bool = True,
+                             devices=None):
         """Generator of UDFResults: one after every merged partition,
         the last of them the final result (only the final one with
         ``yield_partial=False``).  ``progress``: False, True (a tqdm
         bar) or a ``ProgressReporter``.  Closing the generator early
-        stops the host feed's reader and releases its slots."""
-        prep = self._prepare(dataset, device, roi, corrections)
+        stops the host feed's reader and releases its slots.
+
+        ``device``: the device of the run (the CUDA card by default).
+        ``devices``: with more than one, the run goes to the
+        multi-device loop (:meth:`_run_loop_sharded`): one worker per
+        entry, a device given twice being two workers on it; a
+        one-entry list runs on that device."""
+        from ..common.backend import resolve_device
+
+        if devices is not None and len(devices) > 1:
+            blocked = [
+                type(u).__name__ for u in self._udfs
+                if not getattr(u, "SUPPORTS_SHARDED", True)
+            ]
+            if blocked:
+                raise UDFException(
+                    f"{', '.join(blocked)} cannot run on the sharded "
+                    "executor; use an InlineJobExecutor / "
+                    "single-device Context"
+                )
+            part_udfs = [
+                type(u).__name__ for u in self._udfs
+                if str(u.get_method()) == "partition"
+            ]
+            if part_udfs:
+                # each worker's block plays the partition role, not the
+                # dataset's partitions
+                log.warning(
+                    "sharded run: process_partition receives device "
+                    "blocks, not whole dataset partitions (%s) - "
+                    "per-partition-identity statistics need the "
+                    "single-device loop", ", ".join(part_udfs),
+                )
+            workers = [resolve_device(d) for d in devices]
+            prep = self._prepare(dataset, workers[0], roi, corrections)
+            loop = self._run_loop_sharded(prep, dataset, progress,
+                                          yield_partial, workers)
+        else:
+            if device is None and devices:
+                device = devices[0]
+            prep = self._prepare(dataset, resolve_device(device), roi,
+                                 corrections)
+            loop = self._run_loop(prep, dataset, progress, yield_partial)
         self.run_info = self._run_info(prep)
         try:
-            yield from self._run_loop(prep, dataset, progress, yield_partial)
+            yield from loop
         finally:
             # the final result is wrapped before this: get_results may
             # read task_data, which cleanup releases
@@ -1496,11 +1603,14 @@ class UDFRunner:
             shape, dtype=_state_dtype(decl.dtype), device=prep["device"]
         )
 
-    def _init_state(self, prep) -> list:
+    def _init_state(self, prep, nav_rows: Optional[int] = None) -> list:
         """Per device UDF a dict name -> tensor (host UDFs: empty).  Nav
-        buffers get ``depth`` pad rows past the roi-compressed nav, so
-        the last block has a full-depth view too."""
+        buffers get ``depth`` pad rows past the roi-compressed nav (or
+        past ``nav_rows``, a worker's shard), so the last block has a
+        full-depth view too."""
         depth = prep["scheme"].depth
+        if nav_rows is None:
+            nav_rows = prep["n_nav"]
         state = []
         for e in prep["plan"]:
             bufs = {}
@@ -1508,7 +1618,7 @@ class UDFRunner:
                 bufs = {
                     n: self._zeros(
                         prep, e.decls[n],
-                        (prep["n_nav"] + depth,) + e.decls[n].extra_shape,
+                        (nav_rows + depth,) + e.decls[n].extra_shape,
                     )
                     for n in e.nav_names
                 }
@@ -1562,13 +1672,15 @@ class UDFRunner:
                 meta._slice = meta._partition_slice = None
 
     @staticmethod
-    def _bind_device_postprocess(prep, state, part_state, goff0, n_sel):
+    def _bind_device_postprocess(prep, state, part_state, goff0, n_sel,
+                                 udfs=None):
         """Host copies of the partition's rows of a device UDF's nav
         state and of its partition buffers, bound as ``udf.results``
-        for an overridden ``postprocess``."""
+        for an overridden ``postprocess`` (on ``udfs[ui]``, a shard's
+        clones, where given)."""
         bound = []
         for ui, entry in enumerate(prep["plan"]):
-            udf = entry.udf
+            udf = entry.udf if udfs is None else udfs[ui]
             if entry.host or type(udf).postprocess is UDF.postprocess:
                 bound.append(False)
                 continue
@@ -1586,14 +1698,15 @@ class UDFRunner:
 
     @staticmethod
     def _writeback_device_postprocess(prep, state, part_state, goff0,
-                                      n_sel, bound) -> None:
+                                      n_sel, bound, udfs=None) -> None:
         """The bound copies, as ``postprocess`` left them, back into the
         device state (every bound buffer: numpy mutation is not
         observable)."""
         for ui, entry in enumerate(prep["plan"]):
             if not bound[ui]:
                 continue
-            res = entry.udf.results
+            udf = entry.udf if udfs is None else udfs[ui]
+            res = udf.results
             for n in entry.nav_names:
                 state[ui][n][goff0:goff0 + n_sel] = _as_state(
                     np.asarray(res._get(n)), state[ui][n]
@@ -1602,7 +1715,7 @@ class UDFRunner:
                 part_state[ui][n] = _as_state(
                     np.asarray(res._get(n)), part_state[ui][n]
                 ).reshape(part_state[ui][n].shape)
-            entry.udf.results = None
+            udf.results = None
 
     # -- the step ----------------------------------------------------------
 
@@ -1672,9 +1785,14 @@ class UDFRunner:
                 ps["num_frames"], ps["sum"], ps["varsum"] = n, s_, v
 
     def _generic_step(self, prep, state, part_state, block, goff: int,
-                      coords, valid: int) -> None:
+                      coords, valid: int, loff: Optional[int] = None
+                      ) -> None:
         """Every device UDF's own ``process_*`` on a (corrected) block,
-        one sig tile of the scheme after another."""
+        one sig tile of the scheme after another.  ``goff``: the
+        block's first frame in the roi-compressed nav order (aux rows,
+        ``meta.global_offset``); ``loff``: its first row in the nav
+        state (a worker's own rows in the multi-device loop; ``goff``
+        by default)."""
         meta = prep["meta"]
         scheme = prep["scheme"]
         depth = scheme.depth
@@ -1699,19 +1817,22 @@ class UDFRunner:
                 self._run_udf_on_tile(
                     entry, tile, k, sig_slice, meta, state[ui],
                     part_state[ui], goff, coords, valid_mask, valid,
-                    depth, aux[ui],
+                    depth, aux[ui], loff=loff,
                 )
 
     def _run_udf_on_tile(self, entry, tile, scheme_idx, sig_slice, meta,
                          state_u, part_u, goff, coords, valid_mask, valid,
-                         depth, aux_views) -> None:
+                         depth, aux_views, loff: Optional[int] = None
+                         ) -> None:
         udf = entry.udf
         decls = entry.decls
+        if loff is None:
+            loff = goff
         whole_sig = tuple(sig_slice.shape) == tuple(meta.dataset_shape.sig)
         # a clone of the block's nav rows: what the UDF writes to rows
         # >= valid must not reach the next block's frames
         nav_old = {
-            n: state_u[n][goff:goff + depth].clone()
+            n: state_u[n][loff:loff + depth].clone()
             for n in entry.nav_names
         }
 
@@ -1733,7 +1854,7 @@ class UDFRunner:
                 part_u[name][sig_index(name)] = value
 
         def nav_writeback(name, rows):
-            state_u[name][goff:goff + valid] = _as_state(
+            state_u[name][loff:loff + valid] = _as_state(
                 rows, state_u[name]
             )[:valid]
 
@@ -1817,10 +1938,12 @@ class UDFRunner:
 
     # -- main loop -------------------------------------------------------
 
-    def _make_progress(self, progress, prep):
+    def _make_progress(self, progress, prep, n_steps=None):
         """A ProgressManager for ``progress`` (False: None; True: a
         tqdm bar; or a ProgressReporter), with the partitions' frame
-        budgets by partition index."""
+        budgets by partition index; with ``n_steps`` (the multi-device
+        loop's super-steps, which play the partitions' role in the
+        count) no budgets."""
         if not progress:
             return None
         from ..common.progress import (
@@ -1831,6 +1954,9 @@ class UDFRunner:
         reporter = (progress if isinstance(progress, ProgressReporter)
                     else TQDMProgressReporter())
         parts = prep["partitions"]
+        if n_steps is not None:
+            return ProgressManager(prep["n_nav"], n_steps, reporter,
+                                   progress_id=str(id(prep)))
         return ProgressManager(
             prep["n_nav"], len(parts), reporter, progress_id=str(id(prep)),
             task_max={pi: p.frames_in_roi(prep["roi"])
@@ -1975,6 +2101,485 @@ class UDFRunner:
         finally:
             if pm is not None:
                 pm.close()
+
+    # -- multi-device loop -------------------------------------------------
+
+    def _worker_preps(self, prep, workers) -> list:
+        """Per worker, ``prep`` with its device tensors (the fused
+        operand, the compaction support, the corrections plan, the aux
+        arrays) on the worker's device: one copy per distinct device,
+        shared by the workers on it (counterpart of the JAX package's
+        ``put_replicated``)."""
+        per_dev = {}
+        for dev in workers:
+            if dev in per_dev:
+                continue
+            if dev == prep["device"]:
+                per_dev[dev] = prep
+                continue
+
+            def put(t, dev=dev):
+                return None if t is None else t.to(dev)
+
+            cp = prep["corr_plan"]
+            per_dev[dev] = dict(
+                prep, device=dev,
+                masks_t=put(prep["masks_t"]),
+                support=put(prep["support"]),
+                corr_plan=(None if cp is None
+                           else {k: put(v) for k, v in cp.items()}),
+                aux=[{k: put(v) for k, v in a.items()} for a in prep["aux"]],
+            )
+        return [per_dev[dev] for dev in workers]
+
+    def _run_loop_sharded(self, prep, dataset, progress, yield_partial,
+                          workers):
+        """The multi-device loop: one process drives ``workers`` (a
+        ``torch.device`` each; a device given twice is two workers on
+        it).
+
+        The roi-compressed nav axis splits into one contiguous shard
+        per worker.  Every super-step reads each worker's next block of
+        ``depth`` frames in a reader pool (one thread per worker, at
+        most 8), straight into that worker's pinned slot: each worker
+        has its own :class:`HostFeed`, copied on its own side stream.
+        Then the step (fused or generic) runs on each worker's block
+        with that worker's device current, on its current stream.  Nav
+        state is the worker's own (its shard's rows, plus ``depth`` pad
+        rows); sig/single state accumulates per worker and is folded
+        with each UDF's ``merge`` (:meth:`_make_sharded_fold`) for every
+        partial result and the final one; :meth:`_collapse_sharded`
+        places the nav shards.
+
+        A source that reads in order only (``supports_concurrent_reads
+        = False``, the live ring) takes block-cyclic shards instead:
+        super-step ``s`` covers the next ``n_dev * depth`` frames of
+        the acquisition, worker ``d`` the ``d``-th run of ``depth`` of
+        them, read serially in worker order; the depth is capped so
+        that one super-step fits the source's in-flight window.
+
+        Host UDFs process the host copy of each worker's block into one
+        partition buffer per shard, merged in shard order at the end;
+        preprocess and postprocess run once per shard, on the real
+        instances for shard 0 and on clones (with their own task data,
+        cleaned up after their postprocess) for the others.  A
+        parameter patch applies at the next super-step.  One partial
+        result a super-step, then the final one after postprocess."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .host import HostUDFRunner
+
+        n_dev = len(workers)
+        n_nav = prep["n_nav"]
+        roi = prep["roi"]
+        plan = prep["plan"]
+        meta = prep["meta"]
+        sig = tuple(meta.dataset_shape.sig)
+        nav_shape = tuple(meta.dataset_shape.nav)
+        partitions = prep["partitions"]
+        scheme = prep["scheme"]
+        depth = scheme.depth
+
+        # per-stage wall seconds (timing a stage synchronises the
+        # devices: set only when measuring)
+        stats = None
+        if os.environ.get("LIBERTEM_TPU_SHARDED_STATS"):
+            stats = {
+                "assembly_s": 0.0, "h2d_s": 0.0, "step_s": 0.0,
+                "host_udf_s": 0.0, "fold_s": 0.0, "wrap_s": 0.0,
+                "n_steps": 0, "n_devices": n_dev,
+            }
+        self.last_sharded_stats = stats
+
+        ids_all = (np.flatnonzero(roi) if roi is not None
+                   else np.arange(n_nav, dtype=np.int64))
+        block_cyclic = not getattr(dataset, "supports_concurrent_reads",
+                                   True)
+        if block_cyclic:
+            # one super-step's reads must fit the source's in-flight
+            # window, or the producer and the reader block each other
+            cap = getattr(dataset, "max_inflight_frames", None)
+            if cap is not None and n_dev * depth > int(cap):
+                depth = max(1, int(cap) // n_dev)
+                scheme = TilingScheme(
+                    depth, [sl for _, sl in scheme.slices],
+                    scheme.dataset_shape, intent=scheme.intent,
+                )
+                prep["scheme"] = meta.tiling_scheme = scheme
+        bounds = np.linspace(0, n_nav, n_dev + 1).astype(np.int64)
+        shard_max = int(np.diff(bounds).max()) if n_nav else 0
+        # each shard's (first position, frames) runs in the
+        # roi-compressed nav order: one contiguous run, or one a
+        # super-step (block-cyclic); its state's rows are their
+        # concatenation
+        if block_cyclic:
+            shard_runs = [
+                [(lo, min(depth, n_nav - lo))
+                 for lo in range(d * depth, n_nav, n_dev * depth)]
+                for d in range(n_dev)
+            ]
+        else:
+            shard_runs = [[(int(lo), int(hi - lo))]
+                          for lo, hi in zip(bounds[:-1], bounds[1:])]
+        # each worker's blocks, (first, end) positions: block s of a
+        # worker is super-step s, at row s * depth of its nav state
+        worker_blocks = [
+            [(lo + k, lo + min(k + depth, n))
+             for lo, n in runs for k in range(0, n, depth)]
+            for runs in shard_runs
+        ]
+        n_steps = max([1] + [len(b) for b in worker_blocks])
+        # block-cyclic: a worker's n_steps * depth rows fit
+        # shard_max + depth
+        prep["block_cyclic"] = (depth, n_steps) if block_cyclic else None
+        frames_valid_count = getattr(dataset, "frames_valid_count", None)
+
+        on_device = any(not e.host for e in plan)
+        host_entries = [(ui, e) for ui, e in enumerate(plan) if e.host]
+        host = HostUDFRunner(host_entries, prep) if host_entries else None
+        host_global = host.init_global() if host else {}
+        host_parts = [host.init_partition() for _ in workers] if host \
+            else None
+        wpreps = self._worker_preps(prep, workers)
+        states = [self._init_state(wp, shard_max) for wp in wpreps]
+        feeds = [
+            HostFeed((depth, int(np.prod(sig))), dataset.meta.native_dtype,
+                     dev, to_device=on_device, host_reads=host is not None)
+            for dev in workers
+        ]
+        for feed in feeds:
+            feed.open()
+        totals = {"read_s": 0.0, "slot_wait_s": 0.0, "wait_s": 0.0,
+                  "blocks": 0, "h2d_bytes": 0, "host_s": 0.0,
+                  "workers": [feed.stats for feed in feeds]}
+        self.feed_stats = totals
+        # with stats: each worker's copies, waited for by its reader
+        h2d_s = [0.0] * n_dev
+
+        # the hooks' instances: shard 0 the real ones, clones for the
+        # others (get_task_data sees the run's coordinates, as in
+        # _prepare)
+        shard_udfs = [list(self._udfs)]
+        meta.coordinates = np.stack(
+            np.unravel_index(ids_all, nav_shape), axis=-1
+        ).astype(np.int32).reshape(n_nav, len(nav_shape))
+        meta._slice = Slice((0,) * (1 + len(sig)),
+                            Shape((n_nav,) + sig, sig_dims=len(sig)))
+        try:
+            for _ in range(1, n_dev):
+                clones = []
+                for udf in self._udfs:
+                    clone = udf.copy()
+                    clone.meta = udf.meta
+                    clone.task_data = UDFData(clone.get_task_data() or {})
+                    clones.append(clone)
+                shard_udfs.append(clones)
+        finally:
+            meta.coordinates = None
+            meta._slice = None
+
+        stop = threading.Event()
+        for p in partitions:
+            p.stop_event = stop
+        q: queue.Queue = queue.Queue()
+        pool = ThreadPoolExecutor(max_workers=min(n_dev, 8),
+                                  thread_name_prefix="shard-reader")
+
+        def read_chunk(d, s):
+            """Worker ``d``'s block of super-step ``s``, read into its
+            next pinned slot and copied to its device: ``(slot, Block,
+            first local row)``, or None past the worker's shard."""
+            if s >= len(worker_blocks[d]):
+                return None
+            base, end = worker_blocks[d][s]
+            loff = s * depth
+            feed = feeds[d]
+            slot = feed.acquire_slot(stop)
+            t0 = time.perf_counter()
+            out = feed.host_block(slot, (depth,) + sig)
+            chunk = ids_all[base:end]
+            read_ids_across(partitions, chunk, out)
+            coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
+            if nav_shape:
+                for k, u in enumerate(np.unravel_index(chunk, nav_shape)):
+                    coords[:len(chunk), k] = u
+            block = Block(global_offset=base, coords=coords,
+                          valid=len(chunk), data=out)
+            t1 = time.perf_counter()
+            feed.stats["read_s"] += t1 - t0
+            feed.push(slot, block)
+            if stats and feed._cuda:
+                feed._copied[slot].synchronize()
+                h2d_s[d] += time.perf_counter() - t1
+            return slot, block, loff
+
+        def assemble():
+            try:
+                for s in range(n_steps):
+                    t0 = time.perf_counter()
+                    if block_cyclic:
+                        # in order, one worker after another: the ring
+                        # frees what was read
+                        items = [read_chunk(d, s) for d in range(n_dev)]
+                    else:
+                        items = list(pool.map(read_chunk, range(n_dev),
+                                              [s] * n_dev))
+                    spans = [(it[1].global_offset,
+                              it[1].global_offset + it[1].valid)
+                             for it in items if it is not None]
+                    if frames_valid_count is not None:
+                        # an acquisition that finished early: damage
+                        # only the frames that arrived
+                        vc = int(frames_valid_count())
+                        spans = [
+                            (lo, lo + cut) for lo, hi in spans
+                            for cut in [int(np.searchsorted(
+                                ids_all[lo:hi], vc))]
+                            if cut > 0
+                        ]
+                    if stats:
+                        stats["assembly_s"] += time.perf_counter() - t0
+                    q.put(("item", (items, spans)))
+                q.put(("done", None))
+            except ReadCancelled:
+                pass
+            except BaseException as e:  # handed to the consumer
+                q.put(("error", e))
+
+        def on(dev):
+            return (torch.cuda.device(dev) if dev.type == "cuda"
+                    else contextlib.nullcontext())
+
+        def sync():
+            for dev in set(workers):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+
+        def snapshot(damage_now):
+            t0 = time.perf_counter()
+            collapsed = self._collapse_sharded(prep, states, bounds, fold)
+            t1 = time.perf_counter()
+            wrapped = self._wrap_results(prep, collapsed, host_global,
+                                         damage_now)
+            if stats:
+                stats["fold_s"] += t1 - t0
+                stats["wrap_s"] += time.perf_counter() - t1
+            return wrapped
+
+        def hook(d, name):
+            """``preprocess`` or ``postprocess`` of shard ``d``'s
+            instances, as the single-device loop calls them for a
+            partition: the host UDFs with the shard's views bound, the
+            device UDFs (postprocess) with host copies of the worker's
+            rows and sig/single state, written back after."""
+            udfs = shard_udfs[d]
+            n_rows = sum(n for _, n in shard_runs[d])
+            if host is not None:
+                host.bind_partition_views(host_global, host_parts[d],
+                                          runs=shard_runs[d], udfs=udfs)
+            bound = None
+            if name == "postprocess":
+                bound = self._bind_device_postprocess(
+                    prep, states[d], states[d], 0, n_rows, udfs=udfs)
+            for udf in udfs:
+                getattr(udf, name)()
+            if bound is not None:
+                self._writeback_device_postprocess(
+                    prep, states[d], states[d], 0, n_rows, bound,
+                    udfs=udfs)
+            if host is not None:
+                host.unbind_views()
+
+        damage = np.zeros(n_nav, dtype=bool)
+        fold = self._make_sharded_fold(prep, workers)
+        pm = self._make_progress(progress, prep, n_steps=n_steps)
+        thread = threading.Thread(target=assemble, daemon=True,
+                                  name="shard-reader-main")
+
+        try:
+            for d in range(n_dev):
+                hook(d, "preprocess")
+            thread.start()
+            while True:
+                t0 = time.perf_counter()
+                kind, payload = q.get()
+                totals["wait_s"] += time.perf_counter() - t0
+                if kind == "done":
+                    break
+                if kind == "error":
+                    raise payload
+                items, spans = payload
+                if self._params_patched:
+                    self._params_patched = False
+                    self._apply_param_patch(prep)
+                    wpreps = self._worker_preps(prep, workers)
+                t0 = time.perf_counter()
+                # every worker's step first, then the host engine on
+                # the host copies while the devices work
+                for d, item in enumerate(items):
+                    if item is None:
+                        continue
+                    slot, block, loff = item
+                    with on(workers[d]), _full_fp32_matmul():
+                        block_t = feeds[d].take(slot)
+                        meta.device = workers[d]
+                        if prep["fused"] is not None:
+                            self._fused_step(
+                                wpreps[d], states[d], states[d], block_t,
+                                loff, block.valid,
+                            )
+                        elif on_device:
+                            coords = torch.from_numpy(block.coords).to(
+                                workers[d])
+                            self._generic_step(
+                                wpreps[d], states[d], states[d], block_t,
+                                block.global_offset, coords, block.valid,
+                                loff=loff,
+                            )
+                meta.device = workers[0]
+                if stats:
+                    sync()
+                    t1 = time.perf_counter()
+                    stats["step_s"] += t1 - t0
+                    stats["n_steps"] += 1
+                    t0 = t1
+                if host is not None:
+                    th = time.perf_counter()
+                    for d, item in enumerate(items):
+                        if item is not None:
+                            _, block, _ = item
+                            host.process_block(
+                                host_global, host_parts[d], block.data,
+                                block.global_offset, block.coords,
+                                block.valid,
+                            )
+                    totals["host_s"] += time.perf_counter() - th
+                    if stats:
+                        stats["host_udf_s"] += time.perf_counter() - th
+                for d, item in enumerate(items):
+                    if item is not None:
+                        with on(workers[d]):
+                            feeds[d].release(item[0])
+                for lo, hi in spans:
+                    damage[lo:hi] = True
+                if pm is not None:
+                    pm.frames_done(sum(it[1].valid for it in items
+                                       if it is not None))
+                if yield_partial:
+                    yield snapshot(damage.copy())
+            # postprocess once a shard, the clones cleaned up after it
+            # (the real instances at the run's end: get_results may
+            # read their task data)
+            for d in range(n_dev):
+                hook(d, "postprocess")
+                if d:
+                    for udf in shard_udfs[d]:
+                        udf.cleanup()
+            if host is not None:
+                # each shard's partition buffers, in shard order; the
+                # valid nav mask shows what is merged so far
+                merged = np.zeros_like(damage)
+                for d in range(n_dev):
+                    runs = shard_runs[d] or [(0, 0)]
+                    meta._valid_nav_mask = merged.copy()
+                    try:
+                        if len(runs) > 1:
+                            host.merge_partition(host_global, host_parts[d],
+                                                 runs=runs)
+                        else:
+                            host.merge_partition(host_global, host_parts[d],
+                                                 *runs[0])
+                    finally:
+                        meta._valid_nav_mask = None
+                    for lo, n in runs:
+                        merged[lo:lo + n] = damage[lo:lo + n]
+            yield snapshot(damage)
+        finally:
+            stop.set()
+            if thread.is_alive():
+                thread.join(timeout=60)
+            pool.shutdown(wait=True)
+            for feed in feeds:
+                feed.close()
+            meta.device = workers[0]
+            for k in ("read_s", "slot_wait_s", "blocks", "h2d_bytes"):
+                totals[k] = sum(feed.stats[k] for feed in feeds)
+            if stats:
+                stats["h2d_s"] = sum(h2d_s)
+            if pm is not None:
+                pm.close()
+
+    def _make_sharded_fold(self, prep, workers):
+        """The fold of the workers' sig/single states (counterpart of
+        the JAX package's ``all_gather`` and traced sequential merge):
+        each worker's state copied to the main device (a copy between
+        cards waits for the current streams of both), folded in worker
+        order with each UDF's ``merge``, worker 0 a copy as ``dest``,
+        with TF32 off as in ``_merge``.  Host entries fold on the host
+        (``merge_partition``)."""
+        main = workers[0]
+
+        def fold(states) -> list:
+            out = []
+            for entry_i, entry in enumerate(prep["plan"]):
+                names = entry.part_names
+                if not names or entry.host:
+                    out.append({})
+                    continue
+                acc = {n: states[0][entry_i][n].to(main, copy=True)
+                       for n in names}
+                for st in states[1:]:
+                    dest = UDFData(dict(acc))
+                    src = UDFData({n: st[entry_i][n].to(main)
+                                   for n in names})
+                    with _full_fp32_matmul():
+                        entry.udf.merge(dest, src)
+                    for n in names:
+                        if n in dest._touched:
+                            acc[n] = _as_state(dest._get(n), acc[n])
+                out.append(acc)
+            return out
+
+        return fold
+
+    def _collapse_sharded(self, prep, states, bounds, fold) -> list:
+        """The workers' states as one run state for ``_wrap_results``:
+        nav shards placed positionally on the host (contiguous windows,
+        or, block-cyclic, worker ``d``'s local row ``(s, k)`` at
+        ``s * n_dev * depth + d * depth + k``: a ``(worker, step,
+        depth) -> (step, worker, depth)`` transpose), sig/single states
+        folded on the main device."""
+        n_nav = prep["n_nav"]
+        plan = prep["plan"]
+        bc = prep["block_cyclic"]
+        folded = (fold(states)
+                  if any(e.part_names and not e.host for e in plan)
+                  else None)
+        out = []
+        for ui, entry in enumerate(plan):
+            bufs = {}
+            if entry.host:
+                out.append(bufs)
+                continue
+            for n in entry.nav_names:
+                shards = [st[ui][n].to("cpu") for st in states]
+                extra = tuple(shards[0].shape[1:])
+                if bc is not None:
+                    bdepth, n_steps = bc
+                    inter = torch.stack(
+                        [x[:n_steps * bdepth] for x in shards]
+                    ).reshape((len(shards), n_steps, bdepth) + extra)
+                    bufs[n] = inter.transpose(0, 1).reshape(
+                        (-1,) + extra)[:n_nav].clone()
+                else:
+                    bufs[n] = torch.cat([
+                        x[:int(bounds[d + 1] - bounds[d])]
+                        for d, x in enumerate(shards)
+                    ])
+            if folded is not None:
+                bufs.update(folded[ui])
+            out.append(bufs)
+        return out
 
     # -- results -----------------------------------------------------------
 

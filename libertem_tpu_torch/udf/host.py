@@ -36,6 +36,9 @@ class HostUDFRunner:
         sig = prep["meta"].dataset_shape.sig
         self._whole_sig_slice = Slice.from_shape(tuple(sig),
                                                  sig_dims=sig.dims)
+        # what bind_partition_views bound: (global buffers, windows,
+        # instances)
+        self._bound = (None, [], None)
 
     def _aux(self, ui) -> dict:
         return self.prep["aux_host"][ui]
@@ -66,29 +69,43 @@ class HostUDFRunner:
             for ui, entry in self.entries
         }
 
-    def bind_partition_views(self, global_bufs, part_bufs, goff: int,
-                             n_sel: int) -> None:
+    def bind_partition_views(self, global_bufs, part_bufs, goff=None,
+                             n_sel=None, runs=None, udfs=None) -> None:
         """The partition's result and aux views on the host UDFs, for
-        ``preprocess`` and ``postprocess``."""
+        ``preprocess`` and ``postprocess``: rows ``[goff, goff + n_sel)``
+        of the nav buffers, or (``runs``, a block-cyclic shard of the
+        multi-device loop) copies of the concatenated ``(goff, n)``
+        runs, written back by :meth:`unbind_views`.  ``udfs``: the
+        instance to bind for each UDF index (a shard's clones), else
+        the plan's."""
+        windows = runs if runs is not None else [(goff, n_sel)]
+        self._bound = (global_bufs, windows, udfs)
         for ui, entry in self.entries:
-            udf = entry.udf
+            udf = entry.udf if udfs is None else udfs[ui]
             views = {
-                name: global_bufs[ui][name][goff:goff + n_sel]
+                name: _rows(global_bufs[ui][name], windows)
                 for name in entry.nav_names
             }
             views.update({n: part_bufs[ui][n] for n in entry.part_names})
             udf._host_mode = True
             udf.results = UDFData(views)
             udf.params = UDFParams(udf._kwargs, {
-                k: arr[goff:goff + n_sel]
-                for k, arr in self._aux(ui).items()
+                k: _rows(arr, windows) for k, arr in self._aux(ui).items()
             })
 
     def unbind_views(self) -> None:
-        for _, entry in self.entries:
-            entry.udf._host_mode = False
-            entry.udf.results = None
-            entry.udf.params = UDFParams(entry.udf._kwargs)
+        """Undo :meth:`bind_partition_views`; nav rows bound as copies
+        of several runs go back to their runs."""
+        global_bufs, windows, udfs = self._bound
+        for ui, entry in self.entries:
+            udf = entry.udf if udfs is None else udfs[ui]
+            if len(windows) > 1 and udf.results is not None:
+                for n in entry.nav_names:
+                    _scatter(global_bufs[ui][n], windows,
+                             udf.results._get(n))
+            udf._host_mode = False
+            udf.results = None
+            udf.params = UDFParams(udf._kwargs)
 
     # -- processing ------------------------------------------------------
 
@@ -264,12 +281,27 @@ class HostUDFRunner:
                               else rows.copy())
         return out
 
-    def merge_partition(self, global_bufs, part_bufs, goff0, n_sel,
-                        init_rows=None) -> None:
+    def merge_partition(self, global_bufs, part_bufs, goff0=None,
+                        n_sel=None, init_rows=None, runs=None) -> None:
         """Fold one partition's buffers into the run's.  A custom merge
         also gets the nav rows: ``src`` the partition's results,
         ``dest`` their state before processing (the snapshot), and
-        writes every buffer."""
+        writes every buffer.
+
+        ``runs`` (a block-cyclic shard of the multi-device loop): the
+        ``(goff, n)`` windows the shard owns instead of the one window
+        ``[goff0, goff0 + n_sel)``: a custom merge sees the
+        concatenation of the runs' nav rows (and aux rows), ``dest``
+        starting at zeros and written back run by run; sig/single
+        buffers merge exactly once either way."""
+        if runs is not None:
+            if goff0 is not None or init_rows is not None:
+                raise ValueError(
+                    "merge_partition takes either runs or a window "
+                    "(goff0, n_sel, init_rows), not both")
+            windows = runs
+        else:
+            windows = [(goff0, n_sel)]
         for ui, entry in self.entries:
             udf = entry.udf
             custom = udf._has_custom_merge()
@@ -277,19 +309,16 @@ class HostUDFRunner:
                 continue
             dest_d = {n: global_bufs[ui][n] for n in entry.part_names}
             src_d = {n: part_bufs[ui][n] for n in entry.part_names}
-            nav_rows = {}
-            if custom:
-                snap = (init_rows or {}).get(ui)
-                for n in entry.nav_names:
-                    rows = global_bufs[ui][n][goff0:goff0 + n_sel]
-                    src_d[n] = rows.copy()
-                    dest_d[n] = (snap[n] if snap is not None
-                                 else np.zeros_like(rows))
-                    nav_rows[n] = rows
+            nav_names = entry.nav_names if custom else []
+            snap = (init_rows or {}).get(ui)
+            for n in nav_names:
+                rows = _rows(global_bufs[ui][n], windows)
+                src_d[n] = rows.copy()
+                dest_d[n] = (snap[n] if snap is not None
+                             else np.zeros_like(rows))
             udf._host_mode = True
             udf.params = UDFParams(udf._kwargs, {
-                k: arr[goff0:goff0 + n_sel]
-                for k, arr in self._aux(ui).items()
+                k: _rows(arr, windows) for k, arr in self._aux(ui).items()
             })
             try:
                 dest = UDFData(dest_d)
@@ -297,8 +326,30 @@ class HostUDFRunner:
                 for n in entry.part_names:
                     if n in dest._touched:
                         global_bufs[ui][n][...] = dest._get(n)
-                for n, rows in nav_rows.items():
-                    rows[...] = dest._get(n)
+                for n in nav_names:
+                    _scatter(global_bufs[ui][n], windows, dest._get(n))
             finally:
                 udf._host_mode = False
                 udf.params = UDFParams(udf._kwargs)
+
+
+def _rows(arr, windows):
+    """The rows of ``(goff, n)`` windows of ``arr``: a view of one
+    window (or none: no rows), a concatenated copy of several."""
+    if len(windows) <= 1:
+        lo, n = windows[0] if windows else (0, 0)
+        return arr[lo:lo + n]
+    return np.concatenate([arr[lo:lo + n] for lo, n in windows])
+
+
+def _scatter(arr, windows, rows) -> None:
+    """``rows`` (as :func:`_rows` gave them) back into ``arr``'s
+    windows; into one window as an assignment, which broadcasts."""
+    if len(windows) == 1:
+        lo, n = windows[0]
+        arr[lo:lo + n] = rows
+        return
+    off = 0
+    for lo, n in windows:
+        arr[lo:lo + n] = rows[off:off + n]
+        off += n

@@ -300,20 +300,32 @@ def test_sharded_one_device_like_inline():
     assert ctx.run_info["fused"]
 
 
-def test_several_devices_raise_not_implemented():
-    """More than one device needs the multi-device loop, not ported:
-    every run path raises rather than using one device."""
+def test_several_devices_run_like_jax():
+    """More than one device takes the multi-device loop: the same three
+    calls (``run_udf``, ``run_udf_iter``, ``run_udf(sync=False)``) on
+    two workers give the JAX package's sharded results over two
+    devices, and leave no reader thread behind."""
+    import jax
+    from libertem_tpu.executor.sharded import ShardedJobExecutor as JaxSh
+
     from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+    data = _data()
     ctx = port.Context(executor=ShardedJobExecutor(devices=["cpu", "cpu"]))
-    ds = ctx.load("memory", data=_data(), sig_dims=2)
+    ds = ctx.load("memory", data=data, sig_dims=2)
     assert ds.get_num_partitions() == 4
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ctx.run_udf(ds, port.SumUDF())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ctx.run_udf_iter(ds, port.SumUDF())
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        asyncio.run(ctx.run_udf(ds, port.SumUDF(), sync=False))
-    assert not _readers()
+    assert ctx._run_devices() == [torch.device("cpu")] * 2
+    jctx = JaxContext(executor=JaxSh(devices=jax.devices()[:2]))
+    jds = JaxMemoryDataSet(data=data, sig_dims=2).initialize()
+    want = jctx.run_udf(jds, libertem_tpu.udf.SumUDF())["intensity"].data
+    _close(ctx.run_udf(ds, port.SumUDF())["intensity"].data, want)
+    last = None
+    for last in ctx.run_udf_iter(ds, port.SumUDF()):
+        pass
+    _close(last.buffers[0]["intensity"].data, want)
+    assert last.damage.data.all()
+    _close(asyncio.run(ctx.run_udf(ds, port.SumUDF(), sync=False))
+           ["intensity"].data, want)
+    assert _readers_end()
 
 
 def test_compat_names_like_jax(cpu_default):

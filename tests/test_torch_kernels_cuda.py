@@ -970,3 +970,37 @@ def test_new_formats_on_card(card, tmp_path):
         if kind == "raw_csr":
             dense = 120 * 64 * 64 * 2
             assert 0 < stats[0]["h2d_bytes"] < dense / 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_workers_on_one_card(card, n):
+    """n workers on one card (the multi-device loop, each worker with
+    its own feed and state on the card) give the single-device run's
+    results, with corrections and a roi too; the kernel launches once
+    per block of every shard."""
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+
+    data = np.random.default_rng(9).poisson(5.0, (16, 12, 64, 64)).astype(
+        np.uint16)
+    corr = lt.CorrectionSet(dark=np.full((64, 64), 0.5, np.float32))
+    roi = np.zeros((16, 12), dtype=bool)
+    roi[2:13, 1:9] = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for kw in ({}, {"corrections": corr}, {"roi": roi}):
+        one = lt.Context(device=dev)
+        ds = one.load("memory", data=data, sig_dims=2)
+        before = fused_moments.launches
+        want = one.run_udf(ds, _ring_udfs(lt), **kw)
+        single = fused_moments.launches - before
+        ctx = lt.Context(executor=ShardedJobExecutor(devices=[dev] * n))
+        before = fused_moments.launches
+        got = ctx.run_udf(ds, _ring_udfs(lt), **kw)
+        launched = fused_moments.launches - before
+        assert ctx.run_info["fused"]
+        _compare_runs(got, want)
+        blocks = sum(w["blocks"] for w in ctx.feed_stats["workers"])
+        assert len(ctx.feed_stats["workers"]) == n
+        # 10 ring masks and CoM's 3 rows: two launches a block
+        assert launched == 2 * blocks and single > 0
