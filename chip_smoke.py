@@ -153,20 +153,37 @@ from the root of the repository.  Phases, each fatal on failure:
     1 s); (d) 7b's numpy UDF beside the fused pass on 2 workers; (e)
     13b's live ring on 2 workers (block-cyclic shards), whole and with
     an early ``finish()``; (f) one pass over every card, where there
-    are several.
+    are several;
+16. the multi-process run: two processes (``chip_smoke.py --rank``) on
+    card 0 in one ``torch.distributed`` group over gloo (NCCL refuses
+    two processes on one card), each reading and stepping only its own
+    workers' shards of phase 2's scan, the states gathered through
+    pinned host copies: (a) phase 4's UDFs with one and with two workers
+    a process, (b) 15(b)'s corrections over every third frame, (c)
+    15(c)'s ``run_udf_iter`` with the patch, one worker a process, (d)
+    7b's numpy UDF, refused on both.  Each process's results against
+    the float64 answers and bit for bit against phase 15's pass at the
+    same global worker count; the two processes' launches add up to
+    that pass's (64, 64, 44, 64); wall time, each process's
+    ``collective_s`` and the transport are printed.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
 CUDA card the script exits non-zero and prints no result.
 
 Two other entry points: ``python3 chip_smoke.py --every-card`` drives
-the multi-device loop over every card of a host with several
-(:func:`every_card_main`), and ``python3 chip_smoke.py --time-paths DIR
+the multi-device loop over every card of a host with several, and
+phase 16 over NCCL with a process a card (:func:`every_card_main`),
+and ``python3 chip_smoke.py --time-paths DIR
 SCAN`` times the end-to-end passes of the checkout at DIR, for
 comparing two checkouts in turns on one card (:func:`time_paths_main`).
+``--rank SPEC`` is the mode of phase 16's processes
+(:func:`rank_main`).
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -3540,14 +3557,17 @@ def check_roi(label, res, want, failures) -> None:
 
 
 def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
-                  failures) -> dict:
+                  failures, keep=None) -> dict:
     """Phase 15: the multi-device loop with two and four workers on
     card 0 (one card suffices: each worker has its own shard, reader,
     pinned slots, copy stream and state), on phase 2's scan with phase
     4's UDFs against ``want4``; each pass with the launch count set to 0
     just before and read just after, printing its wall time, GB/s,
     each worker's reader share and its launches.  Returns the launch
-    count of each pass."""
+    count of each pass; ``keep`` (a dict) receives what phase 16 holds
+    its processes against: by phase 16's pass, the results' arrays,
+    launches and float64 answers of the pass at the same worker
+    count."""
     import torch
 
     from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
@@ -3605,6 +3625,7 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
         ("15a 4 workers, make_with('sharded', tpus=[0, 0, 0, 0])",
          lambda: lt.Context.make_with("sharded", tpus=[0, 0, 0, 0])),
     )
+    keep = {} if keep is None else keep
     for label, make in passes + passes[::-1]:
         ctx = make()
         ds = load(ctx)
@@ -3614,6 +3635,9 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
         if count != n_blocks:
             failures.append(f"{label}: {count} launches, not {n_blocks}")
         check_results(label, res, want4, failures)
+        if n_dev > 1:
+            keep.setdefault(f"16a {n_dev // 2} a process", dict(
+                arrays=result_arrays(res), launches=count, want=want4))
         ctx.close()
     for n_dev in (2, 4):
         print(f"15a {n_dev} workers traced:")
@@ -3655,6 +3679,7 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
                      corrections.make_plan(SIG))
     print(f"  oracle 15b: {time.perf_counter() - t0:.1f} s (float64 numpy)")
     check_roi("15b", res, want, failures)
+    keep["16b"] = dict(arrays=result_arrays(res), launches=count, want=want)
 
     # -- (c) run_udf_iter on 2 workers, phase 8's patch, then abandoned ----
     new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
@@ -3691,10 +3716,12 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
     patched[~old] = projections64(data, new_masks.reshape(2, -1),
                                   np.flatnonzero(~old))
     print(f"  oracle 15c: {time.perf_counter() - t0:.1f} s (float64 numpy)")
-    check_results("15c final", [final.buffers[ui] for ui in range(5)], {
-        (0, "intensity"): patched.reshape(NAV + (2,)),
-        **{k: v for k, v in want4.items() if k[0] != 0},
-    }, failures)
+    want15c = {(0, "intensity"): patched.reshape(NAV + (2,)),
+               **{k: v for k, v in want4.items() if k[0] != 0}}
+    check_results("15c final", [final.buffers[ui] for ui in range(5)],
+                  want15c, failures)
+    keep["16c"] = dict(arrays=result_arrays(final.buffers), launches=count,
+                       want=want15c, damages=damages)
     gen = ctx2.run_udf_iter(ds2, make_udfs(lt))
     next(gen)
     next(gen)
@@ -3781,6 +3808,289 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
         print("15f was not run: this machine has one CUDA device")
     ctx2.close()
     print("phase 15 summary: " + json.dumps(rows))
+    return launches
+
+
+# -- phase 16: several processes, the multi-process run ----------------------
+
+RANK_TIMEOUT_S = 400
+NUMPY_REFUSAL = "numpy-backend UDFs process the host block feed"
+
+
+def result_arrays(res) -> dict:
+    """A run's result buffers (per UDF a dict of buffers) as arrays:
+    ``ui/name`` the buffer's data and, for a nav buffer, ``ui/name/raw``
+    its roi-compressed rows."""
+    out = {}
+    for ui, bufs in enumerate(res):
+        for name, buf in bufs.items():
+            out[f"{ui}/{name}"] = np.asarray(buf.data)
+            if buf.kind == "nav":
+                out[f"{ui}/{name}/raw"] = np.asarray(buf.raw_data)
+    return out
+
+
+class LoadedBuffer:
+    """A result buffer read back from :func:`result_arrays`' arrays."""
+
+    def __init__(self, arrays: dict, key: str):
+        self.data = arrays[key]
+        self.raw_data = arrays.get(f"{key}/raw")
+        self.kind = "nav" if self.raw_data is not None else "sig"
+
+
+def loaded_results(arrays: dict) -> list:
+    out = {}
+    for key in arrays:
+        ui, name = key.split("/", 1)
+        if not name.endswith("/raw"):
+            out.setdefault(int(ui), {})[name] = LoadedBuffer(arrays, key)
+    return [out[ui] for ui in sorted(out)]
+
+
+def same_bits(a: dict, b: dict) -> list:
+    """The keys whose arrays differ in shape, dtype or any bit."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b
+                  or a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                  or a[k].tobytes() != b[k].tobytes())
+
+
+def rank_main(spec_json: str) -> int:
+    """``python3 chip_smoke.py --rank SPEC``: one process of phase 16
+    (:func:`slice14_phase` starts them).  ``SPEC`` is a JSON object:
+    ``rank``, ``world``, ``backend`` (``gloo`` or ``nccl``), ``init``
+    (the group's ``file://`` rendezvous), ``device`` (this process's
+    card), ``scan`` (phase 2's raw file), ``nav``, ``workers`` (the
+    local worker counts of the 16a passes) and ``out`` (a directory).
+    Each pass starts at a barrier, with the launch count set to 0 just
+    before and read just after; the results go to ``out/rankR.npz``
+    under each pass's index,
+    and the passes' wall time, launches, ``collective_s`` and transport
+    to the last line of the output, as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    spec = json.loads(spec_json)
+    rank = spec["rank"]
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the host's cores shared between the processes, as torchrun does
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world"]))
+    dist.init_process_group(
+        spec["backend"], init_method=spec["init"], rank=rank,
+        world_size=spec["world"], timeout=datetime.timedelta(seconds=180))
+    try:
+        import libertem_tpu_torch as lt
+        from libertem_tpu_torch.common.exceptions import UDFException
+        from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+        from libertem_tpu_torch.ops.moments import fused_moments
+
+        nav = tuple(spec["nav"])
+        n = int(np.prod(nav))
+        passes, arrays = [], {}
+
+        def context(n_local):
+            ctx = lt.Context(executor=ShardedJobExecutor(
+                devices=[dev] * n_local))
+            return ctx, ctx.load("raw", path=spec["scan"], dtype="uint16",
+                                 nav_shape=nav, sig_shape=SIG)
+
+        def counted(label, ctx, fn):
+            dist.barrier()
+            fused_moments.launches = 0
+            t0 = time.perf_counter()
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            st = ctx.feed_stats
+            passes.append(dict(
+                path=label, wall_s=secs, launches=fused_moments.launches,
+                collective_s=st["collective_s"], transport=st["transport"],
+                run_transport=ctx.run_info["transport"],
+                workers=len(ctx.executor.global_workers),
+                reader_shares=[w["read_s"] / secs for w in st["workers"]]))
+            return out
+
+        def keep_arrays(res):
+            """The last pass's results, under its index."""
+            arrays.update({f"{len(passes) - 1}/{k}": v
+                           for k, v in result_arrays(res).items()})
+
+        for n_local in spec["workers"]:
+            label = f"16a {n_local} a process"
+            ctx, ds = context(n_local)
+            res = counted(label, ctx, lambda: ctx.run_udf(ds, make_udfs(lt)))
+            keep_arrays(res)
+            ctx.close()
+        ctx, ds = context(1)
+        roi = np.zeros(n, dtype=bool)
+        roi[::3] = True
+        res = counted("16b", ctx, lambda: ctx.run_udf(
+            ds, make_ring_udfs(lt), roi=roi.reshape(nav),
+            corrections=make_corrections(lt)))
+        keep_arrays(res)
+        h, w = SIG
+        new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
+                              lt.masks.ring(64, 64, w, h, 30, 10)])
+        damages = []
+
+        def iterate():
+            gen = ctx.run_udf_iter(ds, make_udfs(lt))
+            last = None
+            for i, last in enumerate(gen):
+                damages.append(int(np.count_nonzero(last.damage.data)))
+                if i == 1:
+                    gen.update_parameters_experimental([
+                        {"mask_factories": [lambda m=m: m
+                                            for m in new_masks]},
+                        {}, {}, {}, {}])
+            return last
+
+        final = counted("16c", ctx, iterate)
+        keep_arrays(final.buffers)
+        try:
+            ctx.run_udf(ds, mixed_udfs(lt))
+            refused = "no exception"
+        except UDFException as e:
+            refused = str(e)
+        ctx.close()
+        np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **arrays)
+        print(json.dumps(dict(rank=rank, device=str(dev), passes=passes,
+                              damages=damages, refused=refused)),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def slice14_phase(keep, scan, at, failures, backend="gloo",
+                  devices=("cuda:0", "cuda:0"), workers=(1, 2, 1),
+                  nav=NAV) -> dict:
+    """Phase 16: the multi-process run.  Starts one process a device of
+    ``devices`` (``chip_smoke.py --rank``, :func:`rank_main`), joined
+    in a ``torch.distributed`` group over ``backend``: two on card 0
+    over gloo here (NCCL refuses two processes on one card; gloo
+    gathers host copies), one a card over NCCL under ``--every-card``.
+    Each runs on phase 2's scan, with its own workers' shards only:
+    (a) phase 4's UDFs with ``workers`` local workers a process (the
+    first pass carries each process's CUDA start-up), (b)
+    phase 6a's corrections over every third frame, (c) ``run_udf_iter``
+    with phase 8's patch after the second partial (one worker a
+    process), (d) phase 7b's numpy UDF, refused.  Every process's
+    results are held against the float64 answers of ``keep`` (phase 15
+    or the one-process passes of ``--every-card``) and bit for bit
+    against the one-process pass at the same global worker count, and
+    the processes' launches must add up to that pass's.  A process
+    that fails or outlasts its time fails the phase.  Returns the
+    launch count of each pass (all processes)."""
+    t_phase = time.perf_counter()
+    world = len(devices)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = dict(world=world, backend=backend, init=f"file://{tmp}/pg",
+                    scan=scan, nav=list(nav), workers=list(workers),
+                    out=tmp)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank",
+             json.dumps(dict(spec, rank=r, device=str(devices[r])))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            failures.append(f"16: a process outlasted {RANK_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        reports = []
+        for r, p in enumerate(procs):
+            log = logs[r] if r < len(logs) else ""
+            last = [ln for ln in log.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not last:
+                failures.append(f"16: process {r} exited {p.returncode}")
+                print(f"16 process {r} output:\n{log[-3000:]}")
+                return launches
+            reports.append(json.loads(last[-1]))
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                 for r in range(world)]
+    print(f"phase 16: {world} processes over {backend} on "
+          f"{', '.join(map(str, devices))}, {time.perf_counter() - t_phase:.1f}"
+          f" s with their start-up {at}")
+    rows = []
+    for i, pass_ in enumerate(reports[0]["passes"]):
+        label = pass_["path"]
+        first = "" if i else " (with each process's start-up)"
+        each = [rep["passes"][i] for rep in reports]
+        wall = max(x["wall_s"] for x in each)
+        count = sum(x["launches"] for x in each)
+        launches[f"{label} ({world} processes, {backend}, phase 16)"] = count
+        rows.append(dict(path=label + first, wall_s=wall, launches=count,
+                         launches_by_rank=[x["launches"] for x in each],
+                         collective_s=[x["collective_s"] for x in each],
+                         transport=each[0]["transport"],
+                         workers=each[0]["workers"],
+                         reader_shares=[x["reader_shares"] for x in each]))
+        by_rank = "+".join(str(x["launches"]) for x in each)
+        coll = ", ".join("%.1f" % (x["collective_s"] * 1e3) for x in each)
+        print(f"{label}{first}: {wall:.3f} s wall, {each[0]['workers']} "
+              f"workers in "
+              f"{world} processes, launches {count} ({by_rank}), "
+              f"collectives {coll} ms, transport {each[0]['transport']} "
+              f"{at}")
+        if any(x["transport"] != backend or x["run_transport"] != backend
+               for x in each):
+            failures.append(f"{label}: transport is not {backend}")
+        ref = keep.get(label)
+        if ref is None:
+            failures.append(f"{label}: no one-process pass to hold it to")
+            continue
+        if count != ref["launches"]:
+            failures.append(f"{label}: {count} launches in all, the "
+                            f"one-process pass {ref['launches']}")
+        for r, arrays in enumerate(ranks):
+            mine = {k[len(f"{i}/"):]: v for k, v in arrays.items()
+                    if k.startswith(f"{i}/")}
+            res = loaded_results(mine)
+            found = len(failures)
+            # one line a process: the checks' own lines only on a failure
+            with contextlib.redirect_stdout(io.StringIO()) as lines:
+                (check_roi if label == "16b" else check_results)(
+                    f"{label} process {r}", res, ref["want"], failures)
+            if len(failures) > found:
+                print(lines.getvalue(), end="")
+            differ = same_bits(mine, ref["arrays"])
+            print(f"  {label} process {r}: "
+                  + ("float64 answers held, " if len(failures) == found
+                     else "float64 answers NOT held, ")
+                  + ("bit for bit the one-process pass's results"
+                     if not differ else f"differs from the one-process "
+                     f"pass in {differ[:6]}"))
+            if differ:
+                failures.append(f"{label} process {r}: not bit-equal to "
+                                f"the one-process pass ({differ[:6]})")
+    for rep in reports:
+        ref = keep.get("16c", {}).get("damages")
+        if ref is not None and rep["damages"] != ref:
+            failures.append(f"16c process {rep['rank']}: partials' damage "
+                            f"{rep['damages'][:4]}..., one process "
+                            f"{ref[:4]}...")
+        if NUMPY_REFUSAL not in rep["refused"]:
+            failures.append(f"16d process {rep['rank']}: numpy UDF not "
+                            f"refused ({rep['refused'][:200]})")
+    print(f"  16c {len(reports[0]['damages'])} partials on each process; "
+          f"16d refused on each: "
+          f"{all(NUMPY_REFUSAL in rep['refused'] for rep in reports)}")
+    print("phase 16 summary: " + json.dumps(rows))
     return launches
 
 
@@ -4339,11 +4649,15 @@ def main() -> int:
 
         # -- 15. the multi-device loop, several workers on the card ---------
         t0 = time.perf_counter()
+        keep = {}
         p15 = slice13_phase(lt, path, data, want4, depth, n_blocks, at,
-                            failures)
+                            failures, keep)
         print(f"phase 15: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-15: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 16. two processes on the card, over gloo ------------------------
+        p16 = slice14_phase(keep, path, at, failures)
+
+    print(f"phases 2-16: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -4389,6 +4703,7 @@ def main() -> int:
             **p13,
             **p14,
             **p15,
+            **p16,
         },
         cases=cases,
     ), dict(
@@ -4508,10 +4823,17 @@ def every_card_main() -> int:
        stacks;
     4. phase 7b's numpy UDF beside the fused pass, its maxima exact;
     5. ``run_udf_iter`` with phase 8's patch after the second partial,
-       against the patched float64 answers.
+       against the patched float64 answers;
+    6. phase 16 over NCCL, a process a card (:func:`slice14_phase`):
+       one and two workers a process, passes 2 and 5 with one, and the
+       numpy UDF refused; each process's results against the float64
+       answers and bit for bit against passes 1, 2 and 5 at the same
+       global worker count, the launches of the processes adding up to
+       theirs.
 
     Every worker's sig and single state crosses to card 0 for the
-    fold, and its nav rows to the host.  The last lines are the passes'
+    fold, and its nav rows to the host (in step 6 each process folds
+    on its own card the states gathered over NCCL).  The last lines are the passes'
     JSON summary, the first card's name and power limit, and ``{"ok":
     true, "device": {...}}``."""
     import torch
@@ -4577,14 +4899,17 @@ def every_card_main() -> int:
         # -- 1. the main path, one and two workers a card -----------------
         two = lt.Context(executor=ShardedJobExecutor(
             devices=[d for d in cards for _ in (0, 1)]))
-        for label, c in (
+        keep = {}
+        for label, c, per_card in (
                 ("1 main path, a worker a card (with each card's start-up)",
-                 ctx),
-                ("1 main path, two workers a card", two),
-                ("1 main path, a worker a card", ctx)):
+                 ctx, 1),
+                ("1 main path, two workers a card", two, 2),
+                ("1 main path, a worker a card", ctx, 1)):
             res, secs, count = counted(lambda: c.run_udf(ds, make_udfs(lt)))
             row(label, c, secs, count, n // 1024, data.nbytes)
             check_results(label, res, want4, failures)
+            keep[f"16a {per_card} a process"] = dict(
+                arrays=result_arrays(res), launches=count, want=want4)
         traced_run(ctx, ds, make_udfs(lt), at)
 
         # -- 2. corrections over a roi of every third frame ----------------
@@ -4600,10 +4925,13 @@ def every_card_main() -> int:
             groups * sum(len(s) for s in shard_steps(
                 len(ids), len(cards), 1024)), len(ids) * h * w * 2)
         flat = data.reshape(n, -1)
-        check_roi("2", res, oracle_at(
+        want2 = oracle_at(
             lambda lo, hi: flat[ids[lo:hi]], len(ids), SIG,
             (len(ids) // 2, 2), ring_stack(lt), (64, 64), 32,
-            corrections.make_plan(SIG)), failures)
+            corrections.make_plan(SIG))
+        check_roi("2", res, want2, failures)
+        keep["16b"] = dict(arrays=result_arrays(res), launches=count,
+                           want=want2)
 
         # -- 3. the generic path over half the scan ---------------------------
         half = np.zeros(NAV, dtype=bool)
@@ -4637,10 +4965,13 @@ def every_card_main() -> int:
         new_masks = np.stack([lt.masks.circular(64, 64, w, h, 16),
                               lt.masks.ring(64, 64, w, h, 30, 10)])
 
+        damages = []
+
         def iterate():
             gen = ctx.run_udf_iter(ds, make_udfs(lt))
             last = None
             for i, last in enumerate(gen):
+                damages.append(int(np.count_nonzero(last.damage.data)))
                 if i == 1:
                     gen.update_parameters_experimental([
                         {"mask_factories": [lambda m=m: m
@@ -4658,12 +4989,18 @@ def every_card_main() -> int:
         patched = want4[(0, "intensity")].reshape(n, 2).copy()
         patched[~old] = projections64(data, new_masks.reshape(2, -1),
                                          np.flatnonzero(~old))
-        check_results("5", [final.buffers[ui] for ui in range(5)], {
-            (0, "intensity"): patched.reshape(NAV + (2,)),
-            **{k: v for k, v in want4.items() if k[0] != 0},
-        }, failures)
+        want5 = {(0, "intensity"): patched.reshape(NAV + (2,)),
+                 **{k: v for k, v in want4.items() if k[0] != 0}}
+        check_results("5", [final.buffers[ui] for ui in range(5)], want5,
+                      failures)
+        keep["16c"] = dict(arrays=result_arrays(final.buffers),
+                           launches=count, want=want5, damages=damages)
+        print("every card summary: " + json.dumps(rows))
 
-    print("every card summary: " + json.dumps(rows))
+        # -- 6. phase 16 over NCCL: a process a card -----------------------
+        slice14_phase(keep, path, at, failures, backend="nccl",
+                      devices=[str(c) for c in cards])
+
     if failures:
         for f in failures:
             print("FAIL:", f, file=sys.stderr)
@@ -4679,6 +5016,8 @@ def every_card_main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 3:
+        sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--every-card"]:
         sys.exit(every_card_main())
     if sys.argv[1:2] == ["--time-paths"] and len(sys.argv) == 4:

@@ -227,7 +227,18 @@ class Context:
             :class:`DelayedJobExecutor` (``**kwargs`` go to it)
 
         ``cpus=``/``gpus=`` are refused where the JAX package refuses
-        them; ``gpus`` and ``main_process_gpu`` need a CUDA device."""
+        them; ``gpus`` and ``main_process_gpu`` need a CUDA device.
+
+        Several processes (the JAX package's multi-host branch): call
+        ``torch.distributed.init_process_group(...)`` in each process
+        (``backend="nccl"`` with one card a process, else ``"gloo"``),
+        then ``make_with("sharded")`` and the identical calls on every
+        process.  Its workers are this process's card (``LOCAL_RANK``)
+        or cards, and a run goes over every process's, each reading
+        only its own shards; every process gets the same results.
+        Closing an iterator early or raising in one process leaves the
+        others waiting in a collective until the group's timeout, as
+        in any SPMD program."""
         from .common.exceptions import ExecutorSpecException
 
         limited = ("inline", "synchronous", "dask-integration", "delayed")
@@ -297,10 +308,13 @@ class Context:
         ``io.dataset.detect`` finds, its detected arguments overridden
         by the keywords given.  Without a given ``num_partitions`` the
         dataset splits into at least max(``MIN_PARTITIONS``, 2 x the
-        executor's workers) partitions, as in the JAX package."""
+        executor's workers) partitions, as in the JAX package; under a
+        process group of several processes the workers of every process
+        count, so that every process makes the same partitions."""
         from .io.dataset import make
         ds = make(filetype, *args, **kwargs)
-        workers = self.executor.get_available_workers()
+        workers = (getattr(self.executor, "global_workers", None)
+                   or self.executor.get_available_workers())
         ds.set_num_cores(max(MIN_PARTITIONS, 2 * len(workers)))
         return ds.initialize()
 
@@ -475,9 +489,14 @@ class Context:
         )
 
     def _run_devices(self):
-        """The executor's devices when there are several (the
-        multi-device loop, a worker each), else None (the single-device
+        """The workers of the multi-device loop when there are several
+        (the executor's devices; a ``ShardedJobExecutor``'s
+        ``global_workers`` where they span the processes of a
+        ``torch.distributed`` group), else None (the single-device
         loop)."""
+        workers = getattr(self.executor, "global_workers", None)
+        if workers and len({w.rank for w in workers}) > 1:
+            return workers
         devs = self.executor.devices
         return devs if len(devs) > 1 else None
 

@@ -3,10 +3,14 @@
 
 An executor owns the devices a run may use and runs host functions;
 the run itself (the host feed and the fused or generic step) lives in
-:class:`libertem_tpu_torch.udf.base.UDFRunner`.  There is one
-controller process: the workers are the executor's devices, a worker's
+:class:`libertem_tpu_torch.udf.base.UDFRunner`.  Each process is its
+own controller: the workers are the executor's devices, a worker's
 resource key is ``"CUDA"`` or ``"CPU"`` from its ``torch.device``, and
-the queues and scatter handles below are in-process.
+the queues and scatter handles below are in-process.  Under a
+``torch.distributed`` group of several processes only
+``ShardedJobExecutor`` runs across them (its ``global_workers``); the
+utility API here reports and runs on this process, as the JAX
+package's single-process versions do.
 """
 from __future__ import annotations
 
@@ -358,7 +362,9 @@ class JobExecutor:
         """One row per host, ``{host, cpu, cuda, service}``, as the GUI's
         cluster page reads it: ``cpu`` the advertised CPU-worker count
         (``_cpu_workers`` when set, else the host's workers), ``cuda``
-        the host's workers on a CUDA card."""
+        the host's workers on a CUDA card.  Under a process group of
+        several processes: this process's workers only (the JAX
+        package's version has no multi-process branch either)."""
         workers = self.get_available_workers()
         cpu_workers = getattr(self, "_cpu_workers", None)
         details = []
@@ -384,6 +390,9 @@ class JobExecutor:
             yield fn(p)
 
     def run_each_host(self, fn, *args, **kwargs) -> dict:
+        """``fn`` once, on this process's host (also under a process
+        group of several processes: each runs it for itself, as the
+        JAX package's single-process version does)."""
         return {"localhost": fn(*args, **kwargs)}
 
     def scatter(self, obj):

@@ -173,6 +173,10 @@ class DelayedJobExecutor(JobExecutor):
     def devices(self):
         return self._wrapped.devices
 
+    @property
+    def global_workers(self):
+        return getattr(self._wrapped, "global_workers", None)
+
     def get_available_workers(self):
         return self._wrapped.get_available_workers()
 

@@ -16,9 +16,19 @@ import numpy as np
 def write_dataset_npy(ctx, dataset, path: str, progress=False) -> None:
     """The dataset's frames into a ``.npy`` file of its full shape,
     through RecordUDF on the host engine (which writes each block from
-    the pinned slot in the same read pass; one process, so no
-    multi-process branch)."""
+    the pinned slot in the same read pass).  Under a process group of
+    several processes the host feed is split between them (numpy UDFs
+    are refused there), so each process records the whole dataset on
+    its own main device with an ``InlineJobExecutor``, as the JAX
+    package's multi-host branch does: processes that share a file
+    system give each its own ``path``."""
+    from ..common.distributed import world
     from ..udf.record import RecordUDF
+    if world()[1] > 1:
+        from ..api import Context
+        from ..executor.inline import InlineJobExecutor
+        ctx = Context(executor=InlineJobExecutor(
+            device=ctx.executor.main_device))
     ctx.run_udf(dataset, RecordUDF(filename=path), progress=progress)
 
 

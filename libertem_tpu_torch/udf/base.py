@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import enum
+import hashlib
 import logging
 import os
 import pickle
@@ -1088,10 +1089,20 @@ class UDFRunner:
         ``devices``: with more than one, the run goes to the
         multi-device loop (:meth:`_run_loop_sharded`): one worker per
         entry, a device given twice being two workers on it; a
-        one-entry list runs on that device."""
+        one-entry list runs on that device.
+
+        Under an initialised ``torch.distributed`` group of several
+        processes, ``devices`` (this process's devices, or the
+        :class:`~libertem_tpu_torch.common.distributed.GlobalWorker`
+        list of a ``ShardedJobExecutor``) always takes the multi-device
+        loop, over every process's workers; each process makes the
+        identical call.  Numpy UDFs are refused there."""
+        from ..common import distributed
         from ..common.backend import resolve_device
 
-        if devices is not None and len(devices) > 1:
+        rank, n_proc = distributed.world()
+        refused = None
+        if devices is not None and (len(devices) > 1 or n_proc > 1):
             blocked = [
                 type(u).__name__ for u in self._udfs
                 if not getattr(u, "SUPPORTS_SHARDED", True)
@@ -1115,8 +1126,30 @@ class UDFRunner:
                     "per-partition-identity statistics need the "
                     "single-device loop", ", ".join(part_udfs),
                 )
-            workers = [resolve_device(d) for d in devices]
-            prep = self._prepare(dataset, workers[0], roi, corrections)
+            if all(isinstance(d, distributed.GlobalWorker)
+                   for d in devices):
+                workers = list(devices)
+            else:
+                workers = distributed.global_workers(
+                    [resolve_device(d) for d in devices])
+            local = [w.device for w in workers if w.rank == rank]
+            if not local:
+                raise UDFException(
+                    f"no worker of the run belongs to process {rank}")
+            # the rank's first local worker: copies keyed by device
+            # never reach another process's device
+            prep = self._prepare(dataset, local[0], roi, corrections)
+            prep["dist"] = None if n_proc == 1 else {
+                "rank": rank, "transport": distributed.transport(),
+                "collective_s": 0.0,
+            }
+            if n_proc > 1 and any(e.host for e in prep["plan"]):
+                refused = UDFException(
+                    "numpy-backend UDFs process the host block feed, "
+                    "which is split across processes on a multi-host "
+                    "mesh — run them single-host or on an "
+                    "InlineJobExecutor"
+                )
             loop = self._run_loop_sharded(prep, dataset, progress,
                                           yield_partial, workers)
         else:
@@ -1124,9 +1157,13 @@ class UDFRunner:
                 device = devices[0]
             prep = self._prepare(dataset, resolve_device(device), roi,
                                  corrections)
+            prep["dist"] = None
             loop = self._run_loop(prep, dataset, progress, yield_partial)
         self.run_info = self._run_info(prep)
         try:
+            if refused is not None:
+                # on every rank, before any collective of the run
+                raise refused
             yield from loop
         finally:
             # the final result is wrapped before this: get_results may
@@ -1159,6 +1196,9 @@ class UDFRunner:
                 else int(prep["support"].numel())
             ),
             "compaction": None if fused is None else fused.compaction,
+            # how state crosses processes (None: one process)
+            "transport": (None if prep.get("dist") is None
+                          else prep["dist"]["transport"]),
         }
 
     # -- preparation ---------------------------------------------------
@@ -2134,39 +2174,53 @@ class UDFRunner:
 
     def _run_loop_sharded(self, prep, dataset, progress, yield_partial,
                           workers):
-        """The multi-device loop: one process drives ``workers`` (a
-        ``torch.device`` each; a device given twice is two workers on
-        it).
+        """The multi-device loop: ``workers`` (a
+        :class:`~libertem_tpu_torch.common.distributed.GlobalWorker`
+        each, ``(rank, device)``; a device given twice is two workers on
+        it), driven by this process for its own workers.
 
         The roi-compressed nav axis splits into one contiguous shard
-        per worker.  Every super-step reads each worker's next block of
-        ``depth`` frames in a reader pool (one thread per worker, at
-        most 8), straight into that worker's pinned slot: each worker
-        has its own :class:`HostFeed`, copied on its own side stream.
-        Then the step (fused or generic) runs on each worker's block
-        with that worker's device current, on its current stream.  Nav
-        state is the worker's own (its shard's rows, plus ``depth`` pad
-        rows); sig/single state accumulates per worker and is folded
-        with each UDF's ``merge`` (:meth:`_make_sharded_fold`) for every
-        partial result and the final one; :meth:`_collapse_sharded`
-        places the nav shards.
+        per worker.  Every super-step reads each local worker's next
+        block of ``depth`` frames in a reader pool (one thread per
+        worker, at most 8), straight into that worker's pinned slot:
+        each worker has its own :class:`HostFeed`, copied on its own
+        side stream.  Then the step (fused or generic) runs on each
+        worker's block with that worker's device current, on its
+        current stream.  Nav state is the worker's own (its shard's
+        rows, plus ``depth`` pad rows); sig/single state accumulates per
+        worker and is folded with each UDF's ``merge``
+        (:meth:`_make_sharded_fold`) for every partial result and the
+        final one; :meth:`_collapse_sharded` places the nav shards.
+
+        Under a process group of several processes (counterpart of the
+        JAX package's multi-host branch), every process computes all of
+        the global metadata (ids, bounds, super-steps, damage spans),
+        but reads, copies and steps only the shards of its own workers;
+        the plan is checked to agree on every process before the first
+        read, and the fold and the collapse gather the other processes'
+        states (``common/distributed.py``), so every process wraps the
+        same results.
 
         A source that reads in order only (``supports_concurrent_reads
         = False``, the live ring) takes block-cyclic shards instead:
         super-step ``s`` covers the next ``n_dev * depth`` frames of
         the acquisition, worker ``d`` the ``d``-th run of ``depth`` of
         them, read serially in worker order; the depth is capped so
-        that one super-step fits the source's in-flight window.
+        that one super-step fits the source's in-flight window.  Such a
+        source lives in one process and is refused across several.
 
         Host UDFs process the host copy of each worker's block into one
-        partition buffer per shard, merged in shard order at the end;
-        preprocess and postprocess run once per shard, on the real
-        instances for shard 0 and on clones (with their own task data,
-        cleaned up after their postprocess) for the others.  A
-        parameter patch applies at the next super-step.  One partial
-        result a super-step, then the final one after postprocess."""
+        partition buffer per shard, merged in shard order at the end.
+        Preprocess and postprocess run once per local shard, on the
+        real instances for the process's first shard and on clones
+        (with their own task data, cleaned up after their postprocess)
+        for the others: across processes each shard's hooks run once,
+        in the process that holds its state.  A parameter patch
+        applies at the next super-step.  One partial result a
+        super-step, then the final one after postprocess."""
         from concurrent.futures import ThreadPoolExecutor
 
+        from ..common import distributed
         from .host import HostUDFRunner
 
         n_dev = len(workers)
@@ -2179,6 +2233,13 @@ class UDFRunner:
         partitions = prep["partitions"]
         scheme = prep["scheme"]
         depth = scheme.depth
+        dist_info = prep["dist"]
+        rank = 0 if dist_info is None else dist_info["rank"]
+        # this process's workers, by global index; the devices of the
+        # others are another process's and never touched here
+        local = [d for d, w in enumerate(workers) if w.rank == rank]
+        devs = [w.device for w in workers]
+        main = prep["device"]
 
         # per-stage wall seconds (timing a stage synchronises the
         # devices: set only when measuring)
@@ -2188,6 +2249,9 @@ class UDFRunner:
                 "assembly_s": 0.0, "h2d_s": 0.0, "step_s": 0.0,
                 "host_udf_s": 0.0, "fold_s": 0.0, "wrap_s": 0.0,
                 "n_steps": 0, "n_devices": n_dev,
+                "collective_s": 0.0,
+                "transport": (None if dist_info is None
+                              else dist_info["transport"]),
             }
         self.last_sharded_stats = stats
 
@@ -2238,42 +2302,75 @@ class UDFRunner:
         host_entries = [(ui, e) for ui, e in enumerate(plan) if e.host]
         host = HostUDFRunner(host_entries, prep) if host_entries else None
         host_global = host.init_global() if host else {}
-        host_parts = [host.init_partition() for _ in workers] if host \
+        host_parts = {d: host.init_partition() for d in local} if host \
             else None
-        wpreps = self._worker_preps(prep, workers)
-        states = [self._init_state(wp, shard_max) for wp in wpreps]
-        feeds = [
-            HostFeed((depth, int(np.prod(sig))), dataset.meta.native_dtype,
-                     dev, to_device=on_device, host_reads=host is not None)
-            for dev in workers
-        ]
-        for feed in feeds:
-            feed.open()
+        wpreps = dict(zip(local, self._worker_preps(
+            prep, [devs[d] for d in local])))
+        states = {d: self._init_state(wpreps[d], shard_max) for d in local}
+
         totals = {"read_s": 0.0, "slot_wait_s": 0.0, "wait_s": 0.0,
                   "blocks": 0, "h2d_bytes": 0, "host_s": 0.0,
-                  "workers": [feed.stats for feed in feeds]}
+                  "collective_s": 0.0, "workers": [],
+                  "transport": (None if dist_info is None
+                                else dist_info["transport"])}
         self.feed_stats = totals
+        if dist_info is not None:
+            # what every process must agree on before the first read:
+            # a difference would hang a gather or misplace rows
+            t0 = time.perf_counter()
+            distributed.check_agreement("run plan", {
+                "n_nav": n_nav,
+                "roi": (len(ids_all), hashlib.sha1(
+                    ids_all.astype(np.int64).tobytes()).hexdigest()),
+                "depth": depth,
+                "bounds": bounds.tolist(),
+                "block_cyclic": block_cyclic,
+                "dataset": (tuple(meta.dataset_shape),
+                            str(np.dtype(meta.dataset_dtype))),
+                "input_dtype": str(np.dtype(prep["input_dtype"])),
+                "fused": prep["fused"] is not None,
+                "plan": [
+                    (type(e.udf).__name__, e.host, [
+                        (n, e.decls[n].kind, tuple(t.shape), str(t.dtype))
+                        for n, t in states[local[0]][ui].items()])
+                    for ui, e in enumerate(plan)
+                ],
+            })
+            dist_info["collective_s"] += time.perf_counter() - t0
+            if block_cyclic:
+                raise UDFException(
+                    f"{type(dataset).__name__} reads in order from one "
+                    "process (block-cyclic shards); it cannot feed a run "
+                    "over several processes - run it in one process")
+
+        feeds = {}
+        for d in local:
+            feeds[d] = HostFeed(
+                (depth, int(np.prod(sig))), dataset.meta.native_dtype,
+                devs[d], to_device=on_device, host_reads=host is not None)
+            feeds[d].open()
+            totals["workers"].append(feeds[d].stats)
         # with stats: each worker's copies, waited for by its reader
         h2d_s = [0.0] * n_dev
 
-        # the hooks' instances: shard 0 the real ones, clones for the
-        # others (get_task_data sees the run's coordinates, as in
-        # _prepare)
-        shard_udfs = [list(self._udfs)]
+        # the hooks' instances: the first local shard the real ones,
+        # clones for the others (get_task_data sees the run's
+        # coordinates, as in _prepare)
+        shard_udfs = {local[0]: list(self._udfs)}
         meta.coordinates = np.stack(
             np.unravel_index(ids_all, nav_shape), axis=-1
         ).astype(np.int32).reshape(n_nav, len(nav_shape))
         meta._slice = Slice((0,) * (1 + len(sig)),
                             Shape((n_nav,) + sig, sig_dims=len(sig)))
         try:
-            for _ in range(1, n_dev):
+            for d in local[1:]:
                 clones = []
                 for udf in self._udfs:
                     clone = udf.copy()
                     clone.meta = udf.meta
                     clone.task_data = UDFData(clone.get_task_data() or {})
                     clones.append(clone)
-                shard_udfs.append(clones)
+                shard_udfs[d] = clones
         finally:
             meta.coordinates = None
             meta._slice = None
@@ -2282,7 +2379,7 @@ class UDFRunner:
         for p in partitions:
             p.stop_event = stop
         q: queue.Queue = queue.Queue()
-        pool = ThreadPoolExecutor(max_workers=min(n_dev, 8),
+        pool = ThreadPoolExecutor(max_workers=min(len(local), 8),
                                   thread_name_prefix="shard-reader")
 
         def read_chunk(d, s):
@@ -2320,13 +2417,15 @@ class UDFRunner:
                     if block_cyclic:
                         # in order, one worker after another: the ring
                         # frees what was read
-                        items = [read_chunk(d, s) for d in range(n_dev)]
+                        items = {d: read_chunk(d, s) for d in local}
                     else:
-                        items = list(pool.map(read_chunk, range(n_dev),
-                                              [s] * n_dev))
-                    spans = [(it[1].global_offset,
-                              it[1].global_offset + it[1].valid)
-                             for it in items if it is not None]
+                        items = dict(zip(local, pool.map(
+                            read_chunk, local, [s] * len(local))))
+                    # every worker's block of the step, this process's
+                    # or another's (global knowledge)
+                    spans = [worker_blocks[d][s] for d in range(n_dev)
+                             if s < len(worker_blocks[d])]
+                    frames = sum(hi - lo for lo, hi in spans)
                     if frames_valid_count is not None:
                         # an acquisition that finished early: damage
                         # only the frames that arrived
@@ -2339,7 +2438,7 @@ class UDFRunner:
                         ]
                     if stats:
                         stats["assembly_s"] += time.perf_counter() - t0
-                    q.put(("item", (items, spans)))
+                    q.put(("item", (items, spans, frames)))
                 q.put(("done", None))
             except ReadCancelled:
                 pass
@@ -2351,7 +2450,7 @@ class UDFRunner:
                     else contextlib.nullcontext())
 
         def sync():
-            for dev in set(workers):
+            for dev in {devs[d] for d in local}:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
 
@@ -2397,7 +2496,7 @@ class UDFRunner:
                                   name="shard-reader-main")
 
         try:
-            for d in range(n_dev):
+            for d in local:
                 hook(d, "preprocess")
             thread.start()
             while True:
@@ -2408,21 +2507,22 @@ class UDFRunner:
                     break
                 if kind == "error":
                     raise payload
-                items, spans = payload
+                items, spans, frames = payload
                 if self._params_patched:
                     self._params_patched = False
                     self._apply_param_patch(prep)
-                    wpreps = self._worker_preps(prep, workers)
+                    wpreps = dict(zip(local, self._worker_preps(
+                        prep, [devs[d] for d in local])))
                 t0 = time.perf_counter()
                 # every worker's step first, then the host engine on
                 # the host copies while the devices work
-                for d, item in enumerate(items):
+                for d, item in items.items():
                     if item is None:
                         continue
                     slot, block, loff = item
-                    with on(workers[d]), _full_fp32_matmul():
+                    with on(devs[d]), _full_fp32_matmul():
                         block_t = feeds[d].take(slot)
-                        meta.device = workers[d]
+                        meta.device = devs[d]
                         if prep["fused"] is not None:
                             self._fused_step(
                                 wpreps[d], states[d], states[d], block_t,
@@ -2430,13 +2530,13 @@ class UDFRunner:
                             )
                         elif on_device:
                             coords = torch.from_numpy(block.coords).to(
-                                workers[d])
+                                devs[d])
                             self._generic_step(
                                 wpreps[d], states[d], states[d], block_t,
                                 block.global_offset, coords, block.valid,
                                 loff=loff,
                             )
-                meta.device = workers[0]
+                meta.device = main
                 if stats:
                     sync()
                     t1 = time.perf_counter()
@@ -2445,7 +2545,7 @@ class UDFRunner:
                     t0 = t1
                 if host is not None:
                     th = time.perf_counter()
-                    for d, item in enumerate(items):
+                    for d, item in items.items():
                         if item is not None:
                             _, block, _ = item
                             host.process_block(
@@ -2456,30 +2556,30 @@ class UDFRunner:
                     totals["host_s"] += time.perf_counter() - th
                     if stats:
                         stats["host_udf_s"] += time.perf_counter() - th
-                for d, item in enumerate(items):
+                for d, item in items.items():
                     if item is not None:
-                        with on(workers[d]):
+                        with on(devs[d]):
                             feeds[d].release(item[0])
                 for lo, hi in spans:
                     damage[lo:hi] = True
                 if pm is not None:
-                    pm.frames_done(sum(it[1].valid for it in items
-                                       if it is not None))
+                    pm.frames_done(frames)
                 if yield_partial:
                     yield snapshot(damage.copy())
             # postprocess once a shard, the clones cleaned up after it
             # (the real instances at the run's end: get_results may
             # read their task data)
-            for d in range(n_dev):
+            for d in local:
                 hook(d, "postprocess")
-                if d:
+                if d != local[0]:
                     for udf in shard_udfs[d]:
                         udf.cleanup()
             if host is not None:
-                # each shard's partition buffers, in shard order; the
-                # valid nav mask shows what is merged so far
+                # each shard's partition buffers, in shard order (host
+                # UDFs run in one process); the valid nav mask shows
+                # what is merged so far
                 merged = np.zeros_like(damage)
-                for d in range(n_dev):
+                for d in local:
                     runs = shard_runs[d] or [(0, 0)]
                     meta._valid_nav_mask = merged.copy()
                     try:
@@ -2495,43 +2595,72 @@ class UDFRunner:
                         merged[lo:lo + n] = damage[lo:lo + n]
             yield snapshot(damage)
         finally:
+            # no collective here: after an exception the other
+            # processes meet this one's absence in their next gather
             stop.set()
             if thread.is_alive():
                 thread.join(timeout=60)
             pool.shutdown(wait=True)
-            for feed in feeds:
+            for feed in feeds.values():
                 feed.close()
-            meta.device = workers[0]
+            meta.device = main
             for k in ("read_s", "slot_wait_s", "blocks", "h2d_bytes"):
-                totals[k] = sum(feed.stats[k] for feed in feeds)
+                totals[k] = sum(feed.stats[k] for feed in feeds.values())
+            if dist_info is not None:
+                totals["collective_s"] = dist_info["collective_s"]
             if stats:
                 stats["h2d_s"] = sum(h2d_s)
+                stats["collective_s"] = totals["collective_s"]
             if pm is not None:
                 pm.close()
+
+    def _gathered(self, prep, states, keys, device) -> list:
+        """Every worker's state tensors ``keys`` (``(entry, name)``
+        pairs), a dict each in global worker order, on ``device``: with
+        one process straight from ``states`` (copies where it is another
+        device), else this process's gathered with the others' over the
+        process group (one packed gather; its time in the run's
+        ``collective_s``)."""
+        from ..common import distributed
+
+        dist_info = prep["dist"]
+        local = sorted(states)
+        if dist_info is None:
+            return [{k: states[d][k[0]][k[1]].to(device) for k in keys}
+                    for d in local]
+        t0 = time.perf_counter()
+        gathered = distributed.gather_buffers(
+            [[states[d][ui][n] for ui, n in keys] for d in local], device)
+        dist_info["collective_s"] += time.perf_counter() - t0
+        return [dict(zip(keys, ts)) for ts in gathered]
 
     def _make_sharded_fold(self, prep, workers):
         """The fold of the workers' sig/single states (counterpart of
         the JAX package's ``all_gather`` and traced sequential merge):
-        each worker's state copied to the main device (a copy between
-        cards waits for the current streams of both), folded in worker
-        order with each UDF's ``merge``, worker 0 a copy as ``dest``,
-        with TF32 off as in ``_merge``.  Host entries fold on the host
+        each worker's state on this process's main device (a copy
+        between cards waits for the current streams of both; across
+        processes the gathered copies, :meth:`_gathered`), folded in
+        global worker order with each UDF's ``merge``, worker 0 a copy
+        as ``dest``, with TF32 off as in ``_merge``: every process folds
+        the same states the same way.  Host entries fold on the host
         (``merge_partition``)."""
-        main = workers[0]
+        main = prep["device"]
+        keys = [(ui, n) for ui, e in enumerate(prep["plan"])
+                if not e.host for n in e.part_names]
 
         def fold(states) -> list:
+            per_worker = self._gathered(prep, states, keys, main)
             out = []
             for entry_i, entry in enumerate(prep["plan"]):
                 names = entry.part_names
                 if not names or entry.host:
                     out.append({})
                     continue
-                acc = {n: states[0][entry_i][n].to(main, copy=True)
+                acc = {n: per_worker[0][(entry_i, n)].to(main, copy=True)
                        for n in names}
-                for st in states[1:]:
+                for st in per_worker[1:]:
                     dest = UDFData(dict(acc))
-                    src = UDFData({n: st[entry_i][n].to(main)
-                                   for n in names})
+                    src = UDFData({n: st[(entry_i, n)] for n in names})
                     with _full_fp32_matmul():
                         entry.udf.merge(dest, src)
                     for n in names:
@@ -2544,17 +2673,22 @@ class UDFRunner:
 
     def _collapse_sharded(self, prep, states, bounds, fold) -> list:
         """The workers' states as one run state for ``_wrap_results``:
-        nav shards placed positionally on the host (contiguous windows,
-        or, block-cyclic, worker ``d``'s local row ``(s, k)`` at
-        ``s * n_dev * depth + d * depth + k``: a ``(worker, step,
-        depth) -> (step, worker, depth)`` transpose), sig/single states
-        folded on the main device."""
+        nav shards (gathered across processes) placed positionally on
+        the host (contiguous windows, or, block-cyclic, worker ``d``'s
+        local row ``(s, k)`` at ``s * n_dev * depth + d * depth + k``: a
+        ``(worker, step, depth) -> (step, worker, depth)`` transpose),
+        sig/single states folded on the main device.  The same on every
+        process: the results are replicated."""
         n_nav = prep["n_nav"]
         plan = prep["plan"]
         bc = prep["block_cyclic"]
         folded = (fold(states)
                   if any(e.part_names and not e.host for e in plan)
                   else None)
+        nav_keys = [(ui, n) for ui, e in enumerate(plan)
+                    if not e.host for n in e.nav_names]
+        shards = (self._gathered(prep, states, nav_keys, "cpu")
+                  if nav_keys else [])
         out = []
         for ui, entry in enumerate(plan):
             bufs = {}
@@ -2562,19 +2696,19 @@ class UDFRunner:
                 out.append(bufs)
                 continue
             for n in entry.nav_names:
-                shards = [st[ui][n].to("cpu") for st in states]
-                extra = tuple(shards[0].shape[1:])
+                xs = [sh[(ui, n)] for sh in shards]
+                extra = tuple(xs[0].shape[1:])
                 if bc is not None:
                     bdepth, n_steps = bc
                     inter = torch.stack(
-                        [x[:n_steps * bdepth] for x in shards]
-                    ).reshape((len(shards), n_steps, bdepth) + extra)
+                        [x[:n_steps * bdepth] for x in xs]
+                    ).reshape((len(xs), n_steps, bdepth) + extra)
                     bufs[n] = inter.transpose(0, 1).reshape(
                         (-1,) + extra)[:n_nav].clone()
                 else:
                     bufs[n] = torch.cat([
                         x[:int(bounds[d + 1] - bounds[d])]
-                        for d, x in enumerate(shards)
+                        for d, x in enumerate(xs)
                     ])
             if folded is not None:
                 bufs.update(folded[ui])

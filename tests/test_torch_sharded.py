@@ -606,7 +606,8 @@ def test_abandoned_iterator_ends_readers():
 
 def test_sharded_stats_keys(monkeypatch):
     """LIBERTEM_TPU_SHARDED_STATS: the stage timings of the JAX
-    package's loop, under its keys."""
+    package's loop, under its keys, and the port's collective time and
+    transport (0 and None in one process)."""
     monkeypatch.setenv("LIBERTEM_TPU_SHARDED_STATS", "1")
     data = data16()
     ds, jds = both_ds(data)
@@ -617,7 +618,9 @@ def test_sharded_stats_keys(monkeypatch):
                          libertem_tpu.udf.StdDevUDF()])
     jrunner.run_for_dataset(jds, devices=jax.devices()[:2])
     stats = runner.last_sharded_stats
-    assert set(stats) == set(jrunner.last_sharded_stats)
+    assert set(stats) == set(jrunner.last_sharded_stats) | {
+        "collective_s", "transport"}
+    assert stats["collective_s"] == 0 and stats["transport"] is None
     assert stats["n_devices"] == 2 and stats["n_steps"] >= 1
     assert stats["step_s"] > 0 and stats["assembly_s"] > 0
     assert stats["fold_s"] > 0 and stats["wrap_s"] > 0
