@@ -165,7 +165,24 @@ from the root of the repository.  Phases, each fatal on failure:
     the float64 answers and bit for bit against phase 15's pass at the
     same global worker count; the two processes' launches add up to
     that pass's (64, 64, 44, 64); wall time, each process's
-    ``collective_s`` and the transport are printed.
+    ``collective_s`` and the transport are printed;
+17. the web GUI's path on phase 2's scan with phase 10's parameters and
+    float64 answers, each job with the launch count set to 0 just
+    before and read just after: (a) the port's ``SharedState`` and
+    ``JobEngine`` with a registry that records every broadcast, the
+    ``"local"`` connection (the card), the scan opened as RAW through
+    the GUI's converter; one job each of SUM_FRAMES, SUM_SIG,
+    SD_FRAMES, APPLY_DISK_MASK, APPLY_RING_MASK and CENTER_OF_MASS
+    (phase 10's launches), CoM again with only ``flip_y`` changed (no
+    pass: 0 launches), a DISK job cancelled at its first partial
+    (fewer launches, CANCEL_JOB_DONE, its readers ended within 5 s),
+    CLUST through its controller (phase 10's feature passes; its
+    clustering where scikit-learn imports); (b) where tornado imports,
+    ``make_app`` served on 127.0.0.1 and driven over REST and the
+    websocket, the NPZ downloads bit for bit (a)'s; (c) the notebook
+    the GUI generates for (a)'s DISK and CoM, its cells run here, its
+    results bit for bit (a)'s.  Wall time, GB/s, launches, TASK_RESULT
+    headers and image frames a job are printed.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -1363,12 +1380,14 @@ def check_channels(label, res, want, failures) -> float:
     return worst
 
 
-def analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures) -> dict:
+def analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures,
+                   keep=None) -> dict:
     """Phase 10: the 15 analysis ids through ``Context.run`` on the
     scan, a GUI roi, the CoM regression, ``Context.map`` and RecordUDF,
     each with the launch count set to 0 just before and read just
     after, held against float64 (complex128) numpy answers.  Returns
-    the launch count of each path."""
+    the launch count of each path; ``keep`` gets the results, the
+    analyses and the float64 answers (for phase 17)."""
     import torch
 
     from libertem_tpu_torch.analysis.base import Analysis
@@ -1542,6 +1561,8 @@ def analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures) -> dict:
     os.remove(rec_path)
     if not same or engines_r != ["host"]:
         failures.append(f"10 RecordUDF: bit for bit {same}, {engines_r}")
+    if keep is not None:
+        keep.update(results=results, analyses=analyses, oracle=o)
     return launches
 
 
@@ -4094,6 +4115,507 @@ def slice14_phase(keep, scan, at, failures, backend="gloo",
     return launches
 
 
+# -- phase 17: the web GUI's path ---------------------------------------------
+
+# the fused analysis jobs of 17(a), with phase 10's parameters
+GUI_JOBS = ("SUM_FRAMES", "SUM_SIG", "SD_FRAMES", "APPLY_DISK_MASK",
+            "APPLY_RING_MASK", "CENTER_OF_MASS")
+READERS_END_S = 5.0  # a cancelled job's readers end within this
+
+
+class RecordingRegistry:
+    """The web server's event registry without clients: every broadcast
+    (JSON messages as dicts, PNG frames as bytes) kept in order, each
+    handed to ``on_event`` too."""
+
+    def __init__(self):
+        self.events = []
+        self.on_event = None
+
+    def broadcast_event(self, message, binary=False):
+        import asyncio
+        self.events.append(message)
+        if self.on_event is not None:
+            self.on_event(message)
+        done = asyncio.get_running_loop().create_future()
+        done.set_result(None)
+        return done
+
+
+def job_frames(events, job_id) -> tuple:
+    """(TASK_RESULT headers, PNG frames, whether every header's image
+    count matched the frames right after it, the job's last message
+    type) of one job's broadcasts."""
+    heads = frames = 0
+    matched, pending, last = True, None, None
+    for ev in events:
+        if isinstance(ev, bytes):
+            frames += 1
+            pending = None if pending is None else pending - 1
+            continue
+        if pending:
+            matched = False
+        pending = None
+        if ev.get("job") != job_id:
+            continue
+        kind = ev["messageType"]
+        if kind in ("TASK_RESULT", "FINISH_JOB"):
+            pending = ev["followup"]["numMessages"]
+            heads += kind == "TASK_RESULT"
+        if kind in ("FINISH_JOB", "JOB_ERROR", "CANCEL_JOB_DONE"):
+            last = kind
+    return heads, frames, matched and not pending, last
+
+
+def raw_arrays(result_set) -> dict:
+    """key -> raw result array of an AnalysisResultSet."""
+    return {r.key: np.asarray(r.raw_data) for r in result_set}
+
+
+def same_arrays(a: dict, b: dict, keys=None) -> list:
+    """The keys whose arrays differ in dtype, shape or any bit (nan
+    equal to nan)."""
+    return [k for k in (keys if keys is not None else a)
+            if k not in b or a[k].dtype != b[k].dtype
+            or a[k].shape != b[k].shape
+            or not np.array_equal(a[k], b[k], equal_nan=True)]
+
+
+class PlotStub:
+    """``plt`` of a generated notebook where matplotlib does not
+    import: every attribute, call and item is the stub again."""
+
+    def __getattr__(self, name):
+        return self
+
+    def __call__(self, *args, **kwargs):
+        return self
+
+    def __getitem__(self, key):
+        return self
+
+    def __iter__(self):
+        return iter((self, self))
+
+
+def gui_phase(lt, path, data, keep10, p10, at, failures) -> dict:
+    """Phase 17: the web GUI's path on phase 2's scan, each job with the
+    launch count set to 0 just before and read just after.
+
+    (a) the port's ``SharedState`` and ``JobEngine`` with a registry that
+    records every broadcast: the ``"local"`` connection
+    (``helpers.create_executor``, the card), the scan opened as RAW
+    through ``get_converter("RAW")`` and ``ctx.load``, one job each of
+    GUI_JOBS held against phase 10's float64 answers (and beside phase
+    10's ``Context.run`` results), CoM again with only ``flip_y``
+    changed (``need_rerun`` says no pass), a DISK job cancelled at its
+    first partial (fewer launches, CANCEL_JOB_DONE, its readers ended),
+    and CLUST through its controller (phase 10's two feature passes;
+    the clustering needs scikit-learn);
+    (b) where tornado imports, ``make_app`` served on 127.0.0.1 in a
+    thread and driven with tornado's HTTP and websocket clients, the
+    NPZ downloads bit for bit (a)'s results;
+    (c) the notebook the GUI generates for (a)'s DISK and CoM analyses,
+    its code cells run here (a stub ``plt`` where matplotlib does not
+    import), its results bit for bit (a)'s.
+    Returns the launch count of each job."""
+    import asyncio
+    import logging
+
+    import torch
+
+    from libertem_tpu_torch.analysis.base import Analysis
+    from libertem_tpu_torch.executor.async_adapter import AsyncAdapter
+    from libertem_tpu_torch.io.dataset.converters import get_converter
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.web.engine import JobEngine
+    from libertem_tpu_torch.web.helpers import create_executor
+    from libertem_tpu_torch.web.state import SharedState
+
+    params = analysis_params(lt)
+    o = keep10["oracle"]
+    nbytes = data.nbytes
+    launches, rows, res_a = {}, [], {}
+    clust_launches = p10["CLUST feature passes (std, then M=42) (phase 10)"]
+
+    # the engine logs each channel it cannot render and each failed job;
+    # counted here instead of a traceback apiece on stderr
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    web_log = logging.getLogger("libertem_tpu_torch.web")
+    records = Records()
+    web_log.addHandler(records)
+    web_log.propagate = False
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+    except ImportError:
+        has_pil = False
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    print(f"17: PIL {'imports' if has_pil else 'is not installed'}, "
+          f"matplotlib {'imports' if has_mpl else 'is not installed'} "
+          f"(the channels' images need both)")
+
+    def row(label, secs, count, heads, frames, frames_ok, last,
+            frames_total=None):
+        launches[f"{label} (phase 17)"] = count
+        gbps = nbytes / secs / 1e9
+        rows.append(dict(path=label, wall_s=secs, gbps=gbps,
+                         launches=count, task_results=heads,
+                         images=frames, last=last))
+        print(f"{label}: {secs:.3f} s wall, {gbps:.2f} GB/s of the scan; "
+              f"fused_moments launches {count}; {heads} TASK_RESULT "
+              f"headers, {frames} image frames (each header's count "
+              f"matched: {frames_ok}), ended with {last} {at}")
+        if not frames_ok:
+            failures.append(f"{label}: a header's image count does not "
+                            f"match the frames after it")
+
+    async def drive():
+        state = SharedState()
+        registry = RecordingRegistry()
+        engine = JobEngine(state, registry)
+        sync_ex = create_executor(connection={"type": "local"})
+        await state.executor_state.set_executor(
+            AsyncAdapter(wrapped=sync_ex, pool=AsyncAdapter.make_pool()),
+            {"connection": {"type": "local"}})
+        ctx = await state.executor_state.get_context()
+        print(f"17a local connection: devices "
+              f"{[str(d) for d in ctx.executor.devices]}")
+        converted = get_converter("RAW")().to_python({
+            "type": "RAW", "path": path, "dtype": "uint16",
+            "nav_shape": list(NAV), "sig_shape": list(SIG)})
+        ds = ctx.load("raw", **converted)
+        state.dataset_state.register(
+            "ds-scan", ds, {"params": {"type": "RAW", **converted}},
+            converted)
+
+        async def job(label, an_id, job_id, on_event=None):
+            registry.events = []
+            registry.on_event = on_event
+            fused_moments.launches = 0
+            t0 = time.perf_counter()
+            out = await engine.run_analysis(an_id, job_id)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            count = fused_moments.launches
+            heads, frames, ok, last = job_frames(registry.events, job_id)
+            row(label, secs, count, heads, frames, ok, last)
+            return out, count, last
+
+        for id_ in GUI_JOBS:
+            an = f"an-{id_.lower()}"
+            state.analysis_state.create(an, "ds-scan", id_, params[id_])
+            label = f"17a {id_} job"
+            out, count, last = await job(label, an, f"job-{id_.lower()}")
+            if last != "FINISH_JOB" or out is None:
+                failures.append(f"{label}: ended with {last}")
+                continue
+            if count != p10[f"Context.run {id_} (phase 10)"]:
+                failures.append(f"{label}: {count} launches, phase 10 "
+                                f"{p10[f'Context.run {id_} (phase 10)']}")
+            analysis = Analysis.get_analysis_by_type(id_)(ds, params[id_])
+            e = check_channels(label, out, expected_channels(
+                id_, analysis, o, data), failures)
+            ref = raw_arrays(keep10["results"][id_])
+            got = raw_arrays(out)
+            diff = max(float(np.nanmax(np.abs(
+                got[k].astype(np.float64) - ref[k].astype(np.float64)),
+                initial=0.0)) for k in got)
+            print(f"  {label}: {len(got)} channels, largest relative "
+                  f"error {e:.3g} vs float64; largest difference to phase "
+                  f"10's Context.run {diff:.3g}")
+            res_a[id_] = got
+
+        # only flip_y changes: need_rerun says no pass, the cached
+        # results are post-processed again
+        flipped = {**params["CENTER_OF_MASS"],
+                   "flip_y": not params["CENTER_OF_MASS"]["flip_y"]}
+        state.analysis_state.update("an-center_of_mass", "CENTER_OF_MASS",
+                                    flipped)
+        label = "17a CENTER_OF_MASS job, flip_y changed"
+        out, count, last = await job(label, "an-center_of_mass",
+                                     "job-com-flip")
+        if count != 0 or last != "FINISH_JOB":
+            failures.append(f"{label}: {count} launches, {last}")
+        else:
+            analysis = Analysis.get_analysis_by_type("CENTER_OF_MASS")(
+                ds, flipped)
+            e = check_channels(label, out, expected_channels(
+                "CENTER_OF_MASS", analysis, o, data), failures)
+            print(f"  {label}: largest relative error {e:.3g} vs float64")
+
+        # a DISK job cancelled as its first partial is broadcast
+        state.analysis_state.create("an-cancel", "ds-scan",
+                                    "APPLY_DISK_MASK",
+                                    params["APPLY_DISK_MASK"])
+        removal = []
+
+        def cancel_at_first(ev):
+            if (isinstance(ev, dict) and not removal
+                    and ev.get("messageType") == "TASK_RESULT"):
+                removal.append(asyncio.ensure_future(
+                    state.job_state.remove("job-cancel")))
+
+        label = "17a APPLY_DISK_MASK job, cancelled at its first partial"
+        out, count, last = await job(label, "an-cancel", "job-cancel",
+                                     cancel_at_first)
+        removed = all(await asyncio.gather(*removal)) and bool(removal)
+        t0 = time.perf_counter()
+        while readers_alive() and time.perf_counter() - t0 < READERS_END_S:
+            await asyncio.sleep(0.02)
+        alive = readers_alive()
+        print(f"  {label}: removed {removed}, readers ended "
+              f"{time.perf_counter() - t0:.3f} s after the job returned, "
+              f"{len(alive)} still alive")
+        if (not removed or last != "CANCEL_JOB_DONE" or out is not None
+                or not 0 < count < p10["Context.run APPLY_DISK_MASK "
+                                       "(phase 10)"] or alive):
+            failures.append(f"{label}: removed {removed}, {last}, "
+                            f"{count} launches, {len(alive)} readers")
+
+        # CLUST: its controller runs the two feature passes, then the
+        # clustering (scikit-learn, imported there)
+        state.analysis_state.create("an-clust", "ds-scan", "CLUST",
+                                    params["CLUST"])
+        label = "17a CLUST job through its controller"
+        out, count, last = await job(label, "an-clust", "job-clust")
+        if count != clust_launches:
+            failures.append(f"{label}: {count} launches, phase 10's "
+                            f"feature passes {clust_launches}")
+        try:
+            import sklearn  # noqa: F401
+        except ImportError:
+            msgs = [ev.get("msg", "") for ev in registry.events
+                    if isinstance(ev, dict)
+                    and ev.get("messageType") == "JOB_ERROR"]
+            print(f"  17a CLUST's clustering was not run: scikit-learn is "
+                  f"not installed (its two device passes ran, then the "
+                  f"job ended with JOB_ERROR: {msgs[:1]})")
+            if last != "JOB_ERROR" or not any("sklearn" in m for m in msgs):
+                failures.append(f"{label}: without scikit-learn it ended "
+                                f"with {last} {msgs[:1]}")
+        else:
+            labels = np.asarray(out.intensity.raw_data) if out else None
+            shape = None if labels is None else labels.shape
+            n_clusters = 0 if labels is None else len(np.unique(labels))
+            print(f"  {label}: labels {shape}, {n_clusters} clusters")
+            if last != "FINISH_JOB" or labels is None \
+                    or labels.shape != NAV or not np.isfinite(labels).all():
+                failures.append(f"{label}: {last}")
+        if readers_alive():
+            failures.append("17a: readers alive after the jobs")
+        state.executor_state.shutdown()
+        return converted
+
+    try:
+        converted = asyncio.run(drive())
+    finally:
+        web_log.removeHandler(records)
+        web_log.propagate = True
+    unrendered = sum("visualization failed" in r.getMessage()
+                     for r in records.records)
+    print(f"  17a: {unrendered} channel images not rendered (logged, sent "
+          f"without an image), {len(records.records)} log records of the "
+          f"web modules in all")
+
+    # -- (b) the server, where tornado imports -------------------------------
+    try:
+        import tornado  # noqa: F401
+    except ImportError:
+        print("17(b) was not run: tornado is not installed")
+    else:
+        gui_server(lt, path, params, res_a, row, at, failures)
+
+    # -- (c) the generated notebook ------------------------------------------
+    from libertem_tpu_torch.web.notebook_generator import notebook_for
+    nb = notebook_for("RAW", converted, [
+        {"analysisType": id_, "parameters": params[id_]}
+        for id_ in ("APPLY_DISK_MASK", "CENTER_OF_MASS")])
+    cells = [c for c in nb["cells"] if c["cell_type"] == "code"]
+    ns = {}
+    if not has_mpl:
+        ns["plt"] = PlotStub()
+    for i, cell in enumerate(cells):
+        src = "".join(
+            line for line in cell["source"]
+            if not line.lstrip().startswith("%")
+            and not (not has_mpl and "import matplotlib" in line))
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        exec(compile(src, f"<notebook cell {i}>", "exec"), ns)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if i < 3:
+            continue
+        id_ = ("APPLY_DISK_MASK", "CENTER_OF_MASS")[i - 3]
+        label = f"17c notebook cell {i}, {id_}"
+        count = fused_moments.launches
+        launches[f"{label} (phase 17)"] = count
+        got = raw_arrays(ns.pop("result"))
+        bad = same_arrays(res_a.get(id_, {}), got)
+        print(f"{label}: {secs:.3f} s, fused_moments launches {count}; "
+              f"raw results bit for bit 17a's job: {not bad} {at}")
+        if bad or count != p10[f"Context.run {id_} (phase 10)"]:
+            failures.append(f"{label}: differs in {bad}, {count} launches")
+    print(f"  17c: the notebook's Context on "
+          f"{[str(d) for d in ns['ctx'].executor.devices]}, plt "
+          f"{'matplotlib' if has_mpl else 'a stub'}")
+    ns["ctx"].close()
+    print("phase 17 summary: " + json.dumps(rows))
+    return launches
+
+
+def gui_server(lt, path, params, res_a, row, at, failures) -> None:
+    """Phase 17(b): ``make_app`` on 127.0.0.1 (a free port) in a thread of
+    its own, driven from here with tornado's HTTP and websocket clients:
+    the config lists the card, the scan is detected and opened, a
+    compound analysis with DISK and CoM is made and its jobs PUT, the
+    websocket read until each FINISH_JOB (every header's image count
+    against the frames after it), the NPZ downloads held bit for bit
+    against 17(a), and ``DELETE /api/shutdown/`` ends the server."""
+    import asyncio
+    import io
+    import socket
+
+    import tornado.httpclient
+    import tornado.ioloop
+    import tornado.websocket
+
+    import torch
+
+    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.web.server import make_app
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    ready = threading.Event()
+    served = {}
+
+    def serve():
+        asyncio.set_event_loop(asyncio.new_event_loop())
+        app = make_app()
+        server = app.listen(port, address="127.0.0.1")
+        served["app"] = app
+        loop = tornado.ioloop.IOLoop.current()
+        loop.add_callback(ready.set)
+        try:
+            loop.start()  # until DELETE /api/shutdown/ stops it
+        finally:
+            server.stop()
+            app.shared_state.executor_state.shutdown()
+
+    thread = threading.Thread(target=serve, name="gui-server", daemon=True)
+    thread.start()
+    if not ready.wait(60):
+        failures.append("17b: the server did not start")
+        return
+    jobs = (("an-disk", "APPLY_DISK_MASK"), ("an-com", "CENTER_OF_MASS"))
+
+    async def client():
+        http = tornado.httpclient.AsyncHTTPClient()
+
+        async def call(route, method="GET", body=None):
+            resp = await http.fetch(
+                base + route, method=method, raise_error=False,
+                body=None if body is None else json.dumps(body))
+            return resp.code, resp.body
+
+        code, body = await call("/api/config/")
+        cudas = json.loads(body)["config"]["devices"]["cudas"]
+        print(f"17b /api/config/: {code}, cudas {cudas}")
+        if cudas != list(range(torch.cuda.device_count())):
+            failures.append(f"17b: the config lists cudas {cudas}")
+        code, body = await call("/api/config/connection/", "PUT",
+                                {"connection": {"type": "local"}})
+        if code != 200:
+            failures.append(f"17b connection: {code} {body[:200]}")
+        code, body = await call(f"/api/datasets/detect/?path={path}")
+        print(f"17b detect: {json.loads(body)['messageType']} (a raw file "
+              f"has no header: the GUI's form gives its shape and dtype)")
+        t0 = time.perf_counter()
+        code, body = await call("/api/datasets/ds-b/", "PUT", {"dataset": {
+            "params": {"type": "RAW", "path": path, "dtype": "uint16",
+                       "nav_shape": list(NAV), "sig_shape": list(SIG)}}})
+        opened = json.loads(body)
+        shape = opened.get("details", {}).get("params", {}).get("shape")
+        print(f"17b open (with the kernels' build primed): "
+              f"{time.perf_counter() - t0:.3f} s, {opened['messageType']}, "
+              f"shape {shape}")
+        if opened["messageType"] != "CREATE_DATASET":
+            failures.append(f"17b open: {opened}")
+            return
+        await call("/api/compoundAnalyses/ca-b/", "PUT", {
+            "dataset": "ds-b", "details": {
+                "mainType": "APPLY_DISK_MASK",
+                "analyses": [an for an, _ in jobs]}})
+        for an, id_ in jobs:
+            await call(f"/api/compoundAnalyses/ca-b/analyses/{an}/", "PUT",
+                       {"dataset": "ds-b", "details": {
+                           "analysisType": id_, "parameters": params[id_]}})
+        ws = await tornado.websocket.websocket_connect(
+            base.replace("http://", "ws://") + "/api/events/")
+        await ws.read_message()  # INITIAL_STATE
+        for an, id_ in jobs:
+            job_id = f"job-b-{id_.lower()}"
+            fused_moments.launches = 0
+            t0 = time.perf_counter()
+            code, _ = await call(f"/api/jobs/{job_id}/", "PUT",
+                                 {"job": {"analysis": an}})
+            events = []
+            while True:
+                msg = await asyncio.wait_for(ws.read_message(), 120)
+                if msg is None:
+                    break
+                events.append(msg if isinstance(msg, bytes)
+                              else json.loads(msg))
+                if not isinstance(msg, bytes) and events[-1].get(
+                        "messageType") == "JOB_ERROR":
+                    break
+                fin = [e for e in events if isinstance(e, dict)
+                       and e.get("messageType") == "FINISH_JOB"]
+                if fin and len(events) - events.index(fin[0]) - 1 == \
+                        fin[0]["followup"]["numMessages"]:
+                    break
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            heads, frames, ok, last = job_frames(events, job_id)
+            row(f"17b {id_} job over REST and the websocket", secs,
+                fused_moments.launches, heads, frames, ok, last)
+            code, body = await call(f"/api/compoundAnalyses/ca-b/analyses/"
+                                    f"{an}/download/NPZ/")
+            with np.load(io.BytesIO(body)) as z:
+                got = {k: z[k] for k in z.files}
+            bad = same_arrays(got, res_a.get(id_, {}))
+            print(f"  17b {id_}: NPZ {sorted(got)}, bit for bit 17a's "
+                  f"job: {not bad}")
+            if last != "FINISH_JOB" or bad or not got:
+                failures.append(f"17b {id_}: {last}, differs in {bad}")
+        ws.close()
+        code, body = await call("/api/shutdown/", "DELETE")
+        print(f"17b shutdown: {code} {json.loads(body)['messageType']}")
+        http.close()
+
+    try:
+        asyncio.run(client())
+    finally:
+        thread.join(60)
+    if thread.is_alive():
+        failures.append("17b: the server thread did not end")
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -4625,7 +5147,9 @@ def main() -> int:
         p9 = stage_ablation(u16_blocks, masks_t, depth, dev, at, failures)
 
         # -- 10. the analyses -------------------------------------------------
-        p10 = analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures)
+        keep10 = {}
+        p10 = analyses_phase(ctx, ds, lt, data, want4, tmp, at, failures,
+                             keep10)
 
         # -- 11. the FFT UDFs and the dataset core ----------------------------
         p11 = slice9_phase(ctx, ds, lt, path, data, want4, res6a,
@@ -4657,7 +5181,12 @@ def main() -> int:
         # -- 16. two processes on the card, over gloo ------------------------
         p16 = slice14_phase(keep, path, at, failures)
 
-    print(f"phases 2-16: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 17. the web GUI's path ------------------------------------------
+        t0 = time.perf_counter()
+        p17 = gui_phase(lt, path, data, keep10, p10, at, failures)
+        print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-17: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -4704,6 +5233,7 @@ def main() -> int:
             **p14,
             **p15,
             **p16,
+            **p17,
         },
         cases=cases,
     ), dict(

@@ -132,6 +132,31 @@ class ClusterAnalysis(BaseAnalysis, id_="CLUST"):
             ),
         ])
 
+    async def controller(self, cancel_id=None, executor=None,
+                         job_is_cancelled=None, send_results=None,
+                         ctx=None):
+        """The web job's controller, with the JAX package's async
+        signature: :meth:`run_clustering` on the loop's default
+        executor thread (its two device passes, then the clustering),
+        the final result set sent through ``send_results`` where one is
+        given.  ``ctx``: the Context of the web engine; else one is
+        made over ``executor`` (an async executor's sync side), or over
+        the card."""
+        import asyncio
+
+        if ctx is None:
+            from ..api import Context
+            sync_exec = (executor.ensure_sync() if executor is not None
+                         else None)
+            ctx = Context(executor=sync_exec)
+        loop = asyncio.get_running_loop()
+        result_set = await loop.run_in_executor(
+            None, lambda: self.run_clustering(
+                ctx, job_is_cancelled=job_is_cancelled))
+        if send_results is not None:
+            await send_results(result_set, True)
+        return result_set
+
     def get_udf_results(self, udf_results, roi, damage):
         std = udf_results["std"].data
         return AnalysisResultSet([

@@ -722,6 +722,14 @@ class DataSet:
         return set()
 
     @classmethod
+    def get_msg_converter(cls):
+        """The GUI parameter schema class of this format
+        (``io/dataset/converters.py``), None for a class without
+        one."""
+        from .converters import CLASS_CONVERTERS
+        return CLASS_CONVERTERS.get(cls.__name__)
+
+    @classmethod
     def detect_params(cls, path: str):
         """The loader's arguments for the file at ``path`` if it is of
         this format, else False (``io.dataset.detect``)."""

@@ -211,3 +211,8 @@ class NPYDataSet(DataSet):
     @classmethod
     def get_supported_extensions(cls) -> set:
         return {"npy"}
+
+    @classmethod
+    def get_msg_converter(cls):
+        from .converters import NPYDatasetParams
+        return NPYDatasetParams

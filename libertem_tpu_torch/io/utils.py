@@ -38,3 +38,13 @@ def get_partition_shape(
             break
     pad = len(tuple(dataset_shape.nav)) - len(shape)
     return (1,) * pad + shape
+
+
+def get_owner_name(full_path, stat) -> str:
+    """The user name owning a stat'ed path (its uid where the passwd
+    entry is gone or there is no ``pwd`` module)."""
+    try:
+        import pwd
+        return pwd.getpwuid(stat.st_uid).pw_name
+    except (ImportError, KeyError):
+        return str(stat.st_uid)

@@ -303,7 +303,13 @@ def test_import_leaves_jax_out():
         "          'common.tracing', 'common.threading', 'common.async_utils',\n"
         "          'common.snooze', 'common.scheduler', 'utils.devices',\n"
         "          'io.writers', 'contrib', 'contrib.convert_transposed',\n"
-        "          'viz', 'viz.mpl', 'viz.gms', 'viz.bqp'}\n"
+        "          'viz', 'viz.mpl', 'viz.gms', 'viz.bqp',\n"
+        "          'common.coordinates', 'common.messageconverter',\n"
+        "          'io.fs', 'io.dataset.converters', 'web', 'web.messages',\n"
+        "          'web.rpc', 'web.event_bus', 'web.helpers',\n"
+        "          'web.client_geometry', 'web.state', 'web.engine',\n"
+        "          'web.notebook_generator', 'web.server', 'web.cli',\n"
+        "          'preload', 'versioning', 'contrib.daskadapter'}\n"
         "missing = {m for m in walked if 'libertem_tpu_torch.' + m\n"
         "           not in sys.modules}\n"
         "assert not missing, missing\n"
