@@ -182,7 +182,18 @@ from the root of the repository.  Phases, each fatal on failure:
     websocket, the NPZ downloads bit for bit (a)'s; (c) the notebook
     the GUI generates for (a)'s DISK and CoM, its cells run here, its
     results bit for bit (a)'s.  Wall time, GB/s, launches, TASK_RESULT
-    headers and image frames a job are printed.
+    headers and image frames a job are printed;
+18. the drop-in ``libertem`` namespace, in processes started through
+    ``python -m libertem_tpu_torch.dropin``: (a) ``import libertem.api
+    as lt``, phase 4's UDFs by their reference spellings and
+    ``lt.Context()`` (the card) over phase 2's scan, the launch count
+    set to 0 just before the pass and read just after, its results bit
+    for bit phase 4's with phase 4's launches, the import time and the
+    pass's wall printed; (b) the four example scripts with
+    ``libertem_tpu`` rewritten to ``libertem``, each with its own
+    asserts; (c) the reference spellings of ``tests/test_dropin.py``
+    each the port's object, ``set_use_cuda(0)`` pinning card 0, and
+    neither jax nor the JAX package imported in any of them.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -195,7 +206,8 @@ and ``python3 chip_smoke.py --time-paths DIR
 SCAN`` times the end-to-end passes of the checkout at DIR, for
 comparing two checkouts in turns on one card (:func:`time_paths_main`).
 ``--rank SPEC`` is the mode of phase 16's processes
-(:func:`rank_main`).
+(:func:`rank_main`), ``--dropin-child SPEC`` that of phase 18's
+(:func:`dropin_child_main`, run through the drop-in's runner).
 """
 from __future__ import annotations
 
@@ -4616,6 +4628,255 @@ def gui_server(lt, path, params, res_a, row, at, failures) -> None:
         failures.append("17b: the server thread did not end")
 
 
+# -- phase 18: the drop-in libertem namespace on the card --------------------
+
+DROPIN_TIMEOUT_S = 400
+# more environment for phase 18's processes (a CPU rehearsal pins the
+# CPU here: LIBERTEM_TPU_TORCH_USE_CPU)
+DROPIN_ENV: dict = {}
+
+# the import spellings of tests/test_dropin.py, each with the port's
+# object it must be: (alias module, name, port module)
+DROPIN_SPELLINGS = (
+    ("libertem.udf.base", "UDF", "libertem_tpu_torch.udf.base"),
+    ("libertem.udf.sum", "SumUDF", "libertem_tpu_torch.udf.sum"),
+    ("libertem.udf.stddev", "StdDevUDF", "libertem_tpu_torch.udf.stddev"),
+    ("libertem.udf.masks", "ApplyMasksUDF", "libertem_tpu_torch.udf.masks"),
+    ("libertem.udf.raw", "PickUDF", "libertem_tpu_torch.udf.raw"),
+    ("libertem.udf.com", "CoMUDF", "libertem_tpu_torch.udf.com"),
+    ("libertem.common", "Shape", "libertem_tpu_torch.common.shape"),
+    ("libertem.common", "Slice", "libertem_tpu_torch.common.slice"),
+    ("libertem.common.buffers", "BufferWrapper",
+     "libertem_tpu_torch.common.buffers"),
+    ("libertem.common.container", "MaskContainer",
+     "libertem_tpu_torch.udf.masks"),
+    ("libertem.common.executor", "JobExecutor",
+     "libertem_tpu_torch.executor.base"),
+    ("libertem.corrections", "CorrectionSet",
+     "libertem_tpu_torch.io.corrections"),
+    ("libertem", "masks", "libertem_tpu_torch"),
+    ("libertem.io.dataset", "load", "libertem_tpu_torch.io.dataset"),
+    ("libertem.io.dataset.memory", "MemoryDataSet",
+     "libertem_tpu_torch.io.dataset.memory"),
+    ("libertem.executor.inline", "InlineJobExecutor",
+     "libertem_tpu_torch.executor.inline"),
+    ("libertem.viz", "Dummy2DPlot", "libertem_tpu_torch.viz"),
+    ("libertem.analysis", "COMAnalysis", "libertem_tpu_torch.analysis"),
+)
+
+
+def mixed_modules() -> list:
+    """jax or JAX-package modules in this process."""
+    return sorted(k for k in sys.modules
+                  if k in ("jax", "libertem_tpu")
+                  or k.startswith(("jax.", "libertem_tpu.")))
+
+
+def dropin_child_main(spec_json: str) -> int:
+    """``python -m libertem_tpu_torch.dropin chip_smoke.py --dropin-child
+    SPEC``: phase 18's process (:func:`dropin_phase` starts it).
+    ``SPEC`` is a JSON object: ``scan`` (phase 2's raw file), ``nav``,
+    ``out`` (an .npz path) and ``t_spawn`` (the parent's ``time.time()``
+    when it started this process).  (a) ``import libertem.api as lt`` and
+    phase 4's five UDFs by their reference spellings, ``lt.Context()``
+    (the card), one pass over the scan with the launch count set to 0
+    just before and read just after, its results to ``out``, and a
+    second pass for its time; (c) the reference spellings, each the
+    port's object, the port's card pin, and no jax or JAX-package
+    module.  The last line of the output is a JSON report."""
+    import importlib
+    import types
+
+    spec = json.loads(spec_json)
+    import libertem.api as lt
+    from libertem import masks
+    from libertem.udf.com import CoMUDF
+    from libertem.udf.masks import ApplyMasksUDF
+    from libertem.udf.stddev import StdDevUDF
+    from libertem.udf.sum import SumUDF
+    from libertem.udf.sumsigudf import SumSigUDF
+    # the process start to here: the interpreter, the runner (which
+    # imports the port, torch with it) and the imports through the finder
+    import_s = time.time() - spec["t_spawn"]
+    import torch
+    from libertem.ops.moments import fused_moments
+
+    problems = []
+    ns = types.SimpleNamespace(
+        ApplyMasksUDF=ApplyMasksUDF, CoMUDF=CoMUDF, SumUDF=SumUDF,
+        SumSigUDF=SumSigUDF, StdDevUDF=StdDevUDF, masks=masks)
+    t0 = time.perf_counter()
+    ctx = lt.Context()
+
+    def sync():
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # the process's first CUDA work: the card's context
+    torch.empty(1, device=ctx.device)
+    sync()
+    context_s = time.perf_counter() - t0
+    ds = ctx.load("raw", path=spec["scan"], dtype="uint16",
+                  nav_shape=tuple(spec["nav"]), sig_shape=SIG)
+    # the first pass under cProfile (this thread only; the reader's
+    # thread is not in it), for where a fresh process's first pass goes
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    fused_moments.launches = 0
+    t0 = time.perf_counter()
+    prof.enable()
+    res = ctx.run_udf(ds, make_udfs(ns))
+    sync()
+    prof.disable()
+    wall_s = time.perf_counter() - t0
+    launches = fused_moments.launches
+    report = io.StringIO()
+    pstats.Stats(prof, stream=report).sort_stats("cumulative").print_stats(
+        14)
+    print("18a first pass, cProfile by cumulative time:\n"
+          + "\n".join(ln for ln in report.getvalue().splitlines()
+                      if ln.strip()))
+    np.savez(spec["out"], **result_arrays(res))
+    fused_moments.launches = 0
+    t0 = time.perf_counter()
+    ctx.run_udf(ds, make_udfs(ns))
+    sync()
+    wall2_s = time.perf_counter() - t0
+    launches2 = fused_moments.launches
+
+    # (c) the reference spellings, the pins, the two packages apart
+    for alias, name, real in DROPIN_SPELLINGS:
+        got = getattr(importlib.import_module(alias), name)
+        if got is not getattr(importlib.import_module(real), name):
+            problems.append(f"{alias}.{name} is not {real}.{name}")
+    import libertem
+    import libertem_tpu_torch
+    if libertem.__version__ != libertem_tpu_torch.__version__ \
+            or libertem.Context is not lt.Context:
+        problems.append("libertem.__version__/Context are not the port's")
+    from libertem.common.backend import (
+        get_device_class, resolve_device, set_use_cuda)
+    set_use_cuda(0)
+    if get_device_class() != "cuda" or torch.cuda.is_available() and \
+            resolve_device(None) != torch.device("cuda", 0):
+        problems.append("set_use_cuda(0) does not pin card 0")
+    try:
+        importlib.import_module("libertem_tpu")
+        problems.append("libertem_tpu imported beside the drop-in")
+    except ImportError:
+        pass
+    mixed = mixed_modules()
+    if mixed:
+        problems.append(f"jax or the JAX package imported: {mixed[:5]}")
+    print(json.dumps(dict(
+        import_s=import_s, context_s=context_s, wall_s=wall_s,
+        wall2_s=wall2_s,
+        launches=launches, launches2=launches2,
+        spellings=len(DROPIN_SPELLINGS), device=str(ctx.device),
+        problems=problems)))
+    return 1 if problems else 0
+
+
+def dropin_phase(path, arrays4, launches4, at, failures,
+                 nav=NAV) -> dict:
+    """Phase 18: the drop-in namespace on the card, in processes of
+    their own started through ``python -m libertem_tpu_torch.dropin``:
+    (a) and (c) in :func:`dropin_child_main` (its results bit for bit
+    phase 4's ``arrays4`` with ``launches4`` launches), (b) the four
+    example scripts with ``libertem_tpu`` rewritten to ``libertem``,
+    each on the card with its own asserts and no jax or JAX-package
+    module.  Returns the launch count of (a)'s counted pass."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("LIBERTEM_TPU_TORCH_USE_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(DROPIN_ENV)
+    # custom_udf's numpy UDF warns that it goes to the host engine
+    runner = [sys.executable, "-W", "ignore::UserWarning", "-m",
+              "libertem_tpu_torch.dropin"]
+
+    def run(args, label):
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(runner + args, cwd=root, env=env,
+                                 capture_output=True, text=True,
+                                 timeout=DROPIN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            failures.append(f"18 {label}: outlasted {DROPIN_TIMEOUT_S} s")
+            return None, time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            failures.append(f"18 {label}: exited {out.returncode}")
+            print(f"18 {label} output:\n{out.stdout[-2000:]}"
+                  f"{out.stderr[-3000:]}")
+            return None, secs
+        return out.stdout, secs
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) and (c) ---------------------------------------------------
+        npz = os.path.join(tmp, "dropin.npz")
+        spec = json.dumps(dict(scan=path, nav=list(nav), out=npz,
+                               t_spawn=time.time()))
+        stdout, secs = run([os.path.abspath(__file__), "--dropin-child",
+                            spec], "(a)/(c) child")
+        if stdout is not None:
+            lines = stdout.splitlines()
+            rep = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+            start = [i for i, ln in enumerate(lines)
+                     if ln.startswith("18a first pass, cProfile")]
+            if start:
+                print("\n".join(lines[start[0]:start[0] + 24]))
+            launches["drop-in main path, import libertem.api (phase 18a)"] \
+                = rep["launches"]
+            with np.load(npz) as z:
+                got = {k: z[k] for k in z.files}
+            bad = same_bits(arrays4, got)
+            print(f"18a drop-in main path: process start to import "
+                  f"libertem.api and the five UDFs done {rep['import_s']:.3f}"
+                  f" s (interpreter, torch, the port, the finder), "
+                  f"Context() and the card's context {rep['context_s']:.3f}"
+                  f" s, first pass {rep['wall_s']:.3f} s wall (under "
+                  f"cProfile; second pass "
+                  f"{rep['wall2_s']:.3f} s) on {rep['device']}, "
+                  f"fused_moments launches {rep['launches']} (phase 4: "
+                  f"{launches4}), results bit for bit phase 4's: "
+                  f"{not bad}; process {secs:.1f} s {at}")
+            print(f"18c drop-in spellings: {rep['spellings']} names the "
+                  f"port's, card pin, no jax: {not rep['problems']}")
+            if bad:
+                failures.append(f"18a: results differ from phase 4's in "
+                                f"{bad[:5]}")
+            if rep["launches"] != launches4 or rep["launches2"] != launches4:
+                failures.append(f"18a: {rep['launches']} and "
+                                f"{rep['launches2']} launches, phase 4 "
+                                f"{launches4}")
+
+        # -- (b) the example scripts in the reference spelling -------------
+        for name in EXAMPLES:
+            with open(os.path.join(root, "examples", f"{name}.py")) as f:
+                code = f.read().replace("libertem_tpu", "libertem")
+            script = os.path.join(tmp, f"{name}.py")
+            with open(script, "w") as f:
+                f.write(code + "\n\nimport sys as _sys\n"
+                        "_bad = sorted(k for k in _sys.modules if k in "
+                        "('jax', 'libertem_tpu') or k.startswith(('jax.', "
+                        "'libertem_tpu.')))\n"
+                        "assert not _bad, _bad\n")
+            stdout, secs = run([script], f"(b) example {name}")
+            if stdout is None:
+                continue
+            lines = stdout.strip().splitlines()
+            last = lines[-1] if lines else ""
+            if name == "strain_mapping" and not float(
+                    last.split(":")[1]) < 0.01:
+                failures.append(f"18b {name}: {last}")
+            print(f"18b example {name} through the drop-in: ok in "
+                  f"{secs:.1f} s (process); last line {last!r}")
+    return launches
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -4826,6 +5087,7 @@ def main() -> int:
         print(f"oracle: {time.perf_counter() - t0:.1f} s (float64 numpy)")
         check_results("main", res, want, failures)
         check_engines("main", ctx, [False] * 5, failures)
+        arrays4 = result_arrays(res)
 
         # steady-state rerun, for timing only
         t0 = time.perf_counter()
@@ -5186,7 +5448,12 @@ def main() -> int:
         p17 = gui_phase(lt, path, data, keep10, p10, at, failures)
         print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-17: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 18. the drop-in libertem namespace ------------------------------
+        t0 = time.perf_counter()
+        p18 = dropin_phase(path, arrays4, launches, at, failures)
+        print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-18: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -5234,6 +5501,7 @@ def main() -> int:
             **p15,
             **p16,
             **p17,
+            **p18,
         },
         cases=cases,
     ), dict(
@@ -5548,6 +5816,8 @@ def every_card_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"] and len(sys.argv) == 3:
         sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dropin-child"] and len(sys.argv) == 3:
+        sys.exit(dropin_child_main(sys.argv[2]))
     if sys.argv[1:2] == ["--every-card"]:
         sys.exit(every_card_main())
     if sys.argv[1:2] == ["--time-paths"] and len(sys.argv) == 4:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..common.analysis import AnalysisResult, AnalysisResultSet
+from ..common.math import prod  # noqa: F401  (the JAX module's name)
 from ..udf.raw import PickUDF
 from ..viz.base import visualize_simple
 from .base import BaseAnalysis

@@ -11,31 +11,23 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .common.buffers import BufferWrapper  # noqa: F401  (the JAX API's name)
 from .common.snooze import keep_alive
 from .executor.base import JobExecutor
 from .executor.inline import InlineJobExecutor
 from .io.corrections import CorrectionSet
 from .io.dataset.base import DataSet
-from .udf.base import UDF, UDFResults, UDFRunner
+from .udf.base import (
+    UDF,
+    SingleUDFResults,
+    UDFResults,
+    UDFRunner,
+    executor_devices,
+)
 
 # the least partition count of a loaded dataset; a Context splits into
 # max(MIN_PARTITIONS, 2 x its executor's workers), as the JAX package
 MIN_PARTITIONS = 4
-
-
-class SingleUDFResults(dict):
-    """One UDF's result buffers by name, with attribute access and the
-    run's ``damage`` buffer."""
-
-    def __init__(self, buffers: dict, damage):
-        super().__init__(buffers)
-        self.damage = damage
-
-    def __getattr__(self, k):
-        try:
-            return self[k]
-        except KeyError:
-            raise AttributeError(k) from None
 
 
 class ResultGenerator:
@@ -494,11 +486,7 @@ class Context:
         ``global_workers`` where they span the processes of a
         ``torch.distributed`` group), else None (the single-device
         loop)."""
-        workers = getattr(self.executor, "global_workers", None)
-        if workers and len({w.rank for w in workers}) > 1:
-            return workers
-        devs = self.executor.devices
-        return devs if len(devs) > 1 else None
+        return executor_devices(self.executor)[1]
 
     def _run_device(self) -> torch.device:
         """The device of a run: the executor's main device (the first

@@ -18,6 +18,7 @@ Uses: ``None`` regular, ``'private'`` not part of the final results,
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -258,29 +259,12 @@ class BufferWrapper:
     def valid_slice_bounding(self) -> tuple:
         """The smallest slice tuple of ``data`` that holds every valid
         entry (it may hold invalid ones too)."""
-        vm = self.valid_mask
-        out = []
-        for ax in range(vm.ndim):
-            other = tuple(i for i in range(vm.ndim) if i != ax)
-            nz = np.flatnonzero(vm.any(axis=other))
-            out.append(slice(int(nz[0]), int(nz[-1]) + 1) if len(nz)
-                       else slice(0, 0))
-        return tuple(out)
+        return get_bbox_slice(self.valid_mask)
 
     def get_valid_slice_inner(self, axis: int = 0) -> tuple:
         """The first run along ``axis`` over which every entry of the
         other axes is valid, as a slice tuple of ``data``."""
-        vm = self.valid_mask
-        other = tuple(i for i in range(vm.ndim) if i != axis)
-        nz = np.flatnonzero(vm.all(axis=other))
-        if len(nz) == 0:
-            lo = hi = 0
-        else:
-            lo = int(nz[0])
-            breaks = np.flatnonzero(np.diff(nz) != 1)
-            hi = int(nz[breaks[0]] if len(breaks) else nz[-1]) + 1
-        return tuple(slice(lo, hi) if d == axis else slice(None)
-                     for d in range(vm.ndim))
+        return get_inner_slice(self.valid_mask, axis=axis)
 
     def __array__(self, dtype=None, copy=None):
         arr = self.data
@@ -305,15 +289,74 @@ def _fill_value(dtype: np.dtype):
     return 0
 
 
+class InvalidMaskError(Exception):
+    """A mask that does not fit its array (not bool, or of a shape
+    that does not broadcast to the array's)."""
+
+
+def get_bbox_slice(arr: np.ndarray) -> tuple:
+    """The smallest slice tuple that holds every truthy entry of
+    ``arr`` (``slice(0, 0)`` on an axis without one)."""
+    arr = np.asarray(arr)
+    out = []
+    for ax in range(arr.ndim):
+        other = tuple(i for i in range(arr.ndim) if i != ax)
+        nz = np.flatnonzero(arr.any(axis=other))
+        out.append(slice(int(nz[0]), int(nz[-1]) + 1) if len(nz)
+                   else slice(0, 0))
+    return tuple(out)
+
+
+def get_bbox(arr: np.ndarray) -> tuple:
+    """``(min0, max0, min1, max1, ...)``: the inclusive bounds of the
+    truthy entries of ``arr``."""
+    out = []
+    for sl in get_bbox_slice(arr):
+        out.extend((sl.start, max(sl.start, sl.stop - 1)))
+    return tuple(out)
+
+
+def get_inner_slice(arr: np.ndarray, axis: int = 0) -> tuple:
+    """The first run along ``axis`` over which every entry of the
+    other axes is truthy, as a slice tuple of ``arr``."""
+    arr = np.asarray(arr)
+    other = tuple(i for i in range(arr.ndim) if i != axis)
+    nz = np.flatnonzero((arr != 0).all(axis=other))
+    if len(nz) == 0:
+        lo = hi = 0
+    else:
+        lo = int(nz[0])
+        breaks = np.flatnonzero(np.diff(nz) != 1)
+        hi = int(nz[breaks[0]] if len(breaks) else nz[-1]) + 1
+    return tuple(slice(lo, hi) if d == axis else slice(None)
+                 for d in range(arr.ndim))
+
+
 class ArrayWithMask:
     """A result array bundled with an explicit validity mask, returned
-    from ``UDF.get_results`` via ``UDF.with_mask``."""
+    from ``UDF.get_results`` via ``UDF.with_mask``.  The mask is bool
+    (a Python bool stands for every entry) and broadcasts to the
+    array's shape, else :class:`InvalidMaskError`."""
 
     def __init__(self, arr, mask):
-        self.arr = np.asarray(arr)
-        self.mask = np.broadcast_to(
-            np.asarray(mask, dtype=bool), self.arr.shape
-        )
+        if isinstance(mask, bool):
+            mask = np.array([mask])
+        mask = np.asarray(mask)
+        arr = np.asarray(arr)
+        if mask.dtype != np.dtype(bool):
+            raise InvalidMaskError(
+                f"mask should have dtype=bool (have {mask.dtype})")
+        try:
+            self.mask = np.broadcast_to(mask, arr.shape)
+        except ValueError:
+            raise InvalidMaskError(
+                "arr and mask must have compatible shapes "
+                f"(arr.shape={arr.shape} vs mask.shape={mask.shape})"
+            ) from None
+        self.arr = arr
+
+    def __array__(self, dtype=None, copy=None):
+        return self.arr.astype(dtype) if dtype is not None else self.arr
 
 
 class AuxBufferWrapper(BufferWrapper):
@@ -356,3 +399,159 @@ class AuxBufferWrapper(BufferWrapper):
             return super().data
         finally:
             self._data = prev
+
+    def new_for_partition(self, partition, roi=None) -> "AuxBufferWrapper":
+        """The rows of ``partition``'s nav window, roi-compressed with
+        ``roi`` (a bool array over the dataset's nav)."""
+        new = AuxBufferWrapper(self._kind, self._extra_shape, self._dtype)
+        ps = partition.slice.get(nav_only=True)
+        data = self._aux_data[ps]
+        if roi is not None:
+            data = data[np.asarray(roi).reshape(-1)[ps]]
+        new._aux_data = new._data = data
+        return new
+
+
+class PlaceholderBufferWrapper(BufferWrapper):
+    """A buffer that only exists as a ``get_results`` output
+    (``use='result_only'``); the run allocates no state for it."""
+
+    def __init__(self, kind, extra_shape=(), dtype="float32"):
+        super().__init__(kind, extra_shape, dtype, use="result_only")
+
+    def __array__(self, dtype=None, copy=None):
+        if self._data is None:
+            raise ValueError(
+                "this BufferWrapper has no array associated with it "
+                "(use='result_only' placeholders are filled by "
+                "get_results)"
+            )
+        return super().__array__(dtype, copy)
+
+
+class PreallocBufferWrapper(BufferWrapper):
+    """A BufferWrapper over data that its caller allocated."""
+
+    def __init__(self, data, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._data = data
+
+
+def reshaped_view(a: np.ndarray, shape) -> np.ndarray:
+    """A reshaped view of ``a``; raises AttributeError where
+    ``np.reshape`` would copy."""
+    v = a.view()
+    v.shape = shape
+    return v
+
+
+# Page-aligned host buffers, for O_DIRECT reads of user IO code (the
+# engine's own reads go through ``io.dataset.base.RangeReader``).
+
+def _alloc_aligned(size: int, blocksize: int = 4096):
+    import mmap
+
+    blocks = -(-max(1, int(size)) // blocksize)
+    return mmap.mmap(-1, blocksize * blocks)
+
+
+def bytes_aligned(size: int) -> memoryview:
+    """A page-aligned writable buffer of exactly ``size`` bytes."""
+    return memoryview(_alloc_aligned(size))[:size]
+
+
+def empty_aligned(size, dtype) -> np.ndarray:
+    """``np.empty``, page-aligned."""
+    dtype = np.dtype(dtype)
+    n = prod(size)
+    return np.frombuffer(_alloc_aligned(dtype.itemsize * n),
+                         dtype=dtype)[:n].reshape(size)
+
+
+def zeros_aligned(size, dtype) -> np.ndarray:
+    """``np.zeros``, page-aligned."""
+    if np.dtype(dtype) == object or prod(size) == 0:
+        return np.zeros(size, dtype=dtype)
+    res = empty_aligned(size, dtype)
+    res[:] = 0
+    return res
+
+
+def to_numpy(a) -> np.ndarray:
+    """``a`` as a host ndarray: numpy passes through, a torch tensor is
+    copied to the host; anything else is a TypeError."""
+    if isinstance(a, np.ndarray):
+        return a
+    import torch
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    raise TypeError(f"I don't know how to convert {type(a)} here.")
+
+
+def disjoint(sl, slices) -> bool:
+    """True when the Slice ``sl`` intersects none of ``slices``."""
+    return all(sl.intersection_with(s2).is_null() for s2 in slices)
+
+
+def get_bbox_2d(arr, eps: float = 1e-8) -> tuple:
+    """``(ymin, ymax, xmin, xmax)`` of the entries with
+    ``|value| >= eps``; ``(rows, 0, cols, 0)`` when there is none."""
+    arr = np.asarray(arr)
+    ys, xs = np.nonzero(np.abs(arr) >= eps)
+    if ys.size == 0:
+        return arr.shape[0], 0, arr.shape[1], 0
+    return int(ys.min()), int(ys.max()), int(xs.min()), int(xs.max())
+
+
+class BufferPool:
+    """A free list of aligned allocations, by (size, alignment)."""
+
+    def __init__(self):
+        import collections
+
+        self._buffers = collections.defaultdict(list)
+
+    def checkout_bytes(self, size, alignment):
+        free = self._buffers[(size, alignment)]
+        return free.pop() if free else _alloc_aligned(size, alignment)
+
+    def checkin_bytes(self, size, alignment, buf):
+        self._buffers[(size, alignment)].append(buf)
+
+    @contextlib.contextmanager
+    def bytes(self, size, alignment=4096):
+        buf = self.checkout_bytes(size, alignment)
+        try:
+            yield buf
+        finally:
+            self.checkin_bytes(size, alignment, buf)
+
+    @contextlib.contextmanager
+    def empty(self, size, dtype, alignment=4096):
+        dtype = np.dtype(dtype)
+        n = prod(size)
+        with self.bytes(dtype.itemsize * n, alignment) as buf:
+            yield np.frombuffer(buf, dtype=dtype)[:n].reshape(size)
+
+    @contextlib.contextmanager
+    def zeros(self, size, dtype, alignment=4096):
+        if np.dtype(dtype) == object or prod(size) == 0:
+            yield np.zeros(size, dtype=dtype)
+            return
+        with self.empty(size, dtype, alignment) as res:
+            res[:] = 0
+            yield res
+
+
+class ManagedBuffer:
+    """``size`` bytes checked out of ``pool``, checked back in when the
+    object is collected."""
+
+    def __init__(self, pool, size, alignment):
+        self.pool = pool
+        self.buf = pool.checkout_bytes(size, alignment)
+        self.size = size
+        self.alignment = alignment
+
+    def __del__(self):
+        self.pool.checkin_bytes(self.size, self.alignment, self.buf)

@@ -3,8 +3,11 @@
 
 The run loop reports synchronously: a partition's start, its frames
 after each block (at most every ``min_delta`` seconds) and its
-completion.  Per-partition frame counters are clamped to each
-partition's frame budget, so a completion never counts twice.
+completion.  A dataset with task comms may also stream messages
+(``ProgressManager.connect`` subscribes the ``handle_*`` callbacks;
+a ``PartitionProgressTracker`` sends them).  Per-partition frame
+counters are clamped to each partition's frame budget, so a
+completion never counts twice.
 """
 from __future__ import annotations
 
@@ -12,6 +15,12 @@ import sys
 import threading
 import time
 from typing import NamedTuple, Optional
+
+
+def get_time():
+    """The clock of :class:`PartitionProgressTracker` (a module-level
+    function, so tests can patch it)."""
+    return time.time()
 
 
 class ProgressState(NamedTuple):
@@ -65,7 +74,9 @@ class TQDMProgressReporter(ProgressReporter):
 
 class ProgressManager:
     """Tracks completion and forwards updates to a reporter.
-    ``task_max`` maps partition idents to their frame budgets."""
+    ``task_max`` maps partition idents to their frame budgets;
+    ``sig_size``, the pixels of a frame, turns the element counts of
+    ``tile_complete`` messages into frames."""
 
     def __init__(
         self,
@@ -75,12 +86,14 @@ class ProgressManager:
         progress_id: str = "",
         min_delta: float = 0.1,
         task_max: Optional[dict] = None,
+        sig_size: int = 1,
     ):
         self._num_frames_total = int(num_frames_total)
         self._num_part_total = int(num_part_total)
         self._progress_id = progress_id
         self._task_max = dict(task_max or {})
         self._counters = {k: 0.0 for k in self._task_max}
+        self._sig_size = max(1, int(sig_size))
         self._complete: set = set()
         self._in_progress: set = set()
         # frames and partitions reported without a known ident
@@ -133,6 +146,45 @@ class ProgressManager:
             else:
                 self._anon_frames += n_frames
                 self._anon_parts += 1
+        self._reporter.update(self.state)
+
+    # -- the message path: a TaskCommHandler's topics -------------------
+
+    def connect(self, comms):
+        """Subscribe the ``handle_*`` callbacks on a TaskCommHandler."""
+        comms.subscribe("partition_start", self.handle_start_task)
+        comms.subscribe("partition_complete", self.handle_end_task)
+        comms.subscribe("tile_complete", self.handle_tile_update)
+
+    def handle_start_task(self, topic: str, message: dict):
+        if topic != "partition_start":
+            raise RuntimeError("Unrecognized topic")
+        self.partition_start(message["ident"])
+
+    def handle_end_task(self, topic: str, message: dict):
+        if topic != "partition_complete":
+            raise RuntimeError("Unrecognized topic")
+        t_id = message["ident"]
+        with self._lock:
+            if t_id in self._task_max:
+                self._counters[t_id] = self._task_max[t_id]
+            self._in_progress.discard(t_id)
+            self._complete.add(t_id)
+        self._reporter.update(self.state)
+
+    def handle_tile_update(self, topic: str, message: dict):
+        if topic != "tile_complete":
+            raise RuntimeError("Unrecognized topic")
+        t_id = message["ident"]
+        with self._lock:
+            if t_id not in self._task_max:
+                return
+            if self._counters[t_id] >= self._task_max[t_id]:
+                return
+            self._counters[t_id] = min(
+                self._task_max[t_id],
+                self._counters[t_id] + message["elements"] / self._sig_size,
+            )
         self._reporter.update(self.state)
 
     def close(self, complete: Optional[bool] = None):
@@ -188,3 +240,64 @@ class CommsDispatcher:
                         callback(topic, msg)
                     except Exception:
                         pass
+
+
+class PartitionTrackerNoOp:
+    """The tracker of a partition whose dataset has no task comms: it
+    signals nothing."""
+
+    def signal_start(self, *a, **kw):
+        pass
+
+    def signal_frames_complete(self, *a, **kw):
+        pass
+
+    def signal_complete(self, *a, **kw):
+        pass
+
+
+class PartitionProgressTracker(PartitionTrackerNoOp):
+    """Sends one partition's progress through a worker context, at most
+    once every ``min_message_interval`` seconds, with the elements done
+    since the last message; the first frames are never sent (they
+    carry the start-up costs)."""
+
+    def __init__(self, ident: str, worker_context, sig_size: int,
+                 min_message_interval: float = 1.0):
+        self._ident = ident
+        self._worker_context = worker_context
+        self._sig_size = int(sig_size)
+        self._min_message_interval = min_message_interval
+        self._elements_complete = 0
+        self._last_message_t = None
+
+    def signal_start(self):
+        if self._worker_context is not None:
+            self._worker_context.signal(self._ident, "partition_start", {})
+
+    def _should_send(self, elements: int) -> int:
+        current_t = get_time()
+        self._elements_complete += elements
+        if self._last_message_t is None:
+            self._last_message_t = current_t
+            return 0
+        if current_t - self._last_message_t > self._min_message_interval:
+            out = self._elements_complete
+            self._elements_complete = 0
+            self._last_message_t = current_t
+            return out
+        return 0
+
+    def signal_frames_complete(self, n_frames: int):
+        if self._worker_context is None:
+            return
+        for _ in range(int(n_frames)):
+            send = self._should_send(self._sig_size)
+            if send:
+                self._worker_context.signal(
+                    self._ident, "tile_complete", {"elements": send})
+
+    def signal_complete(self):
+        if self._worker_context is not None:
+            self._worker_context.signal(
+                self._ident, "partition_complete", {})

@@ -28,6 +28,15 @@ def to_sparse(arr):
                          arr.ndim > 2 else arr)
 
 
+def sparse_to_coo(arr):
+    """``arr`` as a scipy.sparse COO matrix; None and numpy arrays pass
+    through."""
+    import scipy.sparse as sp
+    if arr is None or isinstance(arr, np.ndarray):
+        return arr
+    return sp.coo_matrix(arr)
+
+
 def to_backend(arr: np.ndarray, backend):
     """Convert a dense ``(depth, *sig)`` array (or one frame) to the
     named array backend: pydata-sparse formats keep the shape, scipy

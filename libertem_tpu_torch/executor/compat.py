@@ -3,6 +3,7 @@
 executor (one device) or the sharded one (every card)."""
 from __future__ import annotations
 
+from .base import JobExecutor  # noqa: F401
 from .delayed import DelayedJobExecutor  # noqa: F401
 from .inline import InlineJobExecutor
 from .sharded import ShardedJobExecutor

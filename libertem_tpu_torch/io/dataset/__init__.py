@@ -1,5 +1,6 @@
-"""The dataset formats by id, ``make`` (what ``Context.load`` builds)
-and ``detect`` (counterpart of ``libertem_tpu/io/dataset/__init__.py``).
+"""The dataset formats by id, ``make`` (what ``Context.load`` builds),
+``load`` (``make``, then ``initialize``) and ``detect`` (counterpart
+of ``libertem_tpu/io/dataset/__init__.py``).
 
 ``filetypes`` maps a format id to ``"module:ClassName"`` (imported
 when first asked for) or to a class a caller registered, in the JAX
@@ -120,6 +121,13 @@ def make(filetype: str, *args, **kwargs) -> DataSet:
     return get_dataset_cls(filetype)(*args, **kwargs)
 
 
+def load(filetype: str, *args, executor=None, **kwargs) -> DataSet:
+    """The dataset of ``filetype`` (``"auto"``: detected from the path),
+    initialized.  ``executor`` is accepted and not used, as by
+    ``DataSet.initialize``."""
+    return make(filetype, *args, **kwargs).initialize(executor)
+
+
 # format id -> extensions, so that detect() ranks the probes without
 # importing every format's module
 _STATIC_EXTENSIONS = {
@@ -140,10 +148,10 @@ _STATIC_EXTENSIONS = {
 }
 
 
-def detect(path: str) -> Optional[dict]:
+def detect(path: str, executor=None) -> Optional[dict]:
     """``{"type": id, "parameters": {...}}`` of the first format whose
     ``detect_params`` takes the file, those of its extension first;
-    None if none does."""
+    None if none does.  ``executor`` is accepted and not used."""
     ext = os.path.splitext(path)[1].lstrip(".").lower()
     order = sorted(
         filetypes,
@@ -191,7 +199,7 @@ def _detected(path: str, **kwargs) -> DataSet:
     return get_dataset_cls(detected["type"])(**params)
 
 
-def detect_and_load(path: str, **kwargs) -> DataSet:
+def detect_and_load(path: str, executor=None, **kwargs) -> DataSet:
     """The detected format's dataset of ``path``, initialized; keyword
     arguments override the detected parameters."""
-    return _detected(path, **kwargs).initialize()
+    return _detected(path, **kwargs).initialize(executor)

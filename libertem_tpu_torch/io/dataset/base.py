@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from ...common.shape import Shape
+from ...common.math import prod  # noqa: F401  (the JAX module's name)
 from ...common.slice import Slice
+from ..tiling import Negotiator  # noqa: F401  (the JAX module's name)
 from ..tiling import TilingScheme
 
 MAX_PARTITION_SIZE = 512 * 1024 * 1024  # bytes
@@ -582,6 +584,13 @@ class DataSet:
     ``self._meta`` in :meth:`initialize` and yield their Partition
     subclass from :meth:`get_partitions`."""
 
+    MAX_PARTITION_SIZE = MAX_PARTITION_SIZE
+
+    # whether frames may be read at any offset from several threads at
+    # once (the multi-device loop's reader pool); a source that reads
+    # in order only (the live ring) sets this False
+    supports_concurrent_reads: bool = True
+
     def __init__(self, io_backend: Optional["IOBackend"] = None,
                  num_partitions: Optional[int] = None):
         self._meta: Optional[DataSetMeta] = None
@@ -594,8 +603,18 @@ class DataSet:
         (``Context.load`` asks for 4, as the JAX package's does)."""
         self._cores = max(1, int(cores))
 
-    def initialize(self) -> "DataSet":
+    def initialize(self, executor=None) -> "DataSet":
+        """Read the file's metadata; returns self.  ``executor`` (and
+        every format's ``detect_params(path, executor)``) is accepted
+        as in the JAX package and not used: the port reads in the
+        calling process."""
         raise NotImplementedError()
+
+    def get_task_comm_handler(self):
+        """The comm handler of this dataset's partitions: a file-backed
+        dataset streams no messages."""
+        from ...executor.base import NoopCommHandler
+        return NoopCommHandler()
 
     @property
     def meta(self) -> DataSetMeta:
@@ -730,7 +749,7 @@ class DataSet:
         return CLASS_CONVERTERS.get(cls.__name__)
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         """The loader's arguments for the file at ``path`` if it is of
         this format, else False (``io.dataset.detect``)."""
         return False

@@ -96,7 +96,7 @@ class BloDataSet(DataSet):
         self._sync_offset = int(sync_offset)
         self._endianess = endianess
 
-    def initialize(self) -> "BloDataSet":
+    def initialize(self, executor=None) -> "BloDataSet":
         h = read_blo_header(self._path, self._endianess)
         if int(h["MAGIC"]) not in MAGIC_EXPECT:
             raise DataSetException(
@@ -126,7 +126,7 @@ class BloDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith(".blo"):
             return False
         try:

@@ -43,7 +43,7 @@ class DaskDataSet(DataSet):
         self._sig_dims = int(sig_dims)
         self._chunk_sizes = None
 
-    def initialize(self) -> "DaskDataSet":
+    def initialize(self, executor=None) -> "DaskDataSet":
         arr = self._array
         shape = tuple(int(s) for s in arr.shape)
         nav_shape = shape[:len(shape) - self._sig_dims]

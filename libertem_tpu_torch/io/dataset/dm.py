@@ -265,7 +265,7 @@ class SingleDMDataSet(DataSet):
         """The DM tag tree's image description, without a dataset."""
         return parse_dm(path, use_ds)
 
-    def initialize(self) -> "SingleDMDataSet":
+    def initialize(self, executor=None) -> "SingleDMDataSet":
         info = parse_dm(self._path, self._dataset_index)
         if not info.get("c_order", True) and not self._force_c_order:
             raise DataSetException(
@@ -306,7 +306,7 @@ class SingleDMDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith((".dm3", ".dm4")):
             return False
         try:
@@ -372,7 +372,7 @@ class StackedDMDataSet(DataSet):
         # all files share the first one's layout: parse it alone
         self._same_offset = bool(same_offset)
 
-    def initialize(self) -> "StackedDMDataSet":
+    def initialize(self, executor=None) -> "StackedDMDataSet":
         infos = []
         first = 0
         sig_shape = None

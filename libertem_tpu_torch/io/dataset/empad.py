@@ -91,7 +91,7 @@ class EMPADDataSet(DataSet):
         self._sig_override = resolve_sig_override(sig_shape, DETECTOR_SIZE)
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "EMPADDataSet":
+    def initialize(self, executor=None) -> "EMPADDataSet":
         path_raw = self._path
         nav_shape = self._nav_shape
         if self._path.lower().endswith(".xml"):
@@ -119,7 +119,7 @@ class EMPADDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if path.lower().endswith(".xml"):
             try:
                 path_raw, nav_shape = params_from_xml(path)

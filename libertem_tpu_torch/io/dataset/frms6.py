@@ -207,7 +207,7 @@ class FRMS6DataSet(DataSet):
         self._enable_offset_correction = enable_offset_correction
         self._gain_map_path = gain_map_path
 
-    def initialize(self) -> "FRMS6DataSet":
+    def initialize(self, executor=None) -> "FRMS6DataSet":
         dark_file, data_files = _discover(self._path)
         self._dark_file = dark_file
         h0 = read_frms6_header(data_files[0])
@@ -270,7 +270,7 @@ class FRMS6DataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith(".frms6"):
             return False
         try:

@@ -193,7 +193,7 @@ class H5DataSet(DataSet):
         found.sort(key=lambda t: -t[1])
         return [name for name, _ in found]
 
-    def initialize(self) -> "H5DataSet":
+    def initialize(self, executor=None) -> "H5DataSet":
         with _open_h5(self._path) as f:
             if self._ds_path is None:
                 cands = self._find_datasets(f)
@@ -253,6 +253,16 @@ class H5DataSet(DataSet):
     def get_reader(self) -> H5Reader:
         return H5Reader(self._path, self._ds_path)
 
+    def get_cache_key(self) -> dict:
+        """What identifies this dataset's frames: the file, the HDF5
+        dataset in it, the shape and the sync offset."""
+        return {
+            "path": self._path,
+            "ds_path": str(self._ds_path),
+            "shape": tuple(self.shape),
+            "sync_offset": int(self._sync_offset),
+        }
+
     def get_base_shape(self, roi) -> tuple:
         """The smallest efficient tile: the sig chunk of a chunked file,
         a row of the frame otherwise; whole frames with a roi."""
@@ -288,7 +298,7 @@ class H5DataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         """``{"parameters": ..., "info": ...}`` for an HDF5 file: its
         largest dataset of at least 3 dims, the nav as 2-D; the path
         alone where the walk timed out or found none."""

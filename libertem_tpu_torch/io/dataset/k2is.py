@@ -279,7 +279,7 @@ class K2ISDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "K2ISDataSet":
+    def initialize(self, executor=None) -> "K2ISDataSet":
         files = _sector_files(self._path)
         scans = [_scan_sector(f) for f in files]
         # the blocks of each frame_id, per sector
@@ -366,7 +366,7 @@ class K2ISDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith((".gtg", ".bin")):
             return False
         try:

@@ -157,7 +157,7 @@ class LiveDataSet(DataSet):
         self.ring = FrameRing(self._meta.shape.nav.size, sig_shape, dtype,
                               capacity=ring_capacity)
 
-    def initialize(self) -> "LiveDataSet":
+    def initialize(self, executor=None) -> "LiveDataSet":
         return self
 
     @classmethod

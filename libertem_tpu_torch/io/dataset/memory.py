@@ -91,7 +91,7 @@ class MemoryDataSet(DataSet):
         return Shape(tuple(int(s) for s in self._tileshape),
                      sig_dims=self.shape.sig.dims)
 
-    def initialize(self) -> "MemoryDataSet":
+    def initialize(self, executor=None) -> "MemoryDataSet":
         return self
 
     @classmethod

@@ -25,6 +25,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from ...common.shape import Shape
+from ...common.math import prod  # noqa: F401  (the JAX module's name)
 from ...ops.decode import (
     decode_r1,
     decode_r6,
@@ -331,7 +332,7 @@ class MIBDataSet(DataSet):
             raise DataSetException(f"no .mib files for {self._path}")
         return files
 
-    def initialize(self) -> "MIBDataSet":
+    def initialize(self, executor=None) -> "MIBDataSet":
         files = self._discover_files()
         hdr = parse_mib_header(files[0])
         if (hdr["kind"] == "r" and hdr["layout"] not in ("1x1", "Nx1")
@@ -401,7 +402,7 @@ class MIBDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         ext = path.split(".")[-1].lower()
         if ext not in ("mib", "hdr"):
             return False

@@ -78,7 +78,7 @@ class MRCDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "MRCDataSet":
+    def initialize(self, executor=None) -> "MRCDataSet":
         h = read_mrc_header(self._path)
         sig = resolve_sig_override(self._sig_shape, (h["ny"], h["nx"]))
         nav_shape = self._nav_shape or (h["nz"],)
@@ -106,7 +106,7 @@ class MRCDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith((".mrc", ".mrcs", ".rec", ".ali",
                                       ".st")):
             return False

@@ -11,6 +11,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from ...common.shape import Shape
+from .converters import NPYDatasetParams
 from .base import (
     DataSet,
     DataSetException,
@@ -118,7 +119,7 @@ class NPYDataSet(DataSet):
         self._sig_shape = sig_shape
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "NPYDataSet":
+    def initialize(self, executor=None) -> "NPYDataSet":
         info = read_npy_info(self._path)
         shape, dtype, offset = info.shape, info.dtype, info.offset
         if self._sig_shape is not None:
@@ -184,7 +185,7 @@ class NPYDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         """``{"parameters": ..., "info": ...}``: the loader's arguments
         (two sig dims assumed) and the file's frame count and sig."""
         try:
@@ -214,5 +215,4 @@ class NPYDataSet(DataSet):
 
     @classmethod
     def get_msg_converter(cls):
-        from .converters import NPYDatasetParams
         return NPYDatasetParams

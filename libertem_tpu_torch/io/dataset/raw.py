@@ -18,6 +18,9 @@ import numpy as np
 
 from ...common.math import prod
 from ...common.shape import Shape
+from .converters import (  # noqa: F401  (the JAX module's names)
+    RawDatasetParams, RawDatasetParams as RAWDatasetParams,
+)
 from .base import (
     DataSet,
     DataSetException,
@@ -113,7 +116,7 @@ class RawFileDataSet(DataSet):
                 "__init__() missing 1 required argument: 'sig_shape'")
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "RawFileDataSet":
+    def initialize(self, executor=None) -> "RawFileDataSet":
         filesize = os.path.getsize(self._path)
         total_items = filesize // self._dtype.itemsize
         # an empty file (an acquisition in progress) reads as zeros

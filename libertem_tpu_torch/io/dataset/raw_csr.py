@@ -23,6 +23,7 @@ from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 import numpy as np
 
 from ...common.shape import Shape
+from ...common.math import prod  # noqa: F401  (the JAX module's name)
 from ...common.slice import Slice
 from .base import (
     Block,
@@ -296,7 +297,7 @@ class RawCSRDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "RawCSRDataSet":
+    def initialize(self, executor=None) -> "RawCSRDataSet":
         desc = load_descriptor(self._path)
         nav_shape = self._nav_shape or desc["nav_shape"]
         sig_shape = self._sig_shape or desc["sig_shape"]
@@ -334,7 +335,7 @@ class RawCSRDataSet(DataSet):
         return self.get_diagnostics()
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         try:
             if not str(path).lower().endswith(".toml"):
                 return False

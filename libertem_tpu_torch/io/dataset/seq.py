@@ -262,7 +262,7 @@ class SEQDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "SEQDataSet":
+    def initialize(self, executor=None) -> "SEQDataSet":
         h = read_seq_header(self._path)
         if h["bit_depth"] not in (8, 16):
             raise DataSetException(
@@ -327,7 +327,7 @@ class SEQDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith(".seq"):
             return False
         try:

@@ -140,7 +140,7 @@ class SERDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "SERDataSet":
+    def initialize(self, executor=None) -> "SERDataSet":
         idx = read_ser_index(self._path)
         sig = resolve_sig_override(self._sig_shape, idx["sig_shape"])
         self._index = idx
@@ -166,7 +166,7 @@ class SERDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith(".ser"):
             return False
         try:

@@ -123,7 +123,7 @@ class TVIPSDataSet(DataSet):
         self._sig_shape = tuple(sig_shape) if sig_shape else None
         self._sync_offset = int(sync_offset)
 
-    def initialize(self) -> "TVIPSDataSet":
+    def initialize(self, executor=None) -> "TVIPSDataSet":
         files = _series_files(self._path)
         h = read_tvips_header(files[0])
         sig = resolve_sig_override(self._sig_shape, (h["ydim"], h["xdim"]))
@@ -158,7 +158,7 @@ class TVIPSDataSet(DataSet):
             )
 
     @classmethod
-    def detect_params(cls, path: str):
+    def detect_params(cls, path: str, executor=None):
         if not path.lower().endswith(".tvips"):
             return False
         try:

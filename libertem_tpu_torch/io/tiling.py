@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import enum
 import math
-from typing import TYPE_CHECKING, Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence, TypedDict
 
 import numpy as np
 
@@ -37,6 +37,12 @@ TILE_DEPTH_DEFAULT = TileDepthEnum.TILE_DEPTH_DEFAULT
 TILE_DEPTH_MAX = TileDepthEnum.TILE_DEPTH_MAX
 TILE_SIZE_BEST_FIT = TileSizeEnum.TILE_SIZE_BEST_FIT
 TILE_SIZE_MAX = TileSizeEnum.TILE_SIZE_MAX
+
+
+class TilingPreferences(TypedDict):
+    """What ``UDF.get_tiling_preferences`` returns."""
+    depth: object
+    total_size: object
 
 
 class TilingScheme:
@@ -90,8 +96,36 @@ class TilingScheme:
             sig_dims=self._dataset_shape.sig.dims,
         )
 
+    def __getitem__(self, idx: int) -> Slice:
+        return self._sig_slices[idx]
+
     def __len__(self) -> int:
         return len(self._sig_slices)
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, TilingScheme)
+            and self._depth == other._depth
+            and self._sig_slices == other._sig_slices
+            and tuple(self._dataset_shape) == tuple(other._dataset_shape)
+            and self._intent == other._intent
+        )
+
+    def __hash__(self):
+        return hash((self._depth, len(self._sig_slices),
+                     tuple(self._dataset_shape), self._intent))
+
+    def adjust_for_partition(self, partition) -> "TilingScheme":
+        """A partition-intent scheme (a whole partition a tile) made
+        for ``partition``'s depth; any other scheme, or one of that
+        depth already, is returned as it is."""
+        if self._intent != "partition":
+            return self
+        p_depth = int(partition.slice.shape[0])
+        if p_depth == self._depth:
+            return self
+        return TilingScheme(p_depth, self._sig_slices, self._dataset_shape,
+                            self._intent)
 
     def __repr__(self):
         return (
@@ -122,16 +156,32 @@ class Negotiator:
     def get_scheme(
         self,
         udfs: Sequence["UDF"],
-        dataset_shape: Shape,
-        read_dtype,
+        dataset_shape: Optional[Shape] = None,
+        read_dtype=None,
         max_partition_frames: Optional[int] = None,
+        approx_partition_shape: Optional[Shape] = None,
         corrections=None,
         max_io_size: Optional[int] = None,
+        dataset=None,
+        roi=None,
     ) -> TilingScheme:
         """``max_io_size``: the dataset's cap on a block's bytes
-        (``DataSet.get_max_io_size``), below ``TARGET_BLOCK_BYTES``."""
+        (``DataSet.get_max_io_size``), below ``TARGET_BLOCK_BYTES``.
+        The JAX package's calling form also works: ``dataset=`` gives
+        the shape and the cap, ``approx_partition_shape`` the partition
+        depth; ``read_dtype`` defaults to float32, ``roi`` changes
+        nothing (blocks hold the roi's frames at the same depth)."""
+        if dataset is not None:
+            if dataset_shape is None:
+                dataset_shape = dataset.shape
+            if max_io_size is None:
+                max_io_size = dataset.get_max_io_size()
         if max_partition_frames is None:
-            max_partition_frames = dataset_shape.nav.size
+            max_partition_frames = (
+                dataset_shape.nav.size if approx_partition_shape is None
+                else int(tuple(approx_partition_shape)[0]))
+        if read_dtype is None:
+            read_dtype = np.float32
         itemsize = np.dtype(read_dtype).itemsize
         frame_bytes = dataset_shape.sig.size * itemsize
         target_block_bytes = self.TARGET_BLOCK_BYTES

@@ -59,3 +59,10 @@ class FEMUDF(UDF):
         flat = tile.reshape(tile.shape[0], -1)
         vals = flat[:, self._ring_index()].to(torch.float32)
         self.results.intensity += torch.std(vals, dim=1, correction=0)
+
+
+def run_fem(ctx, dataset, center, rad_in, rad_out, roi=None):
+    """:class:`FEMUDF` over ``dataset``: its result buffers by name."""
+    return ctx.run_udf(
+        dataset, FEMUDF(center=center, rad_in=rad_in, rad_out=rad_out),
+        roi=roi)

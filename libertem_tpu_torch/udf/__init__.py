@@ -1,7 +1,7 @@
 """The UDFs of the port: the five of the fused main path, the ones
 that run on the generic path (among them the FFT UDFs: the blobfinder
 correlations and holography), and AutoUDF and RecordUDF."""
-from ..common.exceptions import UDFException
+from ..common.exceptions import UDFException, UDFRunCancelled  # noqa: F401
 from .auto import AutoUDF
 from .base import (
     NoOpUDF,

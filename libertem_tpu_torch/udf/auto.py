@@ -37,6 +37,14 @@ class AutoUDF(UDF):
         super().__init__(f=f, monitor=monitor)
         self._probe = None  # (mode, shape, dtype)
 
+    def auto_buffer(self, var):
+        """A nav buffer of ``var``'s shape and dtype (a numpy array,
+        or a tensor: its dtype as the JAX package would hold it)."""
+        dtype = (_jax_dtype(var.dtype) if isinstance(var, torch.Tensor)
+                 else var.dtype)
+        return self.buffer(kind="nav", extra_shape=tuple(var.shape),
+                           dtype=dtype)
+
     def _probe_f(self) -> tuple:
         if self._probe is not None:
             return self._probe

@@ -78,8 +78,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..common.buffers import ArrayWithMask, AuxBufferWrapper, BufferWrapper
-from ..common.exceptions import UDFException
+from ..common.buffers import (
+    ArrayWithMask,
+    AuxBufferWrapper,
+    BufferWrapper,
+    PlaceholderBufferWrapper,
+)
+from ..common.exceptions import UDFException, UDFRunCancelled  # noqa: F401
 from ..warnings import UseDiscouragedWarning
 from ..common.shape import Shape
 from ..common.slice import Slice
@@ -98,8 +103,12 @@ from ..io.tiling import (
     TILE_SIZE_BEST_FIT,
     TILE_SIZE_MAX,
     Negotiator,
+    TileDepthEnum,  # noqa: F401  (the JAX module's names)
+    TileSizeEnum,  # noqa: F401
+    TilingPreferences,  # noqa: F401
     TilingScheme,
 )
+from ..executor.base import JobCancelledError  # noqa: F401
 from ..ops.moments import fused_moments
 from ..ops.sparse_masks import (
     compaction_pays,
@@ -108,6 +117,39 @@ from ..ops.sparse_masks import (
 )
 
 log = logging.getLogger(__name__)
+
+
+class MergeAttrMapping:
+    """Attribute access over a dict of arrays, for code that builds
+    the ``dest``/``src`` of a host ``merge`` itself: assigning an
+    attribute writes into the array in place (``[:] =``).  The engine
+    passes :class:`UDFData`."""
+
+    def __init__(self, dict_input: dict):
+        object.__setattr__(self, "_dict", dict_input)
+
+    def __iter__(self):
+        return iter(self._dict)
+
+    def __contains__(self, k) -> bool:
+        return k in self._dict
+
+    def __getattr__(self, k):
+        try:
+            return object.__getattribute__(self, "_dict")[k]
+        except KeyError:
+            raise AttributeError(k) from None
+
+    def __setattr__(self, k, v):
+        self._dict[k][:] = v
+
+    def __getitem__(self, k):
+        warnings.warn(
+            "dict-style access on merge arguments is discouraged; "
+            "use attribute access (dest.name)",
+            UseDiscouragedWarning, stacklevel=2,
+        )
+        return self._dict[k]
 
 
 class _LegacyBufferView(np.ndarray):
@@ -218,6 +260,18 @@ class UDFParams:
     def as_dict(self) -> dict:
         return dict(self._kwargs)
 
+    @classmethod
+    def from_udfs(cls, udfs, roi=None, corrections=None,
+                  tiling_scheme=None) -> "UDFParams":
+        """The parameters of a partition run of ``udfs`` as
+        :meth:`UDFPartRunner.run_for_partition` takes them."""
+        return cls({
+            "kwargs": [dict(u._kwargs) for u in udfs],
+            "roi": roi,
+            "corrections": corrections,
+            "tiling_scheme": tiling_scheme,
+        })
+
 
 class UDFMethod(str, enum.Enum):
     """Which ``process_*`` entry point a UDF runs through."""
@@ -248,7 +302,9 @@ class UDFMeta:
     run, and ``slice`` covers them (of the partition, when the engine
     calls it again per partition; ``partition_slice`` too then).
     ``device_class`` is the run's device type (``"cuda"`` or
-    ``"cpu"``), ``corrections`` the run's CorrectionSet or None.
+    ``"cpu"``; a caller building a meta may give it, as
+    ``array_backend``), ``corrections`` the run's CorrectionSet or
+    None.
     """
 
     def __init__(self, dataset_shape: Shape, dataset_dtype, input_dtype,
@@ -257,17 +313,21 @@ class UDFMeta:
                  device: Optional[torch.device] = None,
                  corrections: Optional[CorrectionSet] = None,
                  threads_per_worker: int = 1,
-                 partition_slice: Optional[Slice] = None):
+                 partition_slice: Optional[Slice] = None,
+                 device_class: Optional[str] = None,
+                 array_backend: Optional[str] = None):
         self.dataset_shape = dataset_shape
         self.dataset_dtype = np.dtype(dataset_dtype)
         self.input_dtype = np.dtype(input_dtype)
         self._roi = roi
         self.tiling_scheme = tiling_scheme
         self.device = torch.device("cpu") if device is None else device
-        self.device_class = self.device.type
+        self.device_class = (self.device.type if device_class is None
+                             else device_class)
         self.corrections = corrections
         self.threads_per_worker = threads_per_worker
-        self.array_backend = "torch"
+        self.array_backend = ("torch" if array_backend is None
+                              else array_backend)
         self.coordinates = None
         self.tile_valid = None
         self.valid_frames = None
@@ -370,6 +430,7 @@ class UDF:
     """
 
     USE_NATIVE_DTYPE = np.bool_  # result_type(bool, x) == x
+    UDF_METHOD = UDFMethod
     TILE_SIZE_BEST_FIT = TILE_SIZE_BEST_FIT
     TILE_SIZE_MAX = TILE_SIZE_MAX
     TILE_DEPTH_DEFAULT = TILE_DEPTH_DEFAULT
@@ -416,6 +477,66 @@ class UDF:
         """A new instance with the same constructor arguments."""
         return type(self)(**self._kwargs)
 
+    # -- the worker protocol ----------------------------------------------
+    # The runner binds buffers and meta itself; these are for code that
+    # drives a UDF over one partition by hand, as UDFPartRunner does,
+    # with numpy buffers on the host.
+
+    def copy_for_partition(self, partition, roi=None) -> "UDF":
+        """A new instance to process one partition with."""
+        return type(self)(**self._kwargs)
+
+    def set_backend(self, backend: str) -> None:
+        self._array_backend = backend
+
+    def set_meta(self, meta: "UDFMeta") -> None:
+        self.meta = meta
+
+    def set_slice(self, slc: Slice) -> None:
+        if self.meta is not None:
+            self.meta._slice = slc
+
+    def set_tile_idx(self, idx: int) -> None:
+        if self.meta is not None:
+            self.meta.tiling_scheme_idx = idx
+
+    def init_result_buffers(self, executor=None) -> None:
+        """Declare this instance's result buffers; their shapes are
+        bound by :meth:`allocate_for_part`."""
+        self._part_decls = self.get_result_buffers()
+
+    def allocate_for_part(self, partition, roi) -> None:
+        """Zeroed numpy buffers for one partition's results: a nav
+        buffer holds the partition's frames of the roi, a sig or single
+        buffer its whole shape; a ``result_only`` buffer is None."""
+        decls = getattr(self, "_part_decls", None)
+        if decls is None:
+            self.init_result_buffers()
+            decls = self._part_decls
+        n_sel = partition.frames_in_roi(
+            None if roi is None else np.asarray(roi).reshape(-1))
+        sig = tuple(partition.meta.shape.sig)
+        bufs = {}
+        for name, decl in decls.items():
+            if decl.use == "result_only":
+                bufs[name] = None
+            elif decl.kind == "nav":
+                bufs[name] = np.zeros((n_sel,) + decl.extra_shape,
+                                      dtype=decl.dtype)
+            elif decl.kind == "sig":
+                bufs[name] = np.zeros(sig + decl.extra_shape,
+                                      dtype=decl.dtype)
+            else:  # 'single'
+                bufs[name] = np.zeros(decl.extra_shape or (1,),
+                                      dtype=decl.dtype)
+        self.results = UDFData(bufs)
+
+    def clear_views(self) -> None:
+        pass
+
+    def init_task_data(self) -> None:
+        self.task_data = UDFData(self.get_task_data())
+
     def get_result_buffers(self) -> dict:
         raise NotImplementedError()
 
@@ -423,6 +544,8 @@ class UDF:
     def buffer(kind, extra_shape=(), dtype="float32", where=None, use=None):
         """A result buffer declaration (``where`` is accepted for the
         JAX package's signature; the engine places the state)."""
+        if use == "result_only":
+            return PlaceholderBufferWrapper(kind, extra_shape, dtype)
         return BufferWrapper(kind, extra_shape, dtype, where, use)
 
     @classmethod
@@ -524,6 +647,16 @@ class UDF:
             if b.use != "result_only"
         )
 
+    def requires_custom_merge_all(self, decls: dict) -> bool:
+        """As :meth:`requires_custom_merge`, ``result_only`` buffers
+        counted too: ``merge_all`` must handle them."""
+        return any(b.kind != "nav" for b in decls.values())
+
+
+# the JAX package's name of the protocol of UDF constants; the port's
+# UDF carries them itself
+UDFProtocol = UDF
+
 
 # markers of the process_* and hook methods a UDF implements; the
 # engine finds them by name, so the mixins carry no behaviour
@@ -564,13 +697,38 @@ class NoOpUDF(UDF):
         return {"mode": "noop"}
 
 
-@dataclass
 class UDFResults:
     """One dict of result BufferWrappers per UDF, plus the damage
-    buffer (which nav positions hold merged results)."""
+    buffer (which nav positions hold merged results).  Built from
+    ``buffers_thunk``, the buffers are made when first read."""
 
-    buffers: list
-    damage: BufferWrapper
+    def __init__(self, buffers: Optional[Sequence[dict]] = None,
+                 damage: Optional[BufferWrapper] = None,
+                 buffers_thunk=None):
+        self._buffers = list(buffers) if buffers is not None else None
+        self._buffers_thunk = buffers_thunk
+        self.damage = damage
+
+    @property
+    def buffers(self) -> list:
+        if self._buffers is None:
+            self._buffers = list(self._buffers_thunk())
+        return self._buffers
+
+
+class SingleUDFResults(dict):
+    """One UDF's result buffers by name, with attribute access and the
+    run's ``damage`` buffer."""
+
+    def __init__(self, buffers: dict, damage):
+        super().__init__(buffers)
+        self.damage = damage
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError:
+            raise AttributeError(k) from None
 
 
 def _get_input_dtype(udfs: Sequence[UDF], ds_dtype) -> np.dtype:
@@ -616,6 +774,44 @@ def _full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _canonical_backends(backends) -> tuple:
+    """A backend spec as a tuple (a bare string is one backend)."""
+    if backends is None:
+        return ()
+    if isinstance(backends, str):
+        return (backends,)
+    return tuple(backends)
+
+
+def get_resources_for_backends(udf_backends, user_backends) -> dict:
+    """The resources a run of UDFs with these backends needs, narrowed
+    by the user's restriction: ``CPU`` when every UDF can run on the
+    host engine only, ``CUDA`` when one can run on the device engine
+    only, ``ndarray`` unless a UDF takes bare ``"cuda"``; ValueError
+    when both engines are needed at once."""
+    user = _canonical_backends(user_backends)
+    needs_cuda = needs_cpu = needs_ndarray = 0
+    for backend_set in (_canonical_backends(b) for b in udf_backends):
+        backends = (set(user).intersection(backend_set) if user
+                    else set(backend_set))
+        needs_cuda += backends.isdisjoint(CPU_BACKENDS)
+        needs_cpu += backends.isdisjoint(CUDA_BACKENDS)
+        needs_ndarray += UDF.BACKEND_CUDA not in backends
+    if needs_cuda and needs_cpu:
+        raise ValueError(
+            "There is no common supported UDF backend "
+            f"(have: {udf_backends!r}, limited to {user!r})"
+        )
+    result = {"compute": 1}
+    if needs_cpu:
+        result["CPU"] = 1
+    if needs_cuda:
+        result["CUDA"] = 1
+    if needs_ndarray:
+        result["ndarray"] = 1
+    return result
+
+
 # backend spellings each engine serves
 _HOST_LIKE = frozenset({
     UDF.BACKEND_NUMPY, UDF.BACKEND_SPARSE_COO, UDF.BACKEND_SPARSE_GCXS,
@@ -628,6 +824,12 @@ _DEVICE_LIKE = frozenset({
     UDF.BACKEND_CUPY_SCIPY_COO, UDF.BACKEND_CUPY_SCIPY_CSR,
     UDF.BACKEND_CUPY_SCIPY_CSC,
 })
+# the resource classes of get_resources_for_backends, as the JAX
+# package's: "torch" counts with the CPU ones there, since the process
+# that runs the loop owns the card, so a torch UDF runs wherever it
+# runs; the CUDA ones are the spellings of code written for CuPy
+CPU_BACKENDS = _HOST_LIKE | {UDF.BACKEND_TORCH}
+CUDA_BACKENDS = _DEVICE_LIKE - {UDF.BACKEND_TORCH}
 
 
 class _UDFPlanEntry:
@@ -993,19 +1195,35 @@ class HostFeed:
             self.close()
 
 
+def executor_devices(executor) -> tuple:
+    """``(main device, devices of the multi-device loop or None)`` of
+    an executor: its devices when there are several, a
+    ``ShardedJobExecutor``'s ``global_workers`` where they span the
+    processes of a ``torch.distributed`` group."""
+    workers = getattr(executor, "global_workers", None)
+    if workers and len({w.rank for w in workers}) > 1:
+        return executor.main_device, workers
+    devs = executor.devices
+    return executor.main_device, (devs if len(devs) > 1 else None)
+
+
 class UDFRunner:
     """Runs a set of UDFs over a dataset in one read pass: the device
     UDFs fused when each can join the fused moments op, else generic;
     the host UDFs on the host engine, on the same blocks."""
 
     def __init__(self, udfs: Sequence[UDF], backends=None,
-                 debug: bool = False, threads_per_worker: int = 1):
+                 debug: bool = False, threads_per_worker: int = 1,
+                 progress_reporter=None):
         """``backends`` restricts the engines for this runner's runs;
         ``debug`` round-trips the UDFs through pickle before each run
         (``InlineJobExecutor(debug=True)``); ``threads_per_worker``,
-        the executor's, is the UDFs' ``meta.threads_per_worker``."""
+        the executor's, is the UDFs' ``meta.threads_per_worker``;
+        ``progress_reporter`` is the reporter of a run with
+        ``progress=True`` (a tqdm bar without one)."""
         self._udfs = list(udfs)
         self._debug = debug
+        self._progress_reporter = progress_reporter
         self._threads_per_worker = max(1, int(threads_per_worker))
         self._backends = (
             None if backends is None
@@ -1062,8 +1280,25 @@ class UDFRunner:
                         device: Optional[torch.device] = None,
                         roi: Optional[np.ndarray] = None,
                         corrections: Optional[CorrectionSet] = None,
-                        progress=False, devices=None) -> UDFResults:
-        """The final results of a run (:meth:`run_for_dataset_iter`)."""
+                        progress=False, devices=None, executor=None,
+                        backends=None, dry: bool = False) -> UDFResults:
+        """The final results of a run (:meth:`run_for_dataset_iter`).
+
+        ``executor`` (also as the second positional argument, the JAX
+        package's place for it) gives the devices of the run, as a
+        Context's does; ``backends`` restricts the engines from this
+        run on; ``dry`` returns :meth:`dry_run`'s buffers."""
+        if device is not None and not isinstance(
+                device, (str, torch.device)):
+            executor, device = device, None
+        if executor is not None:
+            main, several = executor_devices(executor)
+            device = main if device is None else device
+            devices = several if devices is None else devices
+        if backends is not None:
+            self._backends = _canonical_backends(backends)
+        if dry:
+            return self.dry_run(dataset, roi=roi)
         gen = self.run_for_dataset_iter(
             dataset, device, roi=roi, corrections=corrections,
             progress=progress, yield_partial=False, devices=devices,
@@ -1072,6 +1307,26 @@ class UDFRunner:
         for _ in gen:  # runs the cleanup
             pass
         return result
+
+    def run_for_dataset_async(self, dataset: DataSet, executor=None,
+                              roi: Optional[np.ndarray] = None,
+                              corrections: Optional[CorrectionSet] = None,
+                              progress=False, cancel_id=None, device=None,
+                              devices=None):
+        """An async generator of the partial results of
+        :meth:`run_for_dataset_iter`, run on a producer thread up to 8
+        partials ahead (as ``Context.run_udf_iter(sync=False)``);
+        ``cancel_id`` is accepted as in the JAX package: closing the
+        generator ends the run."""
+        from ..common.async_utils import async_generator_eager
+        if executor is not None:
+            main, several = executor_devices(executor.ensure_sync())
+            device = main if device is None else device
+            devices = several if devices is None else devices
+        gen = self.run_for_dataset_iter(
+            dataset, device, roi=roi, corrections=corrections,
+            progress=progress, devices=devices)
+        return async_generator_eager(gen, queue_size=8)
 
     def run_for_dataset_iter(self, dataset: DataSet,
                              device: Optional[torch.device] = None,
@@ -1992,7 +2247,8 @@ class UDFRunner:
             TQDMProgressReporter,
         )
         reporter = (progress if isinstance(progress, ProgressReporter)
-                    else TQDMProgressReporter())
+                    else self._progress_reporter
+                    or TQDMProgressReporter())
         parts = prep["partitions"]
         if n_steps is not None:
             return ProgressManager(prep["n_nav"], n_steps, reporter,
@@ -2257,8 +2513,7 @@ class UDFRunner:
 
         ids_all = (np.flatnonzero(roi) if roi is not None
                    else np.arange(n_nav, dtype=np.int64))
-        block_cyclic = not getattr(dataset, "supports_concurrent_reads",
-                                   True)
+        block_cyclic = not dataset.supports_concurrent_reads
         if block_cyclic:
             # one super-step's reads must fit the source's in-flight
             # window, or the producer and the reader block each other
@@ -2819,3 +3074,165 @@ class UDFRunner:
             )
             buffers[name] = out
         return buffers
+
+
+class UDFPartRunner:
+    """Runs UDFs over one partition on the host CPU with numpy, tile by
+    tile (or frame by frame, or the whole partition), through the
+    UDFs' worker protocol (``set_meta``, ``allocate_for_part``, ...):
+    for code that drives partitions by hand, with
+    :meth:`UDFParams.from_udfs`.  The runner's loop never goes through
+    it.  Corrections apply to whole-frame schemes only; a scheme that
+    splits the frame with corrections raises NotImplementedError."""
+
+    def __init__(self, udfs: Sequence[UDF], debug: bool = False):
+        self._udfs = list(udfs)
+        self._debug = debug
+
+    def run_for_partition(self, partition, params, env,
+                          backend_choice=None) -> tuple:
+        """Each UDF's ``results`` (UDFData of numpy buffers over the
+        partition's frames of the roi) after processing ``partition``;
+        ``params`` from :meth:`UDFParams.from_udfs`, ``env`` an
+        ``executor.base.Environment`` (its ``threads_per_worker``)."""
+        roi = params.get("roi")
+        corrections = params.get("corrections")
+        scheme = params.get("tiling_scheme")
+        ds_shape = partition.meta.shape
+        sig = ds_shape.sig
+        if scheme is None:
+            scheme = TilingScheme.make_for_shape(
+                Shape((max(1, min(32, partition.num_frames)),) + tuple(sig),
+                      sig_dims=sig.dims),
+                ds_shape,
+            )
+        if self._debug:
+            for udf in self._udfs:
+                pickle.loads(pickle.dumps(udf._kwargs))
+        have_corr = (corrections is not None
+                     and corrections.have_corrections())
+        if have_corr and len(scheme) > 1:
+            raise NotImplementedError(
+                "UDFPartRunner applies corrections only for whole-sig "
+                "tiling schemes; use Context.run_udf for the corrected "
+                "path"
+            )
+        input_dtype = _get_input_dtype(self._udfs,
+                                       partition.meta.native_dtype)
+        if have_corr and np.dtype(input_dtype).kind not in "fc":
+            input_dtype = np.dtype(np.float32)
+        flat_roi = None if roi is None else np.asarray(roi).reshape(-1)
+        pslice = partition.slice.adjust_for_roi(flat_roi)
+        methods = []
+        for udf in self._udfs:
+            method = udf.get_method()
+            if method not in tuple(UDFMethod):
+                raise UDFException(
+                    f"{type(udf).__name__}.get_method() returned "
+                    f"unrecognized method {method!r}")
+            method = UDFMethod(method).value
+            if not hasattr(udf, f"process_{method}"):
+                raise UDFException(
+                    f"{type(udf).__name__}.get_method() chose {method!r} "
+                    f"but process_{method} is not implemented")
+            methods.append(method)
+            udf.set_backend(UDF.BACKEND_NUMPY)
+            udf.set_meta(UDFMeta(
+                dataset_shape=ds_shape,
+                dataset_dtype=partition.meta.native_dtype,
+                input_dtype=input_dtype, roi=roi, tiling_scheme=scheme,
+                corrections=corrections,
+                threads_per_worker=getattr(env, "threads_per_worker", 1)
+                or 1,
+                partition_slice=pslice, array_backend=UDF.BACKEND_NUMPY,
+            ))
+            udf.init_result_buffers()
+            udf.allocate_for_part(partition, roi)
+            udf.init_task_data()
+            udf._host_mode = True
+            udf.preprocess()
+
+        def corrected(data):
+            data = data.astype(input_dtype, copy=False)
+            if have_corr:
+                data = corrections.apply_numpy(data).astype(
+                    input_dtype, copy=False)
+            return data
+
+        goff0 = partition.roi_offset(flat_roi)
+        try:
+            for udf, method in zip(self._udfs, methods):
+                if method == "partition":
+                    data = partition._read_selected_with_offset(
+                        partition.local_frame_ids(flat_roi))
+                    udf.meta._slice = pslice
+                    udf.meta.sig_slice = scheme[0]
+                    udf.process_partition(corrected(data))
+                    continue
+                for tile in partition.get_tiles(scheme, roi=flat_roi):
+                    self._run_tile(udf, method, tile, corrected(tile.data),
+                                   scheme, sig, goff0)
+        finally:
+            for udf in self._udfs:
+                try:
+                    udf.postprocess()
+                finally:
+                    udf._host_mode = False
+                    if udf.meta is not None:
+                        udf.meta._slice = None
+        return tuple(udf.results for udf in self._udfs)
+
+    @staticmethod
+    def _run_tile(udf, method, tile, data, scheme, sig, goff0) -> None:
+        """One tile through ``udf``: its buffers bound as views of the
+        tile's nav rows (and of the sig tile, written back after)."""
+        sig_slice = scheme[tile.scheme_idx]
+        whole_sig = tuple(sig_slice.shape) == tuple(sig)
+        udf.set_slice(tile.tile_slice)
+        udf.set_tile_idx(tile.scheme_idx)
+        udf.meta.sig_slice = sig_slice
+        r0 = tile.tile_slice.origin[0] - goff0
+        n = tile.tile_slice.shape[0]
+        full = udf.results
+        views = {}
+        sig_wb = []
+        for name, decl in udf._part_decls.items():
+            arr = full._get(name)
+            if decl.use == "result_only":
+                views[name] = None
+            elif decl.kind == "nav":
+                views[name] = arr[r0:r0 + n]
+            elif decl.kind == "sig" and not whole_sig:
+                idx = sig_slice.get() + (slice(None),) * len(
+                    decl.extra_shape)
+                cont = np.ascontiguousarray(arr[idx])
+                views[name] = cont
+                sig_wb.append((arr, idx, cont))
+            else:
+                views[name] = arr
+        udf.results = UDFData(views)
+        try:
+            if method == "tile":
+                udf.process_tile(data)
+                return
+            if not whole_sig:
+                raise UDFException(
+                    "process_frame needs whole frames but the tiling "
+                    "scheme splits the signal dimensions")
+            origin = tile.tile_slice.origin
+            for i in range(n):
+                udf.results = UDFData({
+                    k: (v[i:i + 1] if v is not None
+                        and udf._part_decls[k].kind == "nav" else v)
+                    for k, v in views.items()
+                })
+                udf.meta._slice = Slice(
+                    origin=(origin[0] + i,) + tuple(origin[1:]),
+                    shape=Shape((1,) + tuple(tile.tile_slice.shape)[1:],
+                                sig_dims=sig.dims),
+                )
+                udf.process_frame(data[i])
+        finally:
+            for arr, idx, cont in sig_wb:
+                arr[idx] = cont
+            udf.results = full

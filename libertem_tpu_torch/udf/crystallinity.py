@@ -77,3 +77,14 @@ class CrystallinityUDF(UDF):
             frames = frames * real_mask
         spec = torch.fft.fft2(frames).abs()
         self.results.intensity += (spec * fmask).sum(dim=(1, 2))
+
+
+def run_analysis_crystall(ctx, dataset, rad_in, rad_out, real_center=None,
+                          real_rad=None, roi=None, progress=False):
+    """:class:`CrystallinityUDF` over ``dataset``: its result buffers by
+    name."""
+    return ctx.run_udf(
+        dataset,
+        CrystallinityUDF(rad_in=rad_in, rad_out=rad_out,
+                         real_center=real_center, real_rad=real_rad),
+        roi=roi, progress=progress)

@@ -40,6 +40,12 @@ class HostUDFRunner:
         # instances)
         self._bound = (None, [], None)
 
+    def refresh_aux(self, prep) -> None:
+        """Bind this runner to ``prep``'s aux rows.  The runner reads
+        ``prep["aux_host"]`` at every block, so a parameter patch,
+        which rebuilds it in the run's own ``prep``, needs no call."""
+        self.prep = prep
+
     def _aux(self, ui) -> dict:
         return self.prep["aux_host"][ui]
 

@@ -54,3 +54,9 @@ class LogsumUDF(UDF):
 
     def merge(self, dest, src):
         dest.logsum = dest.logsum + src.logsum
+
+
+def run_logsum(ctx, dataset, roi=None, progress=False):
+    """:class:`LogsumUDF` over ``dataset``: its result buffers by
+    name."""
+    return ctx.run_udf(dataset, LogsumUDF(), roi=roi, progress=progress)

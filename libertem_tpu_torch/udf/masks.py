@@ -17,11 +17,13 @@ requests run on the host engine in numpy, in 64 bits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..common.slice import Slice
 from ..common.sparse import is_sparse, to_dense
 from ..ops.sparse_masks import (
     compaction_pays,
@@ -57,10 +59,12 @@ class TileOperand:
 class MaskContainer:
     """Evaluates mask factories once into a dense stack.
 
-    ``use_sparse`` (True, False, ``"scipy.sparse..."``,
-    ``"sparse.pydata..."`` or None: sparse when every factory returns a
-    sparse mask) is the declared sparse policy; the computation is
-    dense or block-compacted either way (:meth:`get_compaction`)."""
+    ``use_sparse`` (True: ``default_sparse``; False;
+    ``"scipy.sparse..."``; ``"sparse.pydata..."``; or None: sparse when
+    every factory returns a sparse mask) is the declared sparse policy;
+    the run's computation is dense or block-compacted either way
+    (:meth:`get_compaction`).  ``backend`` is the array backend of the
+    operands :meth:`get` hands out (numpy)."""
 
     def __init__(
         self,
@@ -68,6 +72,8 @@ class MaskContainer:
         dtype=None,
         use_sparse=None,
         count: Optional[int] = None,
+        backend=None,
+        default_sparse="scipy.sparse",
     ):
         self._factories = mask_factories
         self._dtype = dtype
@@ -75,10 +81,19 @@ class MaskContainer:
         self._stack: Optional[np.ndarray] = None  # (n_masks, *sig)
         self._all_sparse_factories = False
         self._compactions: dict = {}
+        self._slicers: dict = {}
+        self._sig_ops: dict = {}
+        self.backend = "numpy" if backend is None else backend
+        self._default_sparse = default_sparse
         if use_sparse is True:
-            self._use_sparse = "scipy.sparse"
-        elif use_sparse is False or use_sparse is None:
-            self._use_sparse = use_sparse
+            self._use_sparse = default_sparse
+        elif use_sparse is False:
+            self._use_sparse = False
+        elif use_sparse is None:
+            # pydata sparse cannot serve a CuPy-style backend
+            self._use_sparse = (
+                False if default_sparse.startswith("sparse.pydata")
+                and str(self.backend).startswith("cupy") else None)
         elif isinstance(use_sparse, str) and use_sparse.lower().startswith(
                 ("scipy.sparse", "sparse.pydata")):
             self._use_sparse = use_sparse
@@ -90,9 +105,83 @@ class MaskContainer:
         if self._use_sparse is None:
             self.compute_stack(None)
             self._use_sparse = (
-                "scipy.sparse" if self._all_sparse_factories else False
+                self._default_sparse if self._all_sparse_factories
+                else False
             )
         return self._use_sparse
+
+    @property
+    def dtype(self):
+        if self._dtype is not None:
+            return self._dtype
+        return self.computed_masks.dtype
+
+    @property
+    def computed_masks(self) -> np.ndarray:
+        """The dense ``(n_masks, *sig)`` stack."""
+        return self.compute_stack(None)
+
+    def __len__(self) -> int:
+        return self.n_masks
+
+    def get(self, key: Slice, dtype=None, sparse_backend=None,
+            transpose=True, backend=None):
+        """:meth:`get_masks_for_slice` of ``key``'s sig part (its nav
+        part is dropped, so the tiles of one sig slice share an
+        entry)."""
+        if not isinstance(key, Slice):
+            raise TypeError(
+                "MaskContainer.get() can only be called with "
+                "DataTile/Slice/Partition instances"
+            )
+        return self.get_masks_for_slice(
+            key.discard_nav(), dtype=dtype, sparse_backend=sparse_backend,
+            transpose=transpose, backend=backend or self.backend,
+        )
+
+    def get_masks_for_slice(self, slice_: Slice, dtype=None,
+                            sparse_backend=None, transpose=True,
+                            backend="numpy"):
+        """The stack under a sig slice, flattened: ``(pixels, n_masks)``
+        (``transpose``) or ``(n_masks, pixels)``, dense or, with a
+        sparse backend, scipy.sparse (CSR, or CSC for a name ending in
+        ``csc``) or pydata COO; cached per slice and arguments."""
+        if dtype is None:
+            dtype = self.dtype
+        if sparse_backend is None:
+            sparse_backend = self.use_sparse
+        key = (np.dtype(dtype), sparse_backend, transpose, backend)
+        if key not in self._slicers:
+            self._slicers[key] = functools.lru_cache(maxsize=None)(
+                functools.partial(self._slice_operand, np.dtype(dtype),
+                                  sparse_backend, transpose))
+        return self._slicers[key](slice_.discard_nav())
+
+    def _slice_operand(self, dtype, sparse_backend, transpose, slc: Slice):
+        stack = self.computed_masks
+        sub = stack[(slice(None),) + slc.get(sig_only=True)]
+        flat = sub.reshape(sub.shape[0], -1).astype(dtype)
+        out = np.ascontiguousarray(flat.T if transpose else flat)
+        if not sparse_backend:
+            return out
+        sb = str(sparse_backend).lower()
+        if sb.startswith("sparse.pydata"):
+            import sparse as pydata_sparse
+            return pydata_sparse.COO.from_numpy(out)
+        import scipy.sparse as sp
+        return sp.csc_matrix(out) if sb.endswith("csc") else sp.csr_matrix(out)
+
+    def get_for_sig_slice(self, sig_slice: Slice, sig_shape,
+                          dtype) -> torch.Tensor:
+        """The ``(tile pixels, n_masks)`` operand of one sig tile as a
+        tensor on the CPU (cached as a numpy array)."""
+        key = (sig_slice.origin, tuple(sig_slice.shape), np.dtype(dtype))
+        if key not in self._sig_ops:
+            stack = self.compute_stack(sig_shape)
+            sub = stack[(slice(None),) + sig_slice.get()]
+            self._sig_ops[key] = np.ascontiguousarray(
+                sub.reshape(sub.shape[0], -1).T).astype(dtype)
+        return torch.from_numpy(self._sig_ops[key])
 
     def compute_stack(self, sig_shape) -> np.ndarray:
         if self._stack is not None:
@@ -184,7 +273,9 @@ class ApplyMasksUDF(UDF):
     (see :class:`MaskContainer`); ``backends`` restricts the engines;
     ``shifts`` per-frame integer ``(dy, dx)`` mask shifts, as aux data
     (``UDF.aux_data(..., kind="nav", extra_shape=(2,))``) or one
-    constant vector.  ``use_torch`` is accepted and ignored.
+    constant vector.  ``use_torch`` is accepted and ignored, and so is
+    ``use_bf16`` (the JAX package's bfloat16 product on the TPU): the
+    port's product is full float32.
     """
 
     def __init__(
@@ -198,6 +289,7 @@ class ApplyMasksUDF(UDF):
         backends=None,
         dtype=None,
         shifts=None,
+        use_bf16=False,
         **kwargs,
     ):
         if mask_factories is None:
@@ -222,7 +314,7 @@ class ApplyMasksUDF(UDF):
         super().__init__(
             mask_factories=mask_factories, use_sparse=use_sparse,
             mask_count=mask_count, mask_dtype=mask_dtype, dtype=dtype,
-            shifts=shifts, **kwargs,
+            shifts=shifts, use_bf16=use_bf16, **kwargs,
         )
         if backends is not None:
             self._backend_restriction = tuple(backends)

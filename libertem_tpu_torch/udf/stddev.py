@@ -112,3 +112,50 @@ def run_stddev(ctx, dataset, roi=None, progress=False, use_numba=True):
         k: res[k].data
         for k in ("num_frames", "sum", "varsum", "var", "std", "mean")
     }
+
+
+# The one-pass combine of (sum, varsum) aggregates (Schubert & Gertz
+# 2018) that the fused kernel and StdDevUDF.merge use, in numpy, for
+# host code that aggregates by hand; elementwise on arrays.
+
+def merge_single(n, n_0, sum_0, varsum_0, n_1, sum_1, varsum_1, mean_1):
+    """``(sum, varsum)`` of two aggregates of ``n_0`` and ``n_1``
+    frames, ``n = n_0 + n_1`` (the abs() keeps the cross term real for
+    complex data)."""
+    mean_0 = sum_0 / n_0
+    delta = mean_1 - mean_0
+    mean = mean_0 + (n_1 * delta) / n
+    partial_delta = mean_1 - mean
+    varsum = varsum_0 + varsum_1 + (
+        n_1 * np.abs(delta) * np.abs(partial_delta))
+    return sum_0 + sum_1, varsum
+
+
+def merge(dest_n, dest_sum, dest_varsum, src_n, src_sum, src_varsum,
+          src_mean):
+    """Merge the src aggregate into dest in place; returns the new
+    frame count (an empty side, as a sync offset makes, is skipped)."""
+    if dest_n == 0:
+        dest_sum[:] = src_sum
+        dest_varsum[:] = src_varsum
+        return src_n
+    if src_n == 0:
+        return dest_n
+    n = dest_n + src_n
+    dest_sum[:], dest_varsum[:] = merge_single(
+        n, dest_n, dest_sum, dest_varsum, src_n, src_sum, src_varsum,
+        src_mean)
+    return n
+
+
+def process_tile(tile, n_0, sum_inout, varsum_inout):
+    """Fold a (frames, pixels) tile into the aggregate in place;
+    returns the new frame count."""
+    n_frames = tile.shape[0]
+    if n_frames == 0:
+        return n_0
+    tile_sum = tile.sum(axis=0)
+    mean = tile_sum / n_frames
+    tile_varsum = (np.abs(tile - mean) ** 2).sum(axis=0)
+    return merge(n_0, sum_inout, varsum_inout, n_frames, tile_sum,
+                 tile_varsum, mean)

@@ -110,6 +110,12 @@ class EventRegistry:
                 self.remove_handler(handler)
         return asyncio.gather(*futures, return_exceptions=True)
 
+    async def broadcast(self, message):
+        await self.broadcast_event(message)
+
+    async def broadcast_binary(self, payload: bytes):
+        await self.broadcast_event(payload, binary=True)
+
 
 def _get_token(request) -> str:
     token = request.query_arguments.get("token", [b""])[0] \
@@ -668,6 +674,12 @@ class ResultEventHandler(tornado.websocket.WebSocketHandler):
 
     def on_message(self, message):
         pass
+
+
+# the handler names of the JAX package's reference layout
+ConnectHandler = ConnectionHandler
+LocalFSBrowseHandler = BrowseHandler
+LocalFSStatHandler = StatHandler
 
 
 def make_app(event_registry: Optional[EventRegistry] = None,

@@ -422,6 +422,8 @@ class DatasetState:
                 ca["compoundAnalysis"]
             )
 
+    remove_dataset = remove
+
 
 class JobState:
     """The jobs by uuid.  A removed job is a cancelled job
