@@ -33,8 +33,8 @@ from the root of the repository.  Phases, each fatal on failure:
    float64 numpy oracles and traced once more:
    (a) the fused path with detector corrections (dark, gain, 20
        excluded pixels) and 12 mask rows: ApplyMasksUDF with 8 rings,
-       CoMUDF, SumUDF, SumSigUDF, StdDevUDF; the kernel runs twice
-       per block (two groups of mask rows);
+       CoMUDF, SumUDF, SumSigUDF, StdDevUDF; the kernel runs once
+       per block (one partials launch for any mask count);
    (b) the generic path with a roi: LogsumUDF, FEMUDF and SumUDF over
        half the scan, then PickUDF over 5 frames (bit for bit); no
        fused kernel launches;
@@ -216,6 +216,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -228,9 +229,11 @@ import numpy as np
 NAV = (256, 256)
 SIG = (128, 128)
 SEED = 0
-# H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores
+# and the dense TF32 rate of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 # float32 against float32 with another summation order, or against a
 # float64 oracle: relative 1e-5, with an absolute floor of 1e-5 of the
 # largest magnitude for entries near zero
@@ -239,34 +242,32 @@ CRTOL = 1e-4
 # results derived from centres of mass (differences com - c): their
 # absolute floor follows the centres' magnitude, not their own
 FROM_COM = ("raw_shifts", "field", "magnitude", "divergence", "curl")
-# ms a block of the earlier design of fused_moments (64-row CTAs for
-# every block; H100 80GB HBM3 at 700 W, PERF.md section 6), and what
-# the current design (the grid plan) is predicted to take (PERF.md
-# section 6), printed beside this run's times
+# ms a block of the earlier design of fused_moments (fp32 FMA on the
+# CUDA cores, a launch per 8 mask rows; H100 80GB HBM3 at 700 W, PERF.md
+# section 6), and what the tensor-core design was predicted to take
+# (PERF.md section 6), printed beside this run's times
 EARLIER_MS = {
-    "u16 M=6 (main path)": 0.0265, "u16 M=12": 0.0483, "u16 M=40": 0.1207,
-    "f32 corrected M=12": 0.0620, "u16 M=17 whole frame (7a)": 0.0622,
-    "u16 compacted M=17 P=45x128": 0.0615,
+    "u16 M=6 (main path)": 0.0270, "u16 M=12": 0.0492, "u16 M=40": 0.1209,
+    "f32 corrected M=12": 0.0622, "u16 M=17 whole frame (7a)": 0.0630,
+    "u16 compacted M=17 P=45x128": 0.0337,
 }
 PREDICTED_MS = {
-    "u16 M=6 (main path)": 0.0265, "u16 M=12": 0.0483, "u16 M=40": 0.1207,
-    "f32 corrected M=12": 0.0620, "u16 M=17 whole frame (7a)": 0.0622,
-    "u16 compacted M=17 P=45x128": 0.0333,
+    "u16 M=6 (main path)": 0.0245, "u16 M=12": 0.0285, "u16 M=40": 0.0375,
+    "f32 corrected M=12": 0.0425, "u16 M=17 whole frame (7a)": 0.0290,
+    "u16 compacted M=17 P=45x128": 0.0200,
 }
-# the same for the stages load_min .. full of phase 9
+# the same for the stages load_min .. full of phase 9 (predicted at the
+# main path's block only)
 EARLIER_STAGE_MS = {
     "u16 M=6 P=16384 (main path)":
-        (0.0139, 0.0146, 0.0150, 0.0189, 0.0217, 0.0273),
-    "u16 M=40 P=16384": (0.0387, 0.0392, 0.0496, 0.1025, 0.1115, 0.1205),
+        (0.0141, 0.0149, 0.0153, 0.0196, 0.0224, 0.0280),
+    "u16 M=40 P=16384": (0.0395, 0.0403, 0.0490, 0.1068, 0.1127, 0.1219),
     "u16 M=17 P=5760 (compacted)":
-        (0.0380, 0.0350, 0.0389, 0.0517, 0.0601, 0.0644),
+        (0.0195, 0.0189, 0.0217, 0.0274, 0.0341, 0.0417),
 }
 PREDICTED_STAGE_MS = {
     "u16 M=6 P=16384 (main path)":
-        (0.0139, 0.0146, 0.0150, 0.0189, 0.0217, 0.0273),
-    "u16 M=40 P=16384": (0.0387, 0.0392, 0.0496, 0.1025, 0.1115, 0.1205),
-    "u16 M=17 P=5760 (compacted)":
-        (0.0191, 0.0188, 0.0216, 0.0274, 0.0336, 0.0413),
+        (0.0140, 0.0150, 0.0155, 0.0175, 0.0203, 0.0259),
 }
 
 
@@ -275,7 +276,33 @@ def beside(ms, earlier, predicted) -> str:
     if earlier is None:
         return ""
     return (f" (earlier design {earlier:.4f} ms, {ms / earlier:.2f}x; "
-            f"predicted {predicted:.4f} ms)")
+            + ("not predicted)" if predicted is None
+               else f"predicted {predicted:.4f} ms)"))
+
+
+def tensor_core_kernels() -> tuple[int, int, bool]:
+    """From the built libraries' SASS (``cuobjdump -sass``): how many of
+    the partials kernels that take the product (the production and the
+    dot stage instantiations) hold HMMA instructions, how many there
+    are, and whether the combine holds any."""
+    from libertem_tpu_torch.ops import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = "".join(subprocess.run(
+        [tool, "-sass", str(build.library_path(name))],
+        capture_output=True, text=True, check=True, timeout=600).stdout
+        for name in ("fused_moments", "fused_moments_ablation"))
+    product = with_hmma = 0
+    combine = False
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0]
+        if "moments_combine" in name:
+            combine = combine or "HMMA" in body
+        # STAGE 3 (dot) and 5 (full): the last template argument
+        elif re.search(r"moments_partials.*Li[35]EEEv", name):
+            product += 1
+            with_hmma += "HMMA" in body
+    return with_hmma, product, combine
 
 
 def card_line() -> str:
@@ -807,18 +834,21 @@ def time_ms(fn, inputs, calls=32, replays=8) -> tuple[float, float]:
     return device_ms, eager_ms
 
 
-def bound(depth, pixels, n_masks, itemsize) -> tuple[float, str]:
+def bound(depth, pixels, n_masks, itemsize, passes=3) -> tuple[float, str]:
     """Least ms of a fused_moments call: x, the masks and the outputs
-    moved once over the HBM rate, or its FLOPs over the fp32 rate,
-    whichever is larger."""
+    moved once over the HBM rate, or its arithmetic: the product's
+    TF32 passes that these inputs need (``tf32_passes``, three at
+    most) over the tensor cores' rate, or the moments' ~5 FLOPs a
+    pixel over the fp32 rate, whichever takes longer; whichever of
+    bytes and arithmetic is larger."""
     moved = (depth * pixels * itemsize + n_masks * pixels * 4
              + depth * n_masks * 4 + 2 * pixels * 4)
-    flops = depth * pixels * (2 * n_masks + 5)
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / FP32_FLOP_PER_S * 1e3
-    if bytes_ms >= flops_ms:
+    ops_ms = max(passes * 2 * depth * pixels * n_masks / TF32_FLOP_PER_S,
+                 5 * depth * pixels / FP32_FLOP_PER_S) * 1e3
+    if bytes_ms >= ops_ms:
         return bytes_ms, "bytes"
-    return flops_ms, "operations"
+    return ops_ms, "operations"
 
 
 SWEEP_FILLS = (4, 16, 45)  # support blocks (of 128) in the fill sweep
@@ -889,24 +919,34 @@ def fill_sweep(u16_blocks, f32_blocks, depth, at) -> None:
 
 
 def grid_sweep(cases, depth, at, failures) -> None:
-    """fused_moments at CTA tiles of other row counts than the grid
-    plan's, per case ``(label, blocks, masks, compute_var)``: each
-    tile held against the plain version once, then timed."""
+    """fused_moments at every CTA tile (pixels x rows) the kernel takes
+    for the case, the grid plan's among them, per case ``(label,
+    blocks, masks, compute_var)``: each tile held against the plain
+    version once, then timed."""
     import torch
     from libertem_tpu_torch.ops.moments import (
-        CHUNK_PX,
+        CHUNK_CHOICES,
+        ROW_CHOICES,
+        SMEM_LIMIT,
         Grid,
         _fused_moments_cuda,
         fused_moments_reference,
         grid_for,
+        max_rows,
+        smem_bytes,
     )
 
     for label, blocks, masks, cv in cases:
-        plan = grid_for(blocks[0])
+        n_masks = masks.shape[0]
+        plan = grid_for(blocks[0], n_masks)
         pixels = blocks[0].shape[1]
         parts = []
-        for rows in sorted({64, 48, 32, 16, plan.rows}, reverse=True):
-            grid = Grid(rows, -(-pixels // CHUNK_PX), -(-depth // rows))
+        for chunk, rows in [(c, r) for c in CHUNK_CHOICES
+                            for r in ROW_CHOICES]:
+            if rows > max_rows(n_masks) or smem_bytes(
+                    blocks[0].element_size(), n_masks, rows) > SMEM_LIMIT:
+                continue
+            grid = Grid(rows, -(-pixels // chunk), -(-depth // rows), chunk)
 
             def call(x, _g=grid):
                 return _fused_moments_cuda(x, masks, depth, cv, _g)
@@ -919,8 +959,8 @@ def grid_sweep(cases, depth, at, failures) -> None:
                     failures.append(f"grid sweep {label} {rows} rows "
                                     f"{part}: max err {e}")
             ms, _ = time_ms(call, [(b,) for b in blocks])
-            parts.append(f"{rows} rows ({grid.ctas} CTAs) {ms:.4f} ms"
-                         + (" [plan]" if rows == plan.rows else ""))
+            parts.append(f"{chunk}x{rows} ({grid.ctas} CTAs) {ms:.4f} ms"
+                         + (" [plan]" if grid == plan else ""))
         print(f"grid sweep, {label}: " + ", ".join(parts) + f" {at}")
     torch.cuda.synchronize()
 
@@ -1109,7 +1149,8 @@ def stage_ablation(u16_blocks, masks_t, depth, dev, at, failures) -> dict:
                   f"{row['bound_by']}; plain {row['plain_ms']:.4f} ms; "
                   f"library {lib}"
                   + beside(row["ms"], EARLIER_STAGE_MS[label][k],
-                           PREDICTED_STAGE_MS[label][k]) + f" {at}")
+                           PREDICTED_STAGE_MS.get(label, [None] * 6)[k])
+                  + f" {at}")
             prev = row["ms"]
             cases.append(dict(case=f"{label}, stage {row['stage']}", **row))
     launches = fused_moments_stage.launches
@@ -2436,7 +2477,7 @@ def formats_phase(ctx, lt, data, tmp, at, failures) -> dict:
 
     from libertem_tpu_torch.io.dataset import detect
     from libertem_tpu_torch.ops import decode
-    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.ops.moments import fused_moments
     from libertem_tpu_torch.udf.base import UDFRunner
 
     flat = data.reshape(-1)
@@ -2461,7 +2502,7 @@ def formats_phase(ctx, lt, data, tmp, at, failures) -> dict:
         prep = UDFRunner(udfs)._prepare(ds, ctx.device)
         blocks = sum(-(-p.num_frames // prep["scheme"].depth)
                      for p in prep["partitions"])
-        expected = blocks * -(-prep["masks_t"].shape[0] // MASK_GROUP)
+        expected = blocks  # one launch a block, for any mask count
         dec0 = dict(decode.stats)
         fused_moments.launches = 0
         t0 = time.perf_counter()
@@ -2964,7 +3005,7 @@ def slice11_phase(ctx, lt, path, data, want4, tmp, at, failures) -> dict:
 
     from libertem_tpu_torch.io.dataset.base import densify_into
     from libertem_tpu_torch.io.dataset.live import LiveDataSet
-    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.ops.moments import fused_moments
     from libertem_tpu_torch.udf.base import UDFRunner
 
     launches, rows = {}, []
@@ -2997,7 +3038,6 @@ def slice11_phase(ctx, lt, path, data, want4, tmp, at, failures) -> dict:
     udfs, masks, centre, r = format_udfs(lt, EVT_SIG)
     prep = UDFRunner(udfs)._prepare(ds, ctx.device)
     depth = prep["scheme"].depth
-    groups = -(-prep["masks_t"].shape[0] // MASK_GROUP)
     half = np.zeros(EVT_NAV, bool)
     half[:EVT_NAV[0] // 2] = True
     ident = np.arange(n)
@@ -3023,9 +3063,9 @@ def slice11_phase(ctx, lt, path, data, want4, tmp, at, failures) -> dict:
               f"of dense frames); H2D {row['h2d_per_block']:.0f} bytes a "
               f"block of {depth} frames, dense {row['dense_per_block']} "
               f"({row['h2d_per_block'] / row['dense_per_block']:.2%}) {at}")
-        if count != row["blocks"] * groups or not row["fused"]:
+        if count != row["blocks"] or not row["fused"]:
             failures.append(f"{label}: {count} launches for {row['blocks']} "
-                            f"blocks x {groups} groups")
+                            f"blocks")
         if row["h2d_per_block"] > 0.1 * row["dense_per_block"]:
             failures.append(f"{label}: H2D bytes do not follow the entries")
         t0 = time.perf_counter()
@@ -3605,7 +3645,7 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
 
     from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
     from libertem_tpu_torch.io.dataset.live import LiveDataSet
-    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.ops.moments import fused_moments
     from libertem_tpu_torch.udf.base import UDFRunner
 
     launches, rows = {}, []
@@ -3648,8 +3688,8 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
             failures.append(f"{label}: {count} launches, expected "
                             f"{want_launches}")
 
-    def expected(n_frames, n_dev, groups=1, d=depth):
-        return groups * sum(len(s) for s in shard_steps(n_frames, n_dev, d))
+    def expected(n_frames, n_dev, d=depth):
+        return sum(len(s) for s in shard_steps(n_frames, n_dev, d))
 
     # -- (a) one card, one, two and four workers, twice in turns ----------
     passes = (
@@ -3703,7 +3743,7 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
         ds2, make_ring_udfs(lt), roi=roi.reshape(NAV),
         corrections=corrections))
     row("15b 2 workers, corrections, M=12, roi of every third frame", ctx2,
-        secs, count, expected(len(ids), 2, -(-n_ring // MASK_GROUP)),
+        secs, count, expected(len(ids), 2),
         size=len(ids) * h * w * 2)
     flat = data.reshape(n, -1)
     t0 = time.perf_counter()
@@ -4895,10 +4935,11 @@ def main() -> int:
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.ops import build
     from libertem_tpu_torch.ops.moments import (
-        MASK_GROUP,
         fused_moments,
         fused_moments_reference,
+        tf32_passes,
     )
+    from libertem_tpu_torch.ops.ablation import fp32_bound
     from libertem_tpu_torch.ops.sparse_masks import (
         CUDA_MAX_FILL,
         compaction_pays,
@@ -4918,7 +4959,7 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     # the CUDA kernels and the host decoders, all compilers at once
-    build.build(["fused_moments", "decode"])
+    build.build(["fused_moments", "fused_moments_ablation", "decode"])
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a; g++ "
           f"for the decoders)")
     log = build.BUILD_DIR / "fused_moments.log"
@@ -4930,6 +4971,13 @@ def main() -> int:
         print(f"  ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers a thread, {spills} bytes "
               f"spilled in all")
+    hmma = tensor_core_kernels()
+    print(f"  SASS: {hmma[0]} of {hmma[1]} partials kernels that take the "
+          f"product hold HMMA (mma.sync on the tensor cores), the combine "
+          f"{'does' if hmma[2] else 'does not'}")
+    if hmma[0] != hmma[1] or hmma[1] == 0 or hmma[2]:
+        failures.append(f"SASS: HMMA in {hmma[0]} of {hmma[1]} product "
+                        f"kernels, in the combine: {hmma[2]}")
 
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4956,7 +5004,6 @@ def main() -> int:
         )
         ring_masks_t = corr_prep["masks_t"]
         n_ring_masks = ring_masks_t.shape[0]
-        groups = -(-n_ring_masks // MASK_GROUP)
         if corr_prep["fused"] is None or corr_prep["scheme"].depth != depth:
             failures.append("phase 6a does not take the fused path at the "
                             "main path's block depth")
@@ -5124,13 +5171,16 @@ def main() -> int:
             l_ms, _ = time_ms(lib, inputs)
             itemsize = blocks[0].element_size()
             npix = blocks[0].shape[1]
-            b_ms, b_by = bound(depth, npix, m.shape[0], itemsize)
+            passes = tf32_passes(blocks[0], m)
+            b_ms, b_by = bound(depth, npix, m.shape[0], itemsize, passes)
+            f_ms = fp32_bound(depth, npix, m.shape[0], itemsize)
             x_bytes = depth * npix * itemsize
             print(f"kernel fused_moments, {label}: {k_ms:.4f} ms per block "
                   f"({x_bytes / k_ms / 1e6:.1f} GB/s of input), bound "
-                  f"{b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%} of it); "
-                  f"launched from Python one by one {k_eager_ms:.4f} ms "
-                  f"{at}")
+                  f"{b_ms:.4f} ms by {b_by} ({b_ms / k_ms:.1%} of it; "
+                  f"{passes} TF32 passes; with the product on the CUDA "
+                  f"cores {f_ms:.4f} ms); launched from Python one by one "
+                  f"{k_eager_ms:.4f} ms {at}")
             print(f"  plain version: {p_ms:.4f} ms (one by one "
                   f"{p_eager_ms:.4f} ms); library expression (matmul + "
                   f"var_mean, yardstick only): {l_ms:.4f} ms {at}")
@@ -5142,9 +5192,9 @@ def main() -> int:
 
         main_t = timed("u16 M=6 (main path)", u16_blocks, masks_t, depth)
         cases = [
-            dict(case="u16 M=12", launches_per_2GiB_run=n_blocks * 2,
+            dict(case="u16 M=12", launches_per_2GiB_run=n_blocks,
                  **timed("u16 M=12", u16_blocks, random_masks(12), depth)),
-            dict(case="u16 M=40", launches_per_2GiB_run=n_blocks * 5,
+            dict(case="u16 M=40", launches_per_2GiB_run=n_blocks,
                  **timed("u16 M=40", u16_blocks, random_masks(40), depth)),
         ]
         corr_t = timed(f"f32 corrected M={n_ring_masks}", f32_blocks,
@@ -5192,10 +5242,11 @@ def main() -> int:
         report("6a fused + corrections, M=12", corr_s, total_bytes,
                ctx.feed_stats)
         check_engines("6a", ctx, [False] * 5, failures)
-        if corr_launches != n_blocks * groups:
+        if corr_launches != n_blocks:
             failures.append(
                 f"6a launched fused_moments {corr_launches} times, "
-                f"expected {n_blocks} blocks x {groups} mask groups"
+                f"expected {n_blocks} (one per block for its "
+                f"{n_ring_masks} mask rows)"
             )
         t0 = time.perf_counter()
         want = oracle(data, ring_stack(lt),
@@ -5251,7 +5302,6 @@ def main() -> int:
         # -- 7. the fifth slice's paths -------------------------------------
         # (a) sparse virtual detectors: fused, on the support blocks
         # where compaction pays on the card
-        sp_groups = -(-17 // MASK_GROUP)
         fused_moments.launches = 0
         t0 = time.perf_counter()
         res = ctx.run_udf(ds, sparse_udfs(lt))
@@ -5279,10 +5329,10 @@ def main() -> int:
             failures.append(f"7a compacted_blocks "
                             f"{ctx.run_info['compacted_blocks']}, the "
                             f"plan used: {sp_compacted}")
-        if sp_launches != n_blocks * sp_groups:
+        if sp_launches != n_blocks:
             failures.append(f"7a launched fused_moments {sp_launches} "
-                            f"times, expected {n_blocks} blocks x "
-                            f"{sp_groups} mask groups")
+                            f"times, expected {n_blocks} (one per block "
+                            f"for its 17 mask rows)")
         t0 = time.perf_counter()
         proj = projections64(data, sparse_stack(lt).reshape(17, -1),
                              np.arange(int(np.prod(NAV))))
@@ -5507,7 +5557,7 @@ def main() -> int:
     ), dict(
         name="fused_moments_ablation",
         route="cuda",
-        source="libertem_tpu_torch/csrc/fused_moments.cu",
+        source="libertem_tpu_torch/csrc/fused_moments_ablation.cu",
         replaces="benchmarks/bench_kernel_ablation.py:48",
         launches=p9["launches"],
         max_abs_err=p9["max_abs_err"],
@@ -5643,7 +5693,7 @@ def every_card_main() -> int:
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
     from libertem_tpu_torch.ops import build
-    from libertem_tpu_torch.ops.moments import MASK_GROUP, fused_moments
+    from libertem_tpu_torch.ops.moments import fused_moments
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -5718,9 +5768,8 @@ def every_card_main() -> int:
         res, secs, count = counted(lambda: ctx.run_udf(
             ds, make_ring_udfs(lt), roi=roi.reshape(NAV),
             corrections=corrections))
-        groups = -(-(len(ring_stack(lt)) + 4) // MASK_GROUP)
         row("2 corrections, M=12, every third frame", ctx, secs, count,
-            groups * sum(len(s) for s in shard_steps(
+            sum(len(s) for s in shard_steps(
                 len(ids), len(cards), 1024)), len(ids) * h * w * 2)
         flat = data.reshape(n, -1)
         want2 = oracle_at(

@@ -2,7 +2,7 @@
 kernel ``ablated``, benchmarks/bench_kernel_ablation.py:48).
 
 Each stage adds one piece of the production kernel
-(``csrc/fused_moments.cu``, ``moments_partials`` with a compile-time
+(``csrc/fused_moments.cuh``, ``moments_partials`` with a compile-time
 ``STAGE``), so the cost of a piece is the difference between the times
 of successive stages of the code the main path runs:
 
@@ -16,21 +16,24 @@ of successive stages of the code the main path runs:
             (u8/u16; f32 input sums in f32)                load
   cast      to_float and the f32 colsum of the production  cast
             code
-  dot       the M-column fp32 FMA projections into y       dot1
+  dot       the 3xTF32 split of x and of the masks and the  dec, dot1,
+            tensor-core product into y                     dot2
   var       the shifted moments with rows >= valid         var
             masked: the production partials kernel
   full      the combine: ``fused_moments`` itself          run_prod
   ========  =============================================  ==========
 
 The JAX stages ``dec`` and ``dot2`` (the bf16 two-term split of x and
-the second MXU pass) have no stage here: the port's product is one
-fp32 FMA pass, with no bf16 split.
+the second MXU pass) are not stages of their own here: the kernel
+skips a TF32 pass whose lo operand is zero across a warp's fragment,
+so the passes after the first follow the data, and ``dot`` times the
+split and every pass the data needs.
 
 :func:`fused_moments_stage` returns ``(y, colsum, colvar)`` with each
 stage's contents and zeros for what the stage does not compute yet:
 y from dot on, colvar from var on.  On a CUDA tensor it launches the
-stage (u8, u16 or f32 input, any mask count in groups of
-``MASK_GROUP`` rows) and the combine; on a CPU tensor it runs
+stage (u8, u16 or f32 input, any mask count, one partials launch a
+call) and the combine; on a CPU tensor it runs
 :func:`fused_moments_stage_reference`, the plain PyTorch version.
 
 ``python -m libertem_tpu_torch.ops.ablation`` times every stage on the
@@ -48,23 +51,25 @@ import sys
 import numpy as np
 import torch
 
+from . import build
 from .moments import (
     _DTYPE_CODES,
-    MASK_GROUP,
-    _library,
     check_inputs,
     fused_moments_reference,
     grid_for,
     plan_grid,
+    tf32_passes,
 )
 
 STAGES = ("load_min", "load", "cast", "dot", "var", "full")
 _STAGE_DTYPES = {t: _DTYPE_CODES[t]
                  for t in (torch.uint8, torch.uint16, torch.float32)}
 
-# H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, fp32 rate outside the tensor cores
+# and the dense TF32 rate of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 
 def _chunk_rows(depth: int, rows: int, last: bool, device) -> torch.Tensor:
@@ -76,13 +81,13 @@ def _chunk_rows(depth: int, rows: int, last: bool, device) -> torch.Tensor:
 def fused_moments_stage_reference(x, masks_t, valid_count: int, stage: str):
     """Plain PyTorch version of each stage's ``(y, colsum, colvar)``,
     in float32 (integer chunk sums in int64, exact); the row chunks of
-    load_min and load are the kernel's (``grid_for(x)``)."""
+    load_min and load are the kernel's (``grid_for(x, M)``)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages are {STAGES}")
     if stage in ("var", "full"):
         return fused_moments_reference(x, masks_t, valid_count)
     depth, pixels = x.shape
-    rows = grid_for(x).rows
+    rows = grid_for(x, masks_t.shape[0]).rows
     zeros_y = torch.zeros((depth, masks_t.shape[0]), dtype=torch.float32,
                           device=x.device)
     zeros_p = torch.zeros(pixels, dtype=torch.float32, device=x.device)
@@ -110,14 +115,16 @@ def fused_moments_stage_reference(x, masks_t, valid_count: int, stage: str):
 
 
 def _ablation_library():
-    lib = _library()
+    lib = build.load("fused_moments_ablation")
     fn = lib.fused_moments_ablation_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
             + [ctypes.c_void_p] * 5
         )
         fn.restype = ctypes.c_int
+        lib.fused_moments_error_string.argtypes = [ctypes.c_int]
+        lib.fused_moments_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -134,7 +141,7 @@ def _stage_cuda(x, masks_t, valid_count, stage, combine):
     colsum = torch.empty(pixels, dtype=torch.float32, device=dev)
     colvar = torch.empty(pixels, dtype=torch.float32, device=dev)
     lib = _ablation_library()
-    grid = grid_for(x)
+    grid = grid_for(x, n_masks)
     scratch = torch.empty(grid.scratch_floats(depth, pixels, n_masks),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -142,13 +149,13 @@ def _stage_cuda(x, masks_t, valid_count, stage, combine):
         code = lib.fused_moments_ablation_launch(
             STAGES.index(stage), int(not combine), _STAGE_DTYPES[x.dtype],
             x.data_ptr(), masks_t.data_ptr(), depth, pixels, n_masks,
-            grid.rows, valid_count, 1, scratch.data_ptr(), y.data_ptr(),
-            colsum.data_ptr(), colvar.data_ptr(), stream,
+            grid.rows, grid.chunk, valid_count, 1, scratch.data_ptr(),
+            y.data_ptr(), colsum.data_ptr(), colvar.data_ptr(), stream,
         )
     if code != 0:
         msg = lib.fused_moments_error_string(code).decode()
         raise RuntimeError(f"fused_moments ablation launch failed: {msg}")
-    fused_moments_stage.launches += -(-n_masks // MASK_GROUP)
+    fused_moments_stage.launches += 1
     return (y, colsum, colvar) if combine else None
 
 
@@ -165,30 +172,45 @@ def fused_moments_stage(x, masks_t, valid_count: int, stage: str,
                        combine or stage == "full")
 
 
-# kernel launches so far, one per mask group of each call
+# partials launches so far, one a call
 fused_moments_stage.launches = 0
 
 
 def stage_bound(stage: str, depth: int, pixels: int, n_masks: int,
-                itemsize: int) -> tuple[float, str]:
+                itemsize: int, passes: int = 3) -> tuple[float, str]:
     """Least ms of a stage on the H100: x read once, the masks (from
-    dot on) and the stage's outputs written once, over the HBM rate; or
-    its arithmetic over the fp32 rate (integer adds counted at that
-    rate); whichever is larger, with what bounds it."""
+    dot on) and the stage's outputs written once, over the HBM rate;
+    or its arithmetic: the product's ``passes`` TF32 passes over the
+    tensor cores' rate (three at most, fewer where the data's lo
+    operands are zero), the adds and the variance over the fp32 rate
+    (integer adds counted at that rate), whichever takes longer;
+    whichever of bytes and arithmetic is larger, with what bounds
+    it."""
     lvl = STAGES.index(stage)
     moved = depth * pixels * itemsize + pixels * 4
-    ops = {0: 2 * plan_grid(depth, pixels).n_rc * pixels, 1: depth * pixels,
-           2: depth * pixels}.get(lvl)
+    fp32 = {0: 2 * plan_grid(depth, pixels, n_masks=n_masks).n_rc * pixels,
+            1: depth * pixels, 2: depth * pixels}.get(lvl, depth * pixels)
+    tf32 = 0
     if lvl >= STAGES.index("dot"):
         moved += n_masks * pixels * 4 + depth * n_masks * 4
-        ops = depth * pixels * (2 * n_masks + 1)
+        tf32 = passes * 2 * depth * pixels * n_masks
     if lvl >= STAGES.index("var"):
         moved += pixels * 4
-        ops = depth * pixels * (2 * n_masks + 5)
+        fp32 = 5 * depth * pixels
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    ops_ms = max(fp32 / FP32_FLOP_PER_S, tf32 / TF32_FLOP_PER_S) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
+
+
+def fp32_bound(depth: int, pixels: int, n_masks: int, itemsize: int) -> float:
+    """Least ms of ``fused_moments`` were its product on the CUDA cores
+    (the earlier design's bound): bytes as :func:`stage_bound`, or
+    2 M + 5 FLOPs a pixel over the fp32 rate, whichever is larger."""
+    moved = (depth * pixels * itemsize + n_masks * pixels * 4
+             + depth * n_masks * 4 + 2 * pixels * 4)
+    return max(moved / HBM_BYTES_PER_S,
+               depth * pixels * (2 * n_masks + 5) / FP32_FLOP_PER_S) * 1e3
 
 
 def library_call(stage: str):
@@ -240,6 +262,7 @@ def measure(blocks, masks_t, valid_count: int, timer=time_ms) -> list:
     shape)."""
     depth, pixels = blocks[0].shape
     n_masks = masks_t.shape[0]
+    passes = max(tf32_passes(b, masks_t) for b in blocks)
     rows = []
     for stage in STAGES:
         def kernel(x, _s=stage):
@@ -251,7 +274,7 @@ def measure(blocks, masks_t, valid_count: int, timer=time_ms) -> list:
         inputs = [(b,) for b in blocks]
         lib = library_call(stage)
         b_ms, b_by = stage_bound(stage, depth, pixels, n_masks,
-                                 blocks[0].element_size())
+                                 blocks[0].element_size(), passes)
         rows.append({
             "stage": stage, "ms": timer(kernel, inputs),
             "plain_ms": timer(plain, inputs),

@@ -3,8 +3,9 @@
 decoders (``<name>.cpp``) with ``g++ -O3 -shared -fPIC``.
 
 Each source becomes ``build/lib<name>-<hash>.so`` beside the package
-(``build/`` is git-ignored); the hash covers the source and the
-flags, so an edited source is never served from a stale library.
+(``build/`` is git-ignored); the hash covers the source, the headers
+of ``csrc/`` (``*.cuh``, which sources include) and the flags, so an
+edited source or header is never served from a stale library.
 Nothing is compiled when a module is imported.  Every compiler writes
 to a name of its own process and the result is moved into place with
 ``os.replace``, so processes that build the same library at once (the
@@ -75,7 +76,10 @@ def _command(src: Path) -> list:
 def library_path(name: str) -> Path:
     src = _source(name)
     flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    headers = b"".join(p.read_bytes()
+                       for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -172,14 +172,23 @@ def test_stage_reference_refuses_unknown_stage():
 
 def test_stage_bounds_at_the_headline_shape():
     """Every stage reads x once: 33.5 MB over 3.35 TB/s is 0.0100 ms
-    at u16, D = 1024, P = 16384; M = 40 is bound by its operations."""
+    at u16, D = 1024, P = 16384.  With the product on the tensor cores
+    M = 40 is bound by its bytes too (three TF32 passes take 0.0081 ms
+    at 495 TFLOP/s); on the CUDA cores its 85 FLOPs a pixel would
+    bound it at 0.0213 ms."""
     for stage in STAGES:
         ms, by = stage_bound(stage, 1024, 16384, 6, 2)
         assert by == "bytes"
         assert 0.0100 <= ms < 0.0104
     ms, by = stage_bound("full", 1024, 16384, 40, 2)
+    assert by == "bytes"
+    moved = 1024 * 16384 * 2 + 40 * 16384 * 4 + 1024 * 40 * 4 + 2 * 16384 * 4
+    assert ms == pytest.approx(moved / 3.35e12 * 1e3)
+    ms, by = stage_bound("full", 1024, 16384, 128, 2)
     assert by == "operations"
-    assert ms == pytest.approx(1024 * 16384 * 85 / 67e12 * 1e3)
+    assert ms == pytest.approx(3 * 2 * 1024 * 16384 * 128 / 495e12 * 1e3)
+    assert ablation.fp32_bound(1024, 16384, 40, 2) == pytest.approx(
+        1024 * 16384 * 85 / 67e12 * 1e3)
     assert stage_bound("load_min", 1024, 16384, 6, 2)[0] == pytest.approx(
         (1024 * 16384 * 2 + 16384 * 4) / 3.35e12 * 1e3)
 

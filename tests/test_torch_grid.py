@@ -2,8 +2,9 @@
 on the CPU.
 
 ``plan_grid`` (``libertem_tpu_torch/ops/moments.py``) picks the CTA
-tile the CUDA kernel's partials run a block with; the scratch is sized
-from it.  ``fused_moments_tiled`` below is a plain PyTorch model of the
+tile the CUDA kernel's partials run a block with (rows, pixels, from
+the block, the mask count, the input's item size and the SM count);
+the scratch and the shared memory are sized from it.  ``fused_moments_tiled`` below is a plain PyTorch model of the
 kernel's arithmetic in that tiling (shifted moments per row chunk,
 partial projections per pixel chunk, both folded in the combine
 kernel's order of lanes and tree, all float32): it is held against
@@ -28,22 +29,29 @@ from libertem_tpu.ops.moments import (
 )
 from libertem_tpu_torch.ops.ablation import fused_moments_stage
 from libertem_tpu_torch.ops.moments import (
-    CHUNK_PX,
+    CHUNK_CHOICES,
     H100_SMS,
     MAX_ROWS,
     ROW_CHOICES,
+    SMEM_LIMIT,
+    SUB_PX,
     TARGET_CTAS_PER_SM,
+    TWO_CTAS_SMEM,
     Grid,
     fused_moments_reference,
     grid_for,
+    max_rows,
+    partial_bytes,
     plan_grid,
+    smem_bytes,
+    tile_cost,
 )
 
 torch.set_num_threads(1)
 
 RTOL = 1e-5
 # lanes of the combine kernel that fold one output (LANES in
-# csrc/fused_moments.cu)
+# csrc/fused_moments.cuh)
 COMBINE_LANES = 8
 
 
@@ -94,8 +102,8 @@ def fused_moments_tiled(x, masks_t, valid_count: int,
     depth, pixels = x.shape
     valid = int(valid_count)
     xt = x.to(torch.float32)
-    ys = [xt[:, lo:lo + CHUNK_PX] @ masks_t[:, lo:lo + CHUNK_PX].T
-          for lo in range(0, pixels, CHUNK_PX)]
+    ys = [xt[:, lo:lo + grid.chunk] @ masks_t[:, lo:lo + grid.chunk].T
+          for lo in range(0, pixels, grid.chunk)]
     y = _lane_tree(ys, torch.add)
     chunks = [xt[r0:r0 + grid.rows] for r0 in range(0, depth, grid.rows)]
     colsum = _lane_tree([c.sum(dim=0) for c in chunks], torch.add)
@@ -135,11 +143,18 @@ def _close(actual, expected):
 
 @pytest.mark.parametrize("depth,pixels", SHAPES)
 @pytest.mark.parametrize("sms", [H100_SMS, 114, 8])
-def test_plan_covers_every_row_and_pixel_once(depth, pixels, sms):
-    grid = plan_grid(depth, pixels, sms)
-    assert grid.rows % 4 == 0 and 0 < grid.rows <= MAX_ROWS
+@pytest.mark.parametrize("n_masks,itemsize", [(1, 2), (6, 1), (17, 4),
+                                              (40, 2), (130, 8)])
+def test_plan_covers_every_row_and_pixel_once(depth, pixels, sms, n_masks,
+                                              itemsize):
+    grid = plan_grid(depth, pixels, sms, n_masks, itemsize)
+    assert grid.rows % 16 == 0 and 0 < grid.rows <= max_rows(n_masks)
+    assert max_rows(n_masks) <= MAX_ROWS
+    assert grid.chunk in CHUNK_CHOICES and grid.chunk % SUB_PX == 0
+    # the CTA's shared memory fits an SM's
+    assert smem_bytes(itemsize, n_masks, grid.rows) <= SMEM_LIMIT
     # the chunks tile the block: the last one starts inside it
-    assert (grid.n_pc - 1) * CHUNK_PX < pixels <= grid.n_pc * CHUNK_PX
+    assert (grid.n_pc - 1) * grid.chunk < pixels <= grid.n_pc * grid.chunk
     assert (grid.n_rc - 1) * grid.rows < depth <= grid.n_rc * grid.rows
     # a CTA's tile is (row chunk) x (pixel chunk), so the grid covers
     # every (row, pixel) once exactly when the row chunks cover every
@@ -149,34 +164,64 @@ def test_plan_covers_every_row_and_pixel_once(depth, pixels, sms):
         rows_covered[rc * grid.rows:(rc + 1) * grid.rows] += 1
     px_covered = np.zeros(pixels, np.int32)
     for pc in range(grid.n_pc):
-        px_covered[pc * CHUNK_PX:(pc + 1) * CHUNK_PX] += 1
+        # the kernel's sub-tiles of CTA pc: sub0 .. sub0 + n_sub - 1
+        per_cta = grid.chunk // SUB_PX
+        sub0 = pc * per_cta
+        n_sub = min(per_cta, -(-pixels // SUB_PX) - sub0)
+        assert n_sub > 0
+        px_covered[sub0 * SUB_PX:(sub0 + n_sub) * SUB_PX] += 1
     assert np.all(rows_covered == 1) and np.all(px_covered == 1)
 
 
 @pytest.mark.parametrize("depth,pixels", SHAPES)
 @pytest.mark.parametrize("n_masks", [1, 6, 8, 17, 40])
 def test_partials_fit_the_scratch(depth, pixels, n_masks):
-    """y's partials of every mask group, (n_pc, depth, Mg) each, then
+    """y's partials of one launch for all masks, (n_pc, depth, M), then
     four (n_rc, pixels) moment partials after a 64-float boundary."""
-    grid = plan_grid(depth, pixels)
-    groups = [min(8, n_masks - m0) for m0 in range(0, n_masks, 8)]
-    ypart = sum(grid.n_pc * depth * mg for mg in groups)
-    assert ypart == grid.n_pc * depth * n_masks
+    grid = plan_grid(depth, pixels, n_masks=n_masks)
+    ypart = grid.n_pc * depth * n_masks
     floats = grid.scratch_floats(depth, pixels, n_masks)
     assert floats == -(-ypart // 64) * 64 + 4 * grid.n_rc * pixels
+    assert 4 * (floats - -(-ypart // 64) * 64 + ypart) == partial_bytes(
+        grid, depth, pixels, n_masks)
     assert grid.ctas == grid.n_pc * grid.n_rc
 
 
 @pytest.mark.parametrize("pixels", [16384, 5760])
-def test_plan_reaches_its_target_on_the_h100(pixels):
-    """The main path's block and the compacted sparse stack's each give
-    the grid at least TARGET_CTAS_PER_SM CTAs an SM, with the most rows
-    a CTA that do."""
-    grid = plan_grid(1024, pixels, H100_SMS)
-    assert grid.ctas >= TARGET_CTAS_PER_SM * H100_SMS
-    more = [r for r in ROW_CHOICES if r > grid.rows]
-    for rows in more:
-        assert grid.n_pc * -(-1024 // rows) < TARGET_CTAS_PER_SM * H100_SMS
+@pytest.mark.parametrize("n_masks", [6, 17, 40])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_plan_reaches_its_target_on_the_h100(pixels, n_masks, itemsize):
+    """The main path's block and the compacted sparse stack's, at the
+    main path's, the sparse stack's and the analyses' mask counts, each
+    give the grid at least TARGET_CTAS_PER_SM CTAs an SM, two CTAs
+    sharing an SM's shared memory, with the tile of least cost of those
+    that do."""
+    grid = plan_grid(1024, pixels, H100_SMS, n_masks, itemsize)
+    target = TARGET_CTAS_PER_SM * H100_SMS
+    assert grid.ctas >= target
+    assert smem_bytes(itemsize, n_masks, grid.rows) <= TWO_CTAS_SMEM
+    best = tile_cost(grid, 1024, pixels, n_masks, itemsize, H100_SMS)
+    for chunk in CHUNK_CHOICES:
+        for rows in ROW_CHOICES:
+            other = Grid(rows, -(-pixels // chunk), -(-1024 // rows), chunk)
+            if (rows <= max_rows(n_masks) and other.ctas >= target
+                    and smem_bytes(itemsize, n_masks, rows) <= TWO_CTAS_SMEM):
+                assert tile_cost(other, 1024, pixels, n_masks, itemsize,
+                                 H100_SMS) >= best
+
+
+@pytest.mark.parametrize("n_masks,itemsize,pixels,want", [
+    # the blocks of chip_smoke.py phases 4-7 (its grid sweep times
+    # every tile beside the plan's on the card)
+    (6, 2, 16384, Grid(128, 32, 8, 512)),
+    (12, 2, 16384, Grid(64, 16, 16, 1024)),
+    (40, 2, 16384, Grid(32, 16, 32, 1024)),
+    (17, 2, 16384, Grid(64, 16, 16, 1024)),
+    (17, 2, 5760, Grid(48, 12, 22, 512)),
+    (12, 4, 16384, Grid(48, 64, 22, 256)),
+])
+def test_plan_of_the_paths_blocks(n_masks, itemsize, pixels, want):
+    assert plan_grid(1024, pixels, H100_SMS, n_masks, itemsize) == want
 
 
 def test_plan_of_a_small_block_takes_the_fewest_rows():
@@ -186,6 +231,7 @@ def test_plan_of_a_small_block_takes_the_fewest_rows():
 def test_grid_for_cpu_tensor_is_the_h100_plan():
     x = torch.zeros((1024, 5760), dtype=torch.uint16)
     assert grid_for(x) == plan_grid(1024, 5760, H100_SMS)
+    assert grid_for(x.float(), 40) == plan_grid(1024, 5760, H100_SMS, 40, 4)
 
 
 def _corrected(depth, pixels, valid, seed):
@@ -221,7 +267,8 @@ def test_tiled_model_matches_xla_and_pallas(name, depth, pixels, valid,
     masks = np.random.default_rng(3).normal(
         size=(6, pixels)).astype(np.float32)
     grid = None if rows is None else Grid(
-        rows, -(-pixels // CHUNK_PX), -(-depth // rows))
+        rows, -(-pixels // CHUNK_CHOICES[0]), -(-depth // rows),
+        CHUNK_CHOICES[0])
     ours = _model(x, masks, valid, grid)
     xla = _fused_moments_xla(jnp.asarray(x), jnp.asarray(masks),
                              jnp.int32(valid))

@@ -27,7 +27,7 @@ CASES = [
     ("f32", 96, 2048, 5, 96),       # large mean, narrow spread
     ("u16", 100, 1000, 7, 77),      # unaligned rows, ragged edge
     ("u32", 40, 640, 1, 40),
-    # more than one mask group of 8 rows
+    # more than one n-tile of 8 mask rows
     ("u16", 1024, 16384, 9, 1024),
     ("u16", 1024, 16384, 12, 1000),
     ("u16", 256, 4096, 17, 200),
@@ -50,12 +50,20 @@ CASES = [
     ("u16", 128, 3001, 3, 100),
     # no valid row
     ("u16", 256, 4096, 6, 0),
-    # mask counts around the groups of 8
+    # mask counts around the n-tiles of 8 and the accumulators' classes
+    # (1, 2, 4, 8, 16 n-tiles; beyond 128 masks a second walk over x)
     ("u16", 512, 4096, 1, 512),
     ("u16", 512, 4096, 8, 400),
     ("u16", 512, 4096, 9, 512),
     ("u16", 1024, 16384, 17, 1024),
     ("u16", 1024, 16384, 40, 1000),
+    ("u16", 1024, 16384, 64, 1024),
+    ("u16", 1000, 5760, 65, 999),
+    ("u16", 1024, 16384, 130, 1000),
+    ("u8", 256, 4100, 33, 256),
+    # large counts: x_lo is not zero, every TF32 pass runs
+    ("u16 wide", 1024, 16384, 6, 1024),
+    ("i16 wide", 65, 3001, 12, 60),
 ]
 
 _TORCH_ONLY = {"f16": torch.float16, "bf16": torch.bfloat16}
@@ -69,6 +77,12 @@ def _block(kind, depth, pixels, valid, rng):
         gain = (1.0 + 0.2 * rng.random(pixels)).astype(np.float32)
         raw = rng.poisson(1000.0, (depth, pixels)).astype(np.float32)
         x = (raw - dark) * gain
+    elif kind.endswith(" wide"):
+        # the type's whole range: more than TF32's 11 bits
+        dtype = {"u16 wide": np.uint16, "i16 wide": np.int16}[kind]
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max + 1, (depth, pixels)).astype(
+            dtype)
     elif kind in _TORCH_ONLY:
         # counts are exact in both half-width types
         x = rng.poisson(8.0, (depth, pixels)).astype(np.float32)
@@ -109,8 +123,8 @@ def test_fused_moments_kernel(card, kind, depth, pixels, n_masks, valid):
     ).to(card)
     before = fused_moments.launches
     got = fused_moments(x, masks, valid)
-    # one launch per group of 8 mask rows
-    assert fused_moments.launches == before + -(-n_masks // 8)
+    # one partials launch a call, for any mask count
+    assert fused_moments.launches == before + 1
     want = fused_moments_reference(x, masks, valid)
     for a, b in zip(got, want):
         _close(a, b)
@@ -128,8 +142,9 @@ def test_fused_moments_kernel_contracts(card):
     assert torch.all(fused_moments(x, masks, 96, compute_var=False)[2] == 0)
     zeros = torch.zeros((64, 2048), dtype=torch.uint16, device=card)
     assert torch.all(fused_moments(zeros, masks, 0)[2] == 0)
-    # with more than 8 mask rows, later groups skip the moments: the
-    # first group's colsum and colvar stand
+    # with more than 8 mask rows (three n-tiles of one launch) the
+    # moments are those of the 2-row call, and equal masks give equal
+    # columns bit for bit
     many = torch.ones((17, 2048), dtype=torch.float32, device=card)
     y, colsum, colvar = fused_moments(x, many, 96)
     assert torch.all(colvar == 0)
@@ -140,7 +155,7 @@ def test_fused_moments_kernel_contracts(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_masks", [6, 17])
+@pytest.mark.parametrize("n_masks", [6, 17, 40, 130])
 def test_fused_moments_graph_replays_identical(card, n_masks):
     """Three calls and two replays of 32 captured calls give identical
     bits: no atomics, sums in a fixed order."""
@@ -162,11 +177,11 @@ def test_fused_moments_graph_replays_identical(card, n_masks):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_masks", [6, 12, 40])
+@pytest.mark.parametrize("n_masks", [1, 6, 8, 9, 12, 17, 40, 64, 65, 130])
 def test_fused_moments_launches_per_call(card, n_masks):
-    """One call captured in a CUDA graph holds ceil(M / 8) + 1 kernel
-    nodes (a partials kernel per group of 8 mask rows, one combine)
-    and no copy or memset node."""
+    """One call captured in a CUDA graph holds 2 kernel nodes (one
+    partials kernel for any mask count, one combine) and no copy or
+    memset node."""
     import ctypes
 
     x = torch.ones((1024, 16384), dtype=torch.uint16, device=card)
@@ -189,29 +204,173 @@ def test_fused_moments_launches_per_call(card, n_masks):
                                          ctypes.byref(kind)) == 0
         kinds.append(kind.value)
     # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
-    assert kinds.count(0) == -(-n_masks // 8) + 1, kinds
+    assert kinds.count(0) == 2, kinds
     assert 1 not in kinds and 2 not in kinds, kinds
+
+
+# Blocks whose TF32 passes change inside the block.  The kernel decides
+# the x_lo pass for each warp's 32-pixel band of each sub-tile from all
+# the CTA's row tiles, and the m_lo pass from every n-tile of the
+# sub-tile's masks; a wrong vote puts a value into the MMA with 11
+# significant bits.  Small counts (exact in TF32) with:
+#   bright  values of 2^11 or more (a TF32 error of 16 each) only in
+#           the last row of a 128-row chunk (a late row tile, the second
+#           row of an MMA tile), at one pixel of warp 2's band in three
+#           sub-tiles;
+#   one     0/1 masks with a single value that TF32 rounds (3000.3, an
+#           error of 0.3) in the last mask, at one pixel of one band.
+MIXED_CASES = [
+    # x, masks, depth, pixels, n_masks
+    ("bright", "normal", 1024, 16384, 6),
+    ("bright", "normal", 1024, 16384, 40),
+    ("bright", "binary", 1000, 5760, 17),
+    ("counts", "one", 1024, 16384, 6),
+    ("counts", "one", 1024, 16384, 40),
+    ("counts", "one", 300, 4100, 130),
+]
+
+
+def _mixed(x_kind, m_kind, depth, pixels, n_masks, rng):
+    x = rng.poisson(2.0, (depth, pixels)).astype(np.uint16)
+    if m_kind == "normal":
+        masks = rng.normal(size=(n_masks, pixels)).astype(np.float32)
+    else:
+        masks = (rng.random((n_masks, pixels)) < 0.5).astype(np.float32)
+    n_sub = -(-pixels // 128)
+    cols = [s * 128 + 64 + 29 for s in (3, n_sub // 2, n_sub - 2)]
+    if x_kind == "bright":
+        for row in (127, 511):
+            x[row, cols] = (50000, 40016, 65520)
+        if m_kind == "binary":
+            masks[:, cols] = 1.0
+    if m_kind == "one":
+        x[:, cols[0]] = 100
+        masks[-1, cols[0]] = 3000.3
+    return x, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_kind,m_kind,depth,pixels,n_masks", MIXED_CASES)
+def test_fused_moments_mixed_tf32_passes(card, x_kind, m_kind, depth,
+                                         pixels, n_masks):
+    """y within 1e-5 of a float64 product, relative to |x| @ |m|, where
+    only a few pixels of the block need a second or third TF32 pass;
+    the moments as the plain version's; one partials launch."""
+    rng = np.random.default_rng(depth + n_masks)
+    x, masks = _mixed(x_kind, m_kind, depth, pixels, n_masks, rng)
+    xt, mt = torch.from_numpy(x).to(card), torch.from_numpy(masks).to(card)
+    before = fused_moments.launches
+    got = fused_moments(xt, mt, depth)
+    assert fused_moments.launches == before + 1
+    y = got[0].double().cpu().numpy()
+    xd, md = x.astype(np.float64), masks.astype(np.float64)
+    rel = np.abs(y - xd @ md.T) / np.maximum(np.abs(xd) @ np.abs(md).T,
+                                             1e-30)
+    assert rel.max() < RTOL, rel.max()
+    want = fused_moments_reference(xt, mt, depth)
+    for a, b in zip(got[1:], want[1:]):
+        _close(a, b)
+
+
+_SWEEP_DTYPES = {
+    "u8": np.uint8, "i8": np.int8, "u16": np.uint16, "i16": np.int16,
+    "i32": np.int32, "u32": np.uint32, "f32": np.float32,
+    "f64": np.float64, "i64": np.int64, "u64": np.uint64,
+    "f16": torch.float16, "bf16": torch.bfloat16,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(_SWEEP_DTYPES))
+def test_fused_moments_product_accuracy_sweep(card, kind):
+    """The card's counterpart of the JAX package's
+    ``test_split_matmul_accuracy_sweep``: every input dtype the kernel
+    takes, over its whole range (floats: normal(0, 100); 8-byte
+    integers within +-2^40), with signed masks; y's error against a
+    float64 product of the float32 operands, relative to the product
+    of magnitudes |x| @ |m|, stays below 1e-5 (3xTF32; TF32 alone
+    misses it by two orders)."""
+    rng = np.random.default_rng(11)
+    depth, pixels, n_masks = 192, 4096, 12
+    dtype = _SWEEP_DTYPES[kind]
+    if kind in ("f16", "bf16"):
+        x = torch.from_numpy(rng.normal(0, 100, (depth, pixels)).astype(
+            np.float32)).to(dtype)
+    elif np.issubdtype(dtype, np.floating):
+        x = torch.from_numpy(rng.normal(0, 100, (depth, pixels)).astype(
+            dtype))
+    else:
+        info = np.iinfo(dtype)
+        lo, hi = max(info.min, -(1 << 40)), min(info.max, 1 << 40)
+        x = torch.from_numpy(rng.integers(lo, hi, (depth, pixels),
+                                          endpoint=True).astype(dtype))
+    masks = rng.normal(0, 1, (n_masks, pixels)).astype(np.float32)
+    y = fused_moments(x.to(card), torch.from_numpy(masks).to(card),
+                      depth)[0].double().cpu().numpy()
+    xf = x.to(torch.float32).double().numpy()
+    exp = xf @ masks.astype(np.float64).T
+    scale = np.abs(xf) @ np.abs(masks.astype(np.float64)).T
+    rel = np.abs(y - exp) / np.maximum(scale, 1e-30)
+    assert rel.max() < 1e-5, rel.max()
+
+
+@pytest.mark.cuda
+def test_fused_moments_product_runs_on_tensor_cores(card):
+    """The built library's SASS holds HMMA instructions (mma.sync on
+    the tensor cores) in every partials kernel that takes the product,
+    and none in the combine."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from libertem_tpu_torch.ops import build
+    from libertem_tpu_torch.ops.moments import _library
+
+    _library()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", str(build.library_path("fused_moments"))],
+        capture_output=True, text=True, check=True, timeout=600).stdout
+    kernels = re.split(r"\n\s*Function : ", sass)[1:]
+    hmma = {k.split("\n", 1)[0]: "HMMA" in k for k in kernels}
+    partials = [n for n in hmma if "moments_partials" in n]
+    assert partials and any(hmma[n] for n in partials)
+    assert not any(v for n, v in hmma.items() if "moments_combine" in n)
 
 
 @pytest.mark.cuda
 def test_grid_plan_matches_the_library(card):
-    """The planner's scratch size is the library's, and the library
-    refuses a tile it does not take."""
+    """The planner's scratch and shared memory sizes are the library's,
+    and the library refuses a tile it does not take: rows not a
+    multiple of 16, more rows than the accumulators leave room for,
+    a chunk not a multiple of 128 pixels."""
     from libertem_tpu_torch.ops.moments import (
-        Grid, _fused_moments_cuda, _library, plan_grid)
+        Grid, _fused_moments_cuda, _library, plan_grid, smem_bytes)
 
     lib = _library()
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     for depth, pixels, n_masks in [(1024, 16384, 6), (1024, 5760, 17),
-                                   (65, 3001, 40), (1, 8, 1)]:
-        grid = plan_grid(depth, pixels, sms)
+                                   (65, 3001, 40), (1, 8, 1),
+                                   (1024, 16384, 130)]:
+        grid = plan_grid(depth, pixels, sms, n_masks)
         assert lib.fused_moments_scratch_floats(
-            depth, pixels, n_masks, grid.rows) == grid.scratch_floats(
-            depth, pixels, n_masks)
+            depth, pixels, n_masks, grid.rows,
+            grid.chunk) == grid.scratch_floats(depth, pixels, n_masks)
+        for itemsize in (1, 2, 4, 8):
+            assert lib.fused_moments_smem_bytes(
+                itemsize, n_masks, grid.rows) == smem_bytes(
+                itemsize, n_masks, grid.rows)
     x = torch.zeros((64, 1024), dtype=torch.uint16, device=card)
     m = torch.ones((1, 1024), device=card)
+    for bad in (Grid(30, 1, 3, 1024), Grid(48, 8, 2, 128 + 8)):
+        with pytest.raises(RuntimeError, match="geometry"):
+            _fused_moments_cuda(x, m, 64, True, bad)
     with pytest.raises(RuntimeError, match="geometry"):
-        _fused_moments_cuda(x, m, 64, True, Grid(30, 1, 3))
+        _fused_moments_cuda(x, torch.ones((40, 1024), device=card), 64,
+                            True, Grid(64, 1, 1, 1024))
 
 
 # -- whole runs on the card against the same runs on the CPU ------------------
@@ -268,9 +427,9 @@ def test_fused_run_any_dtype_on_card(card, dtype):
         runs.append(ctx.run_udf(ds, udfs[1:] if wide else udfs))
         launched.append(fused_moments.launches - before)
     _compare_runs(*runs)
-    # 3 partitions of 40 frames, one block each; the CPU run takes the
-    # plain version
-    assert launched == [3 if wide else 6, 0]
+    # 3 partitions of 40 frames, one block each, one launch a block;
+    # the CPU run takes the plain version
+    assert launched == [3, 0]
     assert runs[0][-3]["intensity"].data.dtype == np.float32
 
 
@@ -367,7 +526,7 @@ def test_fused_moments_on_compacted_operand(card, valid):
         np.ascontiguousarray(plan["operand_c"].T)).to(card)
     before = fused_moments.launches
     got = fused_moments(gathered, masks_c, valid, compute_var=False)
-    assert fused_moments.launches == before + 3
+    assert fused_moments.launches == before + 1
     want = fused_moments_reference(gathered, masks_c, valid,
                                    compute_var=False)
     for a, b in zip(got, want):
@@ -477,8 +636,8 @@ def test_slice5_runs_on_card(card):
         assert second[3]._compact_op is not None
         runs.append((a + b, launched))
     (cuda_res, cuda_launched), (cpu_res, cpu_launched) = runs
-    # 3 partitions of 40 frames, one block each, 3 mask groups
-    assert (cuda_launched, cpu_launched) == (9, 0)
+    # 3 partitions of 40 frames, one block each, one launch a block
+    assert (cuda_launched, cpu_launched) == (3, 0)
     for a, b in zip(cuda_res, cpu_res):
         for name in b:
             x, y = np.asarray(a[name].data), np.asarray(b[name].data)
@@ -520,7 +679,7 @@ def test_fused_moments_stages(card, kind, depth, pixels, n_masks, valid):
     for stage in STAGES:
         before = fused_moments_stage.launches
         got = fused_moments_stage(x, masks, valid, stage)
-        assert fused_moments_stage.launches == before + -(-n_masks // 8)
+        assert fused_moments_stage.launches == before + 1
         want = fused_moments_stage_reference(x, masks, valid, stage)
         for a, b in zip(got, want):
             if stage in ("load_min", "load") and kind != "f32":
@@ -846,8 +1005,8 @@ def test_fused_path_sync_offset_byte_order_on_card(card, tmp_path, so,
                                                    dtype):
     """The fused kernel under a sync offset and on big-endian raw data,
     each io backend: the card's run against the same run on the CPU
-    (the kernel's plain version), and the kernel launched once per block
-    (and mask group)."""
+    (the kernel's plain version), and the kernel launched once per
+    block."""
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.io.dataset.base import IOBackend
 
@@ -868,7 +1027,7 @@ def test_fused_path_sync_offset_byte_order_on_card(card, tmp_path, so,
             launched.append(fused_moments.launches - before)
             assert ctx.run_info["fused"]
         _compare_runs(*runs)
-        assert launched == [6, 0]
+        assert launched == [3, 0]
         flat = data.reshape(120, -1).astype(np.float64)
         ids = np.arange(120) + so
         ok = (ids >= 0) & (ids < 120)
@@ -965,8 +1124,8 @@ def test_new_formats_on_card(card, tmp_path):
             stats.append(dict(ctx.feed_stats))
             assert ctx.run_info["fused"]
         _compare_runs(*runs)
-        # 14 mask rows: two launches a block
-        assert launched == [2 * stats[0]["blocks"], 0]
+        # 14 mask rows: one launch a block
+        assert launched == [stats[0]["blocks"], 0]
         if kind == "raw_csr":
             dense = 120 * 64 * 64 * 2
             assert 0 < stats[0]["h2d_bytes"] < dense / 4
@@ -1002,5 +1161,5 @@ def test_workers_on_one_card(card, n):
         _compare_runs(got, want)
         blocks = sum(w["blocks"] for w in ctx.feed_stats["workers"])
         assert len(ctx.feed_stats["workers"]) == n
-        # 10 ring masks and CoM's 3 rows: two launches a block
-        assert launched == 2 * blocks and single > 0
+        # 10 ring masks and CoM's 3 rows: one launch a block
+        assert launched == blocks and single > 0
