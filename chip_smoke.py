@@ -193,7 +193,24 @@ from the root of the repository.  Phases, each fatal on failure:
     ``libertem_tpu`` rewritten to ``libertem``, each with its own
     asserts; (c) the reference spellings of ``tests/test_dropin.py``
     each the port's object, ``set_use_cuda(0)`` pinning card 0, and
-    neither jax nor the JAX package imported in any of them.
+    neither jax nor the JAX package imported in any of them;
+19. the reduced-precision modes (``precision_phase``): (a) phase 4's
+    pass under ``LIBERTEM_TPU_TORCH_MATMUL_PRECISION=default`` (one
+    TF32 pass), its launches and every result bit for bit phase 4's;
+    (b) one-pass kernel calls at u16 M = 6, 12, 40 with random normal
+    masks, the corrected f32 block at M = 12 and M = 17 on the whole
+    frame, against the plain version on TF32-rounded operands and a
+    float64 product, colsum and colvar the three-pass call's bits,
+    graph replays bit for bit; (c) those cases timed in both modes
+    beside the one-pass bound; (d) 6a's pass with the variable flipped
+    between two runs: one pass, then three (6a's bits); (e)
+    ``ApplyMasksUDF(use_bf16=True)`` over the scan with random float
+    masks: no fused launch, float32, against the float32 generic run
+    and a float64 product of the bf16-rounded operands, its wall beside
+    the float32 run's, the bf16 product's routes timed on a block; (f)
+    the malloc tune: phase 2's scan and 12a's MIB r12 file read in a
+    child process with it and in one without it
+    (``LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE=1``), reader GB/s side by side.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Without a
@@ -207,7 +224,8 @@ SCAN`` times the end-to-end passes of the checkout at DIR, for
 comparing two checkouts in turns on one card (:func:`time_paths_main`).
 ``--rank SPEC`` is the mode of phase 16's processes
 (:func:`rank_main`), ``--dropin-child SPEC`` that of phase 18's
-(:func:`dropin_child_main`, run through the drop-in's runner).
+(:func:`dropin_child_main`, run through the drop-in's runner) and
+``--reader-child SPEC`` that of 19(f) (:func:`reader_child_main`).
 """
 from __future__ import annotations
 
@@ -291,15 +309,17 @@ def tensor_core_kernels() -> tuple[int, int, bool]:
     sass = "".join(subprocess.run(
         [tool, "-sass", str(build.library_path(name))],
         capture_output=True, text=True, check=True, timeout=600).stdout
-        for name in ("fused_moments", "fused_moments_ablation"))
+        for name in ("fused_moments", "fused_moments_wide",
+                     "fused_moments_ablation"))
     product = with_hmma = 0
     combine = False
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = body.split("\n", 1)[0]
         if "moments_combine" in name:
             combine = combine or "HMMA" in body
-        # STAGE 3 (dot) and 5 (full): the last template argument
-        elif re.search(r"moments_partials.*Li[35]EEEv", name):
+        # STAGE 3 (dot) and 5 (full): the third template argument, the
+        # one-pass mode the fourth
+        elif re.search(r"moments_partials.*Li[35]ELb[01]EEEv", name):
             product += 1
             with_hmma += "HMMA" in body
     return with_hmma, product, combine
@@ -4917,6 +4937,424 @@ def dropin_phase(path, arrays4, launches4, at, failures,
     return launches
 
 
+# -- phase 19: the reduced-precision modes -----------------------------------
+
+PRECISION_ENV = "LIBERTEM_TPU_TORCH_MATMUL_PRECISION"
+MALLOC_ENV = "LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE"
+BF16_MASKS = 8          # random float masks of 19(e)
+READER_TIMEOUT_S = 300  # a reader child of 19(f)
+# a one-pass y against float64: two TF32 roundings of at most 2^-11
+# each, and the float32 sums, of |x| @ |m|
+ONE_PASS_BOUND = 2.0 ** -9
+
+
+@contextlib.contextmanager
+def precision_env(value: str):
+    """``LIBERTEM_TPU_TORCH_MATMUL_PRECISION`` set to ``value`` inside,
+    restored after."""
+    prev = os.environ.get(PRECISION_ENV)
+    os.environ[PRECISION_ENV] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(PRECISION_ENV, None)
+        else:
+            os.environ[PRECISION_ENV] = prev
+
+
+def reader_child_main(spec_json: str) -> int:
+    """``python3 chip_smoke.py --reader-child SPEC``: one process of
+    19(f) (:func:`malloc_tune`).  ``SPEC`` is a JSON object: ``scans``,
+    each with ``kind`` and ``load`` (``Context.load``'s arguments),
+    ``sig`` and ``bytes`` (on disk), and ``passes``.  For each scan,
+    runs the main path's five UDFs at its sig once to warm up, then
+    ``passes`` times, and prints one JSON line: whether the tune was
+    on and, per scan, each pass's wall s, reader s, reader GB/s (bytes
+    over the reader's time) and wall GB/s."""
+    import torch
+
+    import libertem_tpu_torch as lt
+
+    spec = json.loads(spec_json)
+    ctx = lt.Context()
+    out = {"tune": not os.environ.get(MALLOC_ENV), "scans": []}
+    for scan in spec["scans"]:
+        ds = ctx.load(scan["kind"], **scan["load"])
+        sig = tuple(scan["sig"])
+
+        def udfs():
+            return make_udfs(lt) if sig == SIG else format_udfs(lt, sig)[0]
+
+        ctx.run_udf(ds, udfs())
+        torch.cuda.synchronize()
+        walls, reads = [], []
+        for _ in range(spec["passes"]):
+            t0 = time.perf_counter()
+            ctx.run_udf(ds, udfs())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            reads.append(ctx.feed_stats["read_s"])
+        n = scan["bytes"]
+        out["scans"].append({
+            "wall_s": walls, "read_s": reads,
+            "reader_gbps": [n / r / 1e9 for r in reads],
+            "wall_gbps": [n / w / 1e9 for w in walls]})
+    print(json.dumps(out))
+    return 0
+
+
+def malloc_tune(path, data, tmp, at, failures) -> list:
+    """19(f): phase 2's raw scan and 12a's MIB r12 file, each read by
+    the main path's UDFs in a child process with the malloc tune on,
+    then in one with it off (``LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE=1``);
+    reader and wall GB/s side by side.  Returns the rows."""
+    f16 = data.reshape(-1)[:data.size // 65536 * 65536].reshape(-1, 65536)
+    mib = os.path.join(tmp, "tune.mib")
+    # the scan's frames as 256 x 256 frames: nav 128 x 128 on the card
+    nav = (max(1, len(f16) // 128), min(128, len(f16)))
+    n = int(np.prod(nav))
+    mib_bytes = write_records(
+        mib, n, 2 * 65536, lambda lo, hi: enc_r12(f16[lo:hi]),
+        head=MIB_HEAD, head_fn=mib_heads(MIB_HEAD, 1, 256, 256, "R64",
+                                         "1x1", 12))
+    root = os.path.dirname(os.path.abspath(__file__))
+    labels = ("phase 2's raw scan", "12a MIB r12")
+    scans = [
+        dict(kind="raw", load=dict(
+            path=path, dtype="uint16", nav_shape=list(data.shape[:2]),
+            sig_shape=list(SIG)), sig=list(SIG),
+            bytes=os.path.getsize(path)),
+        dict(kind="mib", load=dict(path=mib, nav_shape=nav),
+             sig=[256, 256], bytes=mib_bytes),
+    ]
+    got = {}
+    for tune in (True, False):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        env.pop(MALLOC_ENV, None)
+        if not tune:
+            env[MALLOC_ENV] = "1"
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--reader-child",
+             json.dumps(dict(scans=scans, passes=2))],
+            env=env, capture_output=True, text=True,
+            timeout=READER_TIMEOUT_S)
+        if proc.returncode != 0:
+            failures.append(f"19f tune {tune}: child exit "
+                            f"{proc.returncode}: {proc.stderr[-2000:]}")
+            continue
+        got[tune] = json.loads(proc.stdout.strip().splitlines()[-1])
+        if got[tune]["tune"] != tune:
+            failures.append(f"19f: the child's tune is {got[tune]['tune']}, "
+                            f"asked {tune}")
+    os.remove(mib)
+    rows = []
+    if len(got) < 2:
+        return rows
+    for label, scan, on, off in zip(labels, scans, got[True]["scans"],
+                                    got[False]["scans"]):
+        rows.append(dict(path=f"19f {label}", bytes=scan["bytes"],
+                         tune_reader_gbps=on["reader_gbps"],
+                         no_tune_reader_gbps=off["reader_gbps"],
+                         tune_wall_gbps=on["wall_gbps"],
+                         no_tune_wall_gbps=off["wall_gbps"]))
+        print(f"19f {label}, {scan['bytes']} bytes: reader GB/s with the "
+              f"malloc tune {on['reader_gbps']} / without "
+              f"{off['reader_gbps']}; wall GB/s {on['wall_gbps']} / "
+              f"{off['wall_gbps']} (the child with the tune first) {at}")
+    return rows
+
+
+def precision_phase(ctx, ds, lt, data, arrays4, launches4, arrays6a,
+                    corrections, n_blocks, depth, u16_blocks, f32_blocks,
+                    ring_masks_t, sparse_t, path, tmp, at,
+                    failures) -> dict:
+    """Phase 19: the reduced-precision modes.  (a) phase 4's pass under
+    ``LIBERTEM_TPU_TORCH_MATMUL_PRECISION=default``: its launches and
+    every result bit for bit phase 4's (counts and 0/1 masks need one
+    pass); (b) one-pass kernel calls at u16 M = 6, 12, 40 with random
+    normal masks, 6a's corrected f32 block at M = 12 and 7a's M = 17
+    whole frame: y against the plain version on the TF32-rounded
+    operands (within 1e-5 of ``|x_hi| @ |m_hi|``) and within 2^-9 of
+    ``|x| @ |m|`` of float64, colsum and colvar the three-pass call's
+    bits, graph replays bit for bit; (c) those cases timed in both
+    modes beside the one-pass bound; (d) 6a's pass with the variable
+    flipped between two ``run_udf`` calls: one pass, then three; (e)
+    ``ApplyMasksUDF(use_bf16=True)`` over the scan with random float
+    masks against the float32 generic product and a float64 oracle of
+    the bf16-rounded operands, beside the bf16 product's routes on a
+    block; (f) :func:`malloc_tune`.  Returns the launches by path, the
+    one-pass cases for the kernels line and the other rows."""
+    import torch
+
+    import libertem_tpu_torch.udf.masks as pmasks
+    from libertem_tpu_torch.ops.moments import (
+        fused_moments,
+        fused_moments_reference,
+        tf32_passes,
+        tf32_round,
+    )
+    from libertem_tpu_torch.udf.base import _tf32_matmul
+
+    dev = u16_blocks[0].device
+    out = {"launches": {}, "cases": [], "rows": []}
+
+    # (a) the main path under "default"
+    with precision_env("default"):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, make_udfs(lt))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        count = fused_moments.launches
+    prec = ctx.run_info["matmul_precision"]
+    differ = same_bits(result_arrays(res), arrays4)
+    out["launches"]["main path, precision default (phase 19a)"] = count
+    print(f"19a phase 4's pass under {PRECISION_ENV}=default: {secs:.3f} s "
+          f"wall, {count} launches (phase 4: {launches4}), run_info "
+          f"matmul_precision {prec}; every result bit for bit phase 4's: "
+          f"{not differ} {at}")
+    if count != launches4 or prec != "default" or differ:
+        failures.append(f"19a: {count} launches (phase 4 {launches4}), "
+                        f"precision {prec}, results differ in {differ}")
+
+    # (b), (c) one-pass kernel calls against the plain version, timed
+    rng = np.random.default_rng(SEED + 19)
+    pixels = u16_blocks[0].shape[1]
+
+    def normal(m):
+        return torch.from_numpy(rng.normal(size=(m, pixels)).astype(
+            np.float32)).to(dev)
+
+    def library_tf32(x, m, valid, compute_var):
+        with _tf32_matmul(True):
+            xf = x.float()
+            return xf @ m.T, torch.var_mean(xf, dim=0, correction=0)
+
+    n_ring = ring_masks_t.shape[0]
+    cases = [
+        ("u16 M=6 normal masks", u16_blocks, normal(6), None),
+        ("u16 M=12", u16_blocks, normal(12), None),
+        ("u16 M=40", u16_blocks, normal(40), None),
+        (f"f32 corrected M={n_ring}", f32_blocks, ring_masks_t,
+         "6a's pass, precision default (phase 19d)"),
+        ("u16 M=17 whole frame (7a)", u16_blocks, sparse_t, None),
+    ]
+    worst = 0.0
+    for label, blocks, m, path_key in cases:
+        x = blocks[0]
+        y1, s1, v1 = fused_moments(x, m, depth, precision="default")
+        y3, s3, v3 = fused_moments(x, m, depth, precision="highest")
+        xh, mh = tf32_round(x), tf32_round(m)
+        want = fused_moments_reference(xh, mh, depth)[0].double()
+        diff = (y1.double() - want).abs()
+        plain_ok = bool(torch.all(
+            diff <= RTOL * (xh.abs().double() @ mh.abs().double().T)))
+        x64, m64 = x.double(), m.double()
+        err64 = (y1.double() - x64 @ m64.T).abs()
+        rel64 = float((err64 / (x64.abs() @ m64.abs().T).clamp_min(
+            1e-300)).max())
+        moments_same = torch.equal(s1, s3) and torch.equal(v1, v3)
+        y_same = torch.equal(y1, y3)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = [fused_moments(x, m, depth, precision="default")
+                        for _ in range(8)]
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays_same = all(torch.equal(a, b) for o in captured
+                           for a, b in zip((y1, s1, v1), o))
+        del graph, captured, x64, err64
+        passes3 = tf32_passes(x, m)
+        e = float(diff.max())
+        worst = max(worst, e)
+        print(f"  19b one pass, {label}: y vs plain on TF32-rounded "
+              f"operands max abs err {e:.3g} (within 1e-5 of |x_hi| @ "
+              f"|m_hi|: {plain_ok}); vs float64 {rel64:.3g} of |x| @ |m| "
+              f"(bound 2^-9 = {ONE_PASS_BOUND:.3g}); colsum, colvar the "
+              f"three-pass call's bits: {moments_same}; y the three-pass "
+              f"call's bits ({passes3} passes there): {y_same}; 8 captured "
+              f"calls replayed twice bit for bit: {replays_same}")
+        if not (plain_ok and rel64 <= ONE_PASS_BOUND and moments_same
+                and replays_same and (y_same or passes3 > 1)):
+            failures.append(f"19b {label}: plain {plain_ok}, float64 "
+                            f"{rel64}, moments {moments_same}, replays "
+                            f"{replays_same}, y {y_same} at {passes3} "
+                            f"passes")
+        itemsize = x.element_size()
+        k1, k1_eager = time_ms(fused_moments, [
+            (b, m, depth, True, "default") for b in blocks])
+        k3, _ = time_ms(fused_moments, [
+            (b, m, depth, True, "highest") for b in blocks])
+        rounded = [(tf32_round(b), mh, depth, True) for b in blocks]
+        p_ms, _ = time_ms(fused_moments_reference, rounded)
+        del rounded
+        l_ms, _ = time_ms(library_tf32, [(b, m, depth, True)
+                                         for b in blocks])
+        b_ms, b_by = bound(depth, pixels, m.shape[0], itemsize, passes=1)
+        b3_ms, _ = bound(depth, pixels, m.shape[0], itemsize, passes3)
+        print(f"19c fused_moments {label}: one TF32 pass {k1:.4f} ms "
+              f"(launched one by one {k1_eager:.4f}), bound {b_ms:.4f} ms "
+              f"by {b_by} ({b_ms / k1:.1%} of it); three-pass mode "
+              f"{k3:.4f} ms ({passes3} passes, bound {b3_ms:.4f}); plain "
+              f"on rounded operands {p_ms:.4f} ms; library (TF32 matmul + "
+              f"var_mean, yardstick only) {l_ms:.4f} ms {at}")
+        out["cases"].append(dict(
+            case=f"{label}, one TF32 pass (precision default)",
+            launches_per_2GiB_run=None, path=path_key, ms=k1,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            three_pass_mode_ms=k3, three_pass_mode_passes=passes3,
+            max_abs_err=e, float64_rel=rel64))
+
+    # (d) the variable flipped between two runs, on 6a's corrected pass
+    runs = {}
+    for prec in ("default", "highest"):
+        with precision_env(prec):
+            fused_moments.launches = 0
+            t0 = time.perf_counter()
+            res = ctx.run_udf(ds, make_ring_udfs(lt),
+                              corrections=corrections)
+            torch.cuda.synchronize()
+            runs[prec] = (result_arrays(res), fused_moments.launches,
+                          ctx.run_info["matmul_precision"],
+                          time.perf_counter() - t0)
+    (a1, c1, p1, s1), (a3, c3, p3, s3) = runs["default"], runs["highest"]
+    # ApplyMasks (0), CoM (1) and SumSig (3) come from y; Sum (2) and
+    # StdDev (4) from colsum and colvar
+    moment_keys = [k for k in arrays6a if k.startswith(("2/", "4/"))]
+    moments_differ = same_bits({k: a1[k] for k in moment_keys},
+                               {k: arrays6a[k] for k in moment_keys})
+    y1, y3 = a1["0/intensity"], arrays6a["0/intensity"]
+    rel = float(np.max(np.abs(y1.astype(np.float64) - y3) / np.maximum(
+        np.abs(y3.astype(np.float64)), 1e-30)))
+    one_pass_seen = not np.array_equal(y1, y3)
+    three_differ = same_bits(a3, arrays6a)
+    for key, c in (("default", c1), ("highest", c3)):
+        out["launches"][f"6a's pass, precision {key} (phase 19d)"] = c
+    for case in out["cases"]:
+        if case["path"] is not None:
+            case["launches_per_2GiB_run"] = c1
+    print(f"19d 6a's pass, {PRECISION_ENV} default then highest: {s1:.3f} "
+          f"/ {s3:.3f} s wall, {c1} / {c3} launches, run_info "
+          f"{p1} / {p3}; the first run's ApplyMasks differs from 6a's "
+          f"(one pass): {one_pass_seen}, by {rel:.3g} relative at most; "
+          f"its Sum and StdDev are 6a's bits: {not moments_differ}; the "
+          f"second run bit for bit 6a's: {not three_differ} {at}")
+    if not (c1 == c3 == n_blocks and (p1, p3) == ("default", "highest")
+            and one_pass_seen and rel <= 2 * ONE_PASS_BOUND
+            and not moments_differ and not three_differ):
+        failures.append(f"19d: launches {c1}/{c3}, precision {p1}/{p3}, "
+                        f"one pass seen {one_pass_seen} ({rel}), moments "
+                        f"differ {moments_differ}, the second run "
+                        f"differs in {three_differ}")
+
+    # (e) ApplyMasksUDF(use_bf16=True) with random float masks
+    stack = np.random.default_rng(SEED + 20).random(
+        (BF16_MASKS,) + SIG).astype(np.float32)
+
+    class GenericApplyMasksUDF(lt.ApplyMasksUDF):
+        """ApplyMasks' float32 product on the generic path."""
+
+        def fused_moments_spec(self):
+            return None
+
+    def bf16_udf(cls=lt.ApplyMasksUDF, **kw):
+        return cls(mask_factories=lambda: stack, mask_count=BF16_MASKS,
+                   **kw)
+
+    walls = {}
+    got = {}
+    for key, make in (("bf16", lambda: bf16_udf(use_bf16=True)),
+                      ("f32 generic", lambda: bf16_udf(GenericApplyMasksUDF)),
+                      ("f32 generic again",
+                       lambda: bf16_udf(GenericApplyMasksUDF)),
+                      ("bf16 again", lambda: bf16_udf(use_bf16=True))):
+        fused_moments.launches = 0
+        t0 = time.perf_counter()
+        res = ctx.run_udf(ds, make())
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        got[key] = (res["intensity"].data, fused_moments.launches,
+                    ctx.run_info["fused"])
+    a, bf_launches, bf_fused = got["bf16"]
+    b = got["f32 generic"][0]
+    if int(data.max()) > 256:
+        failures.append("19e: counts above 256 are not exact in bf16; the "
+                        "oracle would need rounded frames")
+    # float64 on the card, 4096 frames at a time
+    rounded = torch.from_numpy(stack.reshape(BF16_MASKS, -1)).to(dev).to(
+        torch.bfloat16).double()
+    frames = data.reshape(-1, SIG[0] * SIG[1])
+    want = np.concatenate([
+        (torch.from_numpy(frames[lo:lo + 4096]).to(dev).double()
+         @ rounded.T).cpu().numpy()
+        for lo in range(0, len(frames), 4096)]).reshape(
+        NAV + (BF16_MASKS,))
+    del rounded
+    e_f32, near_f32 = max_err(a, b, rtol=1e-2)
+    e64, ok64 = max_err(a, want, rtol=RTOL)
+    apart = not np.allclose(a, b, rtol=1e-7)
+    out["launches"]["ApplyMasksUDF(use_bf16=True) (phase 19e)"] = \
+        bf_launches
+    # the bf16 product on a block, by route
+    flat = u16_blocks[0].float()
+    ops = torch.from_numpy(np.ascontiguousarray(
+        stack.reshape(BF16_MASKS, -1).T)).to(dev)
+
+    def widened(x, m, tf32):
+        with _tf32_matmul(tf32):
+            return x.to(torch.bfloat16).float() @ m.to(torch.bfloat16).float()
+
+    def f32_product(x, m):
+        with _tf32_matmul(False):
+            return x @ m
+
+    route_ms = {}
+    ref = widened(flat, ops, False)
+    for name, fn, bf16 in (
+            ("bf16 mm, float32 output (the port's bf16_product)",
+             pmasks.bf16_product, True),
+            ("bf16 operands widened, TF32 matmul",
+             lambda x, m: widened(x, m, True), True),
+            ("bf16 operands widened, full fp32 matmul",
+             lambda x, m: widened(x, m, False), True),
+            ("float32 product, no bf16", f32_product, False)):
+        r = fn(flat, ops)
+        torch.cuda.synchronize()
+        if bf16 and (r.dtype != torch.float32 or not torch.allclose(
+                r, ref, rtol=RTOL, atol=0)):
+            route_ms[name] = "wrong"
+            failures.append(f"19e route {name} is not the widened "
+                            f"product within 1e-5")
+            continue
+        route_ms[name] = time_ms(fn, [(flat, ops)])[0]
+    print(f"19e ApplyMasksUDF(use_bf16=True), {BF16_MASKS} random float "
+          f"masks over phase 2's scan: {bf_launches} fused launches (fused "
+          f"{bf_fused}), dtype {a.dtype}; within 1e-2 of the float32 "
+          f"generic run: {near_f32} (max abs {e_f32:.3g}); not within "
+          f"1e-7 of it: {apart}; vs float64 of the bf16-rounded operands "
+          f"max abs err {e64:.3g} (rtol 1e-5: {ok64}); wall bf16 "
+          f"{walls['bf16']:.3f} / {walls['bf16 again']:.3f} s, float32 "
+          f"generic {walls['f32 generic']:.3f} / "
+          f"{walls['f32 generic again']:.3f} s {at}")
+    print(f"  19e the bf16 product on a ({depth}, {pixels}) float32 block "
+          f"and {BF16_MASKS} masks, device ms a call (CUDA graph of 32), "
+          f"by route: {json.dumps(route_ms)} {at}")
+    if (bf_launches != 0 or bf_fused or a.dtype != np.float32
+            or not near_f32 or not apart or not ok64):
+        failures.append(f"19e: launches {bf_launches}, fused {bf_fused}, "
+                        f"{a.dtype}, near f32 {near_f32}, apart {apart}, "
+                        f"float64 {ok64} ({e64})")
+    out["rows"].append(dict(path="19e use_bf16", wall_s=walls,
+                            route_ms=route_ms))
+
+    # (f) the malloc tune
+    out["rows"] += malloc_tune(path, data, tmp, at, failures)
+    return out
+
+
 def npy_header(shape, descr) -> bytes:
     """The .npy header (format 1.0) of a C-order array."""
     import io
@@ -4935,6 +5373,7 @@ def main() -> int:
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.ops import build
     from libertem_tpu_torch.ops.moments import (
+        LIBRARIES,
         fused_moments,
         fused_moments_reference,
         tf32_passes,
@@ -4959,12 +5398,13 @@ def main() -> int:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     # the CUDA kernels and the host decoders, all compilers at once
-    build.build(["fused_moments", "fused_moments_ablation", "decode"])
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a; g++ "
-          f"for the decoders)")
-    log = build.BUILD_DIR / "fused_moments.log"
-    if log.exists():
-        text = log.read_text()
+    build.build([*LIBRARIES, "fused_moments_ablation", "decode"])
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, a "
+          f"process for each of {', '.join(LIBRARIES)} and "
+          f"fused_moments_ablation; g++ for the decoders)")
+    logs = [build.BUILD_DIR / f"{name}.log" for name in LIBRARIES]
+    if all(log.exists() for log in logs):
+        text = "".join(log.read_text() for log in logs)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(a) + int(b) for a, b in re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
@@ -5503,7 +5943,17 @@ def main() -> int:
         p18 = dropin_phase(path, arrays4, launches, at, failures)
         print(f"phase 18: {time.perf_counter() - t0:.1f} s")
 
-    print(f"phases 2-18: {time.perf_counter() - t_start:.1f} s (build "
+        # -- 19. the reduced-precision modes ------------------------------
+        t0 = time.perf_counter()
+        sparse_t = torch.from_numpy(sparse_stack(lt).reshape(
+            17, -1).astype(np.float32)).to(dev)
+        p19 = precision_phase(
+            ctx, ds, lt, data, arrays4, launches, result_arrays(res6a),
+            corrections, n_blocks, depth, u16_blocks, f32_blocks,
+            ring_masks_t, sparse_t, path, tmp, at, failures)
+        print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+
+    print(f"phases 2-19: {time.perf_counter() - t_start:.1f} s (build "
           f"before them)")
     if failures:
         for f in failures:
@@ -5525,10 +5975,13 @@ def main() -> int:
         launches_per_2GiB_run=None if sp_compacted else sp_launches,
         **full_t,
     ))
+    # the one-pass mode (precision "default") of phase 19
+    cases += [{k: v for k, v in c.items() if k != "path"}
+              for c in p19["cases"]]
     print(json.dumps({"kernels": [dict(
         name="fused_moments",
         route="cuda",
-        source="libertem_tpu_torch/csrc/fused_moments.cu",
+        source="libertem_tpu_torch/csrc/fused_moments.cuh",
         replaces="libertem_tpu/ops/moments.py:135",
         launches=launches,
         max_abs_err=kernel_max_err,
@@ -5552,6 +6005,7 @@ def main() -> int:
             **p16,
             **p17,
             **p18,
+            **p19["launches"],
         },
         cases=cases,
     ), dict(
@@ -5693,7 +6147,7 @@ def every_card_main() -> int:
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
     from libertem_tpu_torch.ops import build
-    from libertem_tpu_torch.ops.moments import fused_moments
+    from libertem_tpu_torch.ops.moments import LIBRARIES, fused_moments
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -5704,7 +6158,7 @@ def every_card_main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout)
     t0 = time.perf_counter()
-    build.build(["fused_moments"])
+    build.build(LIBRARIES)
     print(f"build: {time.perf_counter() - t0:.1f} s; {len(cards)} cards")
     failures, rows = [], []
     h, w = SIG
@@ -5867,6 +6321,8 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dropin-child"] and len(sys.argv) == 3:
         sys.exit(dropin_child_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--reader-child"] and len(sys.argv) == 3:
+        sys.exit(reader_child_main(sys.argv[2]))
     if sys.argv[1:2] == ["--every-card"]:
         sys.exit(every_card_main())
     if sys.argv[1:2] == ["--time-paths"] and len(sys.argv) == 4:

@@ -22,8 +22,11 @@ frames into a ring while the pass runs (``io.dataset.live``).
 
 Imports ``torch`` and ``numpy`` only, never ``jax`` or
 ``libertem_tpu``.  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``.  On import, on Linux, glibc's
+``M_MMAP_THRESHOLD`` is raised to 1 GiB (:func:`_setup_malloc`; opt
+out with ``LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE=1``).
 """
+
 from . import analysis, masks
 from .api import Context, ResultGenerator
 from .common.analysis import AnalysisResult, AnalysisResultSet
@@ -57,3 +60,32 @@ __all__ = [
     "analysis", "ResultGenerator", "UDF", "Shape", "Slice", "BufferWrapper",
     "AuxBufferWrapper", "AnalysisResult", "AnalysisResultSet", "__version__",
 ]
+
+
+def _setup_malloc():
+    """Keep large allocations on the reusable heap (glibc
+    ``mallopt(M_MMAP_THRESHOLD, 1 GiB)``; counterpart of the JAX
+    package's tune): buffers of many MB that the read path allocates
+    afresh would otherwise be mmap-ed and unmapped each time, and every
+    read would fault their pages in again.  The heap keeps its high
+    water mark.  Opt out with ``LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE=1``;
+    Linux only.  A failed call is ignored: it is a hint to the host
+    allocator, and nothing depends on it."""
+    import os
+    import sys
+
+    if os.environ.get("LIBERTEM_TPU_TORCH_NO_MALLOC_TUNE"):
+        return
+    if not sys.platform.startswith("linux"):
+        return
+    try:
+        import ctypes
+
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        m_mmap_threshold = -3
+        libc.mallopt(m_mmap_threshold, 1 << 30)
+    except Exception:
+        pass
+
+
+_setup_malloc()

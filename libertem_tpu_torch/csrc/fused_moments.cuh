@@ -1,7 +1,9 @@
 // Fused moments + mask projection for one (D, P) block of frames: the
-// kernels and their launchers, shared by `fused_moments.cu` (the
-// production entry points) and `fused_moments_ablation.cu` (the stage
-// ablation), which nvcc builds apart and at once.
+// kernels and their launchers, shared by `fused_moments.cu` and
+// `fused_moments_wide.cu` (the production entry points for the 1- and
+// 2-byte and for the 4- and 8-byte input types) and
+// `fused_moments_ablation.cu` (the stage ablation), which nvcc builds
+// apart and at once.
 //
 // Replaces the TPU kernel `_fused_moments_pallas`
 // (libertem_tpu/ops/moments.py:135).  One read of x gives
@@ -41,7 +43,13 @@
 //     are decided once a step from its data: x_hi m_lo where a mask
 //     value is not TF32 already, x_lo m_hi unless x is (1-byte, f16
 //     and bf16 input always, u16 when no value of the sub-tile is
-//     2^11 or more): counts and 0/1 masks take one pass.
+//     2^11 or more): counts and 0/1 masks take one pass.  A call may
+//     ask for one pass outright (`passes` = 1, the precision "default"):
+//     an instantiation of its own (ONE_PASS) with no votes, x and the
+//     masks rounded to TF32 and x_hi m_hi alone, within 2^-9 of
+//     |x| @ |m|; where the data needs no lo pass it gives the
+//     three-pass call's bits.  A compile-time mode leaves the
+//     three-pass kernel's code as it was (a run-time one cost it 1-3%).
 //   * The k order inside a warp's 32-pixel unit is permuted so that a
 //     thread's A values of 4 k-steps are 8 neighbouring pixels of two
 //     rows: one 16-byte shared load a row for u16.  Rows of a sub-tile
@@ -279,14 +287,28 @@ __device__ __forceinline__ Raw8<T> lds8(const unsigned char* p) {
   return r;
 }
 
-// hi = TF32 of v, rounded to nearest with ties away from zero (the
+// TF32 of v, rounded to nearest with ties away from zero (the
 // rounding of cvt.rna.tf32.f32, in two integer ops instead of a
-// conversion), lo = v - hi in f32 (exact); the MMA reads the top 19
-// bits of lo, so lo enters it truncated toward zero
+// conversion); the MMA itself would truncate v's low 13 bits
+__device__ __forceinline__ unsigned tf32_round(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32_round(v), lo = v - hi in f32 (exact); the MMA reads the
+// top 19 bits of lo, so lo enters it truncated toward zero
 __device__ __forceinline__ void split(float v, unsigned& hi, unsigned& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  hi = tf32_round(v);
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
+
+// How the row tiles take x: its f32 bits as they are (every value is
+// TF32 already), rounded to TF32 (the one-pass product), or split
+// into hi and lo (the x_lo m_hi pass)
+constexpr int X_EXACT = 0;
+constexpr int X_ROUND = 1;
+constexpr int X_SPLIT = 2;
+template <int V>
+using XMode = std::integral_constant<int, V>;
 
 // d += a b over one 16 x 8 x 8 tile
 __device__ __forceinline__ void mma(float (&d)[4], unsigned a0, unsigned a1,
@@ -369,7 +391,7 @@ __device__ __forceinline__ void mask_split(const unsigned char* p, bool lo,
     if (lo)
       split(v[i], bh[i], bl[i]);
     else
-      bh[i] = (__float_as_uint(v[i]) + 0x1000u) & 0xffffe000u;
+      bh[i] = tf32_round(v[i]);
   }
 }
 
@@ -388,7 +410,7 @@ __device__ __forceinline__ void chan(float& n, float& mean, float& m2,
   n = nn;
 }
 
-template <typename T, int NT, int STAGE = STAGE_FULL>
+template <typename T, int NT, int STAGE = STAGE_FULL, bool ONE_PASS = false>
 __global__ void __launch_bounds__(THREADS)
 moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
                  int D, int P, int M, int chunk_rows, int chunk,
@@ -543,21 +565,24 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     // compiler can interleave: x_hi m_lo where any mask value of the
     // sub-tile is not TF32 already, x_lo m_hi unless x is (1-byte,
     // f16 and bf16 input always; u16 when no value of the sub-tile's
-    // rows is 2^11 or more).
+    // rows is 2^11 or more).  One pass asked for: no vote, hi alone.
     unsigned bh[kHoist ? NT : 1][PX], bl[kHoist ? NT : 1][PX];
     bool mlo = false;
     if constexpr (kDot) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         if (nt * 8 >= mrows) continue;  // CTA-uniform
-        if constexpr (kHoist)
+        if constexpr (kHoist && ONE_PASS)
+          mask_split(mrow + nt * 8 * MSTRIDE, false, bh[nt], bl[nt]);
+        else if constexpr (kHoist)
           mlo |= mask_fragment(mrow + nt * 8 * MSTRIDE, bh[nt], bl[nt]);
-        else
+        else if constexpr (!ONE_PASS)
           mlo |= mask_needs_lo(mrow + nt * 8 * MSTRIDE);
       }
     }
     bool exact = kExactTf32<T>;
-    if constexpr (kDot && std::is_same<T, uint16_t>::value) {
+    if constexpr (kDot && !ONE_PASS &&
+                  std::is_same<T, uint16_t>::value) {
       unsigned big = 0;
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
@@ -571,10 +596,10 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
       exact = !__any_sync(0xffffffffu, (big & 0xf800f800u) != 0);
     }
 
-    // the row tiles of the sub-tile, with x exact in TF32 (EX) or not,
-    // and with the m_lo pass (ML) or without
-    auto run = [&](auto ex, auto ml) {
-      constexpr bool EX = decltype(ex)::value;
+    // the row tiles of the sub-tile, with x taken as XM says, and with
+    // the m_lo pass (ML) or without
+    auto run = [&](auto xm, auto ml) {
+      constexpr int XM = decltype(xm)::value;
       constexpr bool ML = decltype(ml)::value;
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
@@ -648,9 +673,12 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
           unsigned ah[2][PX], al[2][PX];
 #pragma unroll
           for (int k = 0; k < PX; ++k) {
-            if constexpr (EX) {
+            if constexpr (XM == X_EXACT) {
               ah[0][k] = __float_as_uint(xa[k]);
               ah[1][k] = __float_as_uint(xb[k]);
+            } else if constexpr (XM == X_ROUND) {
+              ah[0][k] = tf32_round(xa[k]);
+              ah[1][k] = tf32_round(xb[k]);
             } else {
               split(xa[k], ah[0][k], al[0][k]);
               split(xb[k], ah[1][k], al[1][k]);
@@ -662,7 +690,10 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
             unsigned fh[PX], fl[PX];
             if constexpr (kHoist) {
 #pragma unroll
-              for (int k = 0; k < PX; ++k) fh[k] = bh[nt][k], fl[k] = bl[nt][k];
+              for (int k = 0; k < PX; ++k) {
+                fh[k] = bh[nt][k];
+                if constexpr (ML) fl[k] = bl[nt][k];
+              }
             } else {
               mask_split(mrow + nt * 8 * MSTRIDE, ML, fh, fl);
             }
@@ -674,7 +705,7 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
                 mma(acc[rt][nt], ah[0][2 * q], ah[1][2 * q],
                     ah[0][2 * q + 1], ah[1][2 * q + 1], fl[2 * q],
                     fl[2 * q + 1]);
-              if constexpr (!EX)
+              if constexpr (XM == X_SPLIT)
                 mma(acc[rt][nt], al[0][2 * q], al[1][2 * q],
                     al[0][2 * q + 1], al[1][2 * q + 1], fh[2 * q],
                     fh[2 * q + 1]);
@@ -685,18 +716,25 @@ moments_partials(const T* __restrict__ x, const float* __restrict__ masks,
     };
     using Yes = std::true_type;
     using No = std::false_type;
+    using Exact = XMode<X_EXACT>;
+    using Split = XMode<X_SPLIT>;
     if constexpr (!kDot) {
-      run(Yes{}, No{});
+      run(Exact{}, No{});
+    } else if constexpr (ONE_PASS) {
+      if constexpr (kExactTf32<T>)
+        run(Exact{}, No{});
+      else
+        run(XMode<X_ROUND>{}, No{});
     } else if constexpr (kExactTf32<T>) {
-      if (mlo) run(Yes{}, Yes{}); else run(Yes{}, No{});
+      if (mlo) run(Exact{}, Yes{}); else run(Exact{}, No{});
     } else if constexpr (std::is_same<T, uint16_t>::value) {
       if (exact) {
-        if (mlo) run(Yes{}, Yes{}); else run(Yes{}, No{});
+        if (mlo) run(Exact{}, Yes{}); else run(Exact{}, No{});
       } else {
-        if (mlo) run(No{}, Yes{}); else run(No{}, No{});
+        if (mlo) run(Split{}, Yes{}); else run(Split{}, No{});
       }
     } else {
-      if (mlo) run(No{}, Yes{}); else run(No{}, No{});
+      if (mlo) run(Split{}, Yes{}); else run(Split{}, No{});
     }
 
     if (moments) {
@@ -862,13 +900,13 @@ long smem_bytes(int itemsize, int M, int rows) {
   return M > nt * 8 ? ring + red : (ring > red ? ring : red);
 }
 
-template <typename T, int NT, int STAGE>
+template <typename T, int NT, int STAGE, bool ONE_PASS>
 cudaError_t launch_partials(const void* x, const float* masks, int D, int P,
                             int M, int rows, int chunk, int valid,
                             int compute_var, float* ypart, float* psum,
                             float* pshift, float* pm1, float* pm2,
                             cudaStream_t stream) {
-  auto kernel = moments_partials<T, NT, STAGE>;
+  auto kernel = moments_partials<T, NT, STAGE, ONE_PASS>;
   const long smem = smem_bytes(sizeof(T), M, rows);
   // the opt-in to more than 48 KB is the current card's: asked each call
   if (smem > 48 * 1024) {
@@ -890,8 +928,9 @@ cudaError_t launch_partials(const void* x, const float* masks, int D, int P,
 }
 
 // One partials launch for any M: the instantiation whose accumulators
-// hold M's n-tiles (M > 128: 16 n-tiles a walk over x).
-template <typename T, int STAGE = STAGE_FULL>
+// hold M's n-tiles (M > 128: 16 n-tiles a walk over x).  ONE_PASS: x_hi
+// m_hi alone, else the passes the data needs (up to three).
+template <typename T, int STAGE = STAGE_FULL, bool ONE_PASS = false>
 cudaError_t launch_any(const void* x, const float* masks, int D, int P,
                        int M, int rows, int chunk, int valid,
                        int compute_var, float* ypart, float* psum,
@@ -899,18 +938,18 @@ cudaError_t launch_any(const void* x, const float* masks, int D, int P,
                        cudaStream_t s) {
 #define FM_NT(N)                                                          \
   case N:                                                                 \
-    return launch_partials<T, N, STAGE>(x, masks, D, P, M, rows, chunk,   \
-                                        valid, compute_var, ypart, psum,  \
-                                        pshift, pm1, pm2, s);
+    return launch_partials<T, N, STAGE, ONE_PASS>(                        \
+        x, masks, D, P, M, rows, chunk, valid, compute_var, ypart, psum,  \
+        pshift, pm1, pm2, s);
   switch (nt_for(M)) {
     FM_NT(1)
     FM_NT(2)
     FM_NT(4)
     FM_NT(8)
     default:
-      return launch_partials<T, 16, STAGE>(x, masks, D, P, M, rows, chunk,
-                                           valid, compute_var, ypart, psum,
-                                           pshift, pm1, pm2, s);
+      return launch_partials<T, 16, STAGE, ONE_PASS>(
+          x, masks, D, P, M, rows, chunk, valid, compute_var, ypart, psum,
+          pshift, pm1, pm2, s);
   }
 #undef FM_NT
 }
@@ -976,12 +1015,52 @@ bool geometry_ok(int itemsize, int D, int P, int M, int rows, int chunk) {
          chunk % SUB_PX == 0 && smem_bytes(itemsize, M, rows) <= SMEM_LIMIT;
 }
 
+// One production call on input of type T (`fused_moments_launch` of
+// the entry points): the partials launch, then the combine.  Returns a
+// cudaError_t, or -1 for an unsupported mask count, geometry or pass
+// count.
+template <typename T>
+int launch_call(const void* x, const float* masks, int D, int P, int M,
+                int rows, int chunk, int valid, int compute_var,
+                int passes, float* scratch, float* y, float* colsum,
+                float* colvar, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((passes != 1 && passes != 3) ||
+      !geometry_ok(sizeof(T), D, P, M, rows, chunk))
+    return -1;
+  const Scratch c = split_scratch(scratch, D, P, M, rows, chunk);
+  const cudaError_t err =
+      passes == 1
+          ? launch_any<T, STAGE_FULL, true>(x, masks, D, P, M, rows, chunk,
+                                            valid, compute_var, c.ypart,
+                                            c.psum, c.pshift, c.pm1, c.pm2,
+                                            s)
+          : launch_any<T>(x, masks, D, P, M, rows, chunk, valid,
+                          compute_var, c.ypart, c.psum, c.pshift, c.pm1,
+                          c.pm2, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return combine(c.ypart, c.psum, c.pshift, c.pm1, c.pm2, D, P, M, rows,
+                 c.n_pc, c.n_rc, valid, compute_var, y, colsum, colvar, s);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Floats of scratch a call needs with `rows` rows and `chunk` pixels a
+// CTA.
+long fused_moments_scratch_floats(int D, int P, int M, int rows, int chunk) {
+  return ypart_floats(D, P, M, chunk) + 4L * ((D + rows - 1) / rows) * P;
+}
+
+// Bytes of dynamic shared memory a partials CTA asks for.
+long fused_moments_smem_bytes(int itemsize, int M, int rows) {
+  return smem_bytes(itemsize, M, rows);
+}
+
 const char* fused_moments_error_string(int code) {
-  if (code == -1) return "unsupported dtype, mask count, geometry or stage";
+  if (code == -1)
+    return "unsupported dtype, mask count, geometry, stage or pass count";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -11,7 +11,8 @@ extern "C" {
 // 4 var, 5 full (see the header), then the combine unless
 // `skip_combine`; the other arguments as fused_moments_launch.  Stages
 // below dot leave y as it is (the caller zeroes it), stages below var
-// give a zero colvar; var and full are the production launch.  Takes
+// give a zero colvar; var and full are the production launch, with the
+// passes the data needs (the precision "highest").  Takes
 // u8, u16 and f32 input; returns a cudaError_t, or -1 for another
 // dtype, stage, mask count or geometry.
 int fused_moments_ablation_launch(int stage, int skip_combine, int dtype,

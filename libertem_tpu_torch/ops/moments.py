@@ -10,7 +10,8 @@ In a single pass over a ``(depth, pixels)`` block of frames:
 
 This one read of each block replaces a pass per UDF (ApplyMasks, CoM,
 SumSig, Sum, StdDev).  On a CUDA tensor :func:`fused_moments` launches
-the hand-written kernel in ``csrc/fused_moments.cu`` (the port of the
+the hand-written kernel in ``csrc/fused_moments.cuh`` (built as
+``fused_moments.cu`` and ``fused_moments_wide.cu``; the port of the
 TPU kernel ``_fused_moments_pallas``, libertem_tpu/ops/moments.py:135);
 on a CPU tensor it runs :func:`fused_moments_reference`, the plain
 PyTorch version (counterpart of ``_fused_moments_xla``).
@@ -21,16 +22,26 @@ row mask; only the variance masks them.  ``compute_var=False`` returns
 a zero ``colvar``.
 
 The kernel takes any mask count in one partials launch (``launches``
-counts those, one a call) and one combine launch follows; its product
-runs on the tensor cores as 3xTF32 (each operand split into a TF32 hi
-and lo, three passes), about as exact as a float32 product.  It takes any real input dtype of 1 to 8 bytes
-(u8 .. u64, i8 .. i64, f16, bf16, f32, f64), cast to float32 once.
-:func:`plan_grid` picks the partials' CTA tile from the block, the
-mask count and the card's SM count.
+counts those, one a call) and one combine launch follows.  Its
+product runs on the tensor cores in TF32 at the precision the caller
+asks for (``precision``; by default :func:`_matmul_precision`, from
+``LIBERTEM_TPU_TORCH_MATMUL_PRECISION``, which the UDF runner reads
+once a run): ``"highest"`` as 3xTF32 (each operand split into a TF32
+hi and lo, up to three passes, a pass skipped where the data needs
+none), about as exact as a float32 product; ``"default"`` as one pass
+on the operands rounded to TF32, within 2^-9 of ``|x| @ |m|``, and
+bit for bit the ``"highest"`` result where the data needs no lo pass
+(counts below 2^11, 0/1 masks).  The plain version on a CPU tensor
+ignores the precision, as XLA on the CPU does.  The kernel takes any
+real input dtype of 1 to 8 bytes (u8 .. u64, i8 .. i64, f16, bf16,
+f32, f64), cast to float32 once.  :func:`plan_grid` picks the
+partials' CTA tile from the block, the mask count and the card's SM
+count.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -58,6 +69,13 @@ H100_SMS = 132
 SMEM_LIMIT = 232448
 TWO_CTAS_SMEM = 233472 // 2 - 1024
 _SMS: dict = {}
+# TF32 passes of the kernel's product at each precision: the passes the
+# data needs (three at most), or x_hi m_hi alone
+PASSES = {"highest": 3, "default": 1}
+# the library of each input dtype's entry point: the 1- and 2-byte types
+# in csrc/fused_moments.cu, the 4- and 8-byte ones in
+# csrc/fused_moments_wide.cu (two sources, so nvcc builds them at once)
+LIBRARIES = ("fused_moments", "fused_moments_wide")
 _DTYPE_CODES = {
     torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
     torch.int32: 4, torch.uint32: 5, torch.float32: 6, torch.float64: 7,
@@ -98,16 +116,32 @@ def smem_bytes(itemsize: int, n_masks: int, rows: int) -> int:
     return ring + red if n_masks > nt * 8 else max(ring, red)
 
 
+def _matmul_precision() -> str:
+    """The fused product's precision, ``"highest"`` (the default) or
+    ``"default"`` (one TF32 pass), from
+    ``LIBERTEM_TPU_TORCH_MATMUL_PRECISION`` (counterpart of the JAX
+    package's ``LIBERTEM_TPU_MATMUL_PRECISION``, which does not steer
+    the port).  The UDF runner reads it once a run, in ``_prepare``,
+    so a change takes effect at the next run."""
+    v = os.environ.get("LIBERTEM_TPU_TORCH_MATMUL_PRECISION", "highest")
+    return "default" if v.lower() == "default" else "highest"
+
+
+def tf32_round(t):
+    """``t`` in float32 rounded to TF32 (10 mantissa bits, to nearest,
+    ties away from zero): the kernel's hi operand."""
+    f = t.to(torch.float32).contiguous()
+    return ((f.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
 def tf32_passes(x, masks_t) -> int:
-    """Tensor-core passes the product of these inputs needs: x_hi m_hi,
-    and x_hi m_lo, x_lo m_hi where any lo of the masks or of x is not
-    zero (the kernel skips a pass whose lo fragment is zero across a
-    warp, so this is what the data asks for at most)."""
+    """Tensor-core passes the product of these inputs needs at the
+    precision ``"highest"``: x_hi m_hi, and x_hi m_lo, x_lo m_hi where
+    any lo of the masks or of x is not zero (the kernel skips a pass
+    whose lo fragment is zero across a warp, so this is what the data
+    asks for at most)."""
     def has_lo(t):
-        f = t.to(torch.float32).contiguous()
-        hi = ((f.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-        lo = f - hi
-        return bool(torch.any(lo != 0))
+        return bool(torch.any(t.to(torch.float32) != tf32_round(t)))
 
     return 1 + has_lo(masks_t) + has_lo(x)
 
@@ -219,13 +253,15 @@ def grid_for(x, n_masks: int = 1) -> Grid:
     return plan_grid(x.shape[0], x.shape[1], sms, n_masks, x.element_size())
 
 
-def _library():
-    lib = build.load("fused_moments")
+def _library(name: str = LIBRARIES[0]):
+    """The loaded entry points of ``csrc/<name>.cu``, built if
+    needed."""
+    lib = build.load(name)
     fn = lib.fused_moments_launch
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 8
             + [ctypes.c_void_p] * 5
         )
         fn.restype = ctypes.c_int
@@ -266,7 +302,8 @@ def check_inputs(x, masks_t, valid_count, dtypes=_DTYPE_CODES) -> int:
     return valid_count
 
 
-def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None):
+def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None,
+                        passes=3):
     valid_count = check_inputs(x, masks_t, valid_count)
     depth, pixels = x.shape
     n_masks = masks_t.shape[0]
@@ -274,7 +311,7 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None):
     y = torch.empty((depth, n_masks), dtype=torch.float32, device=x.device)
     colsum = torch.empty(pixels, dtype=torch.float32, device=x.device)
     colvar = torch.empty(pixels, dtype=torch.float32, device=x.device)
-    lib = _library()
+    lib = _library(LIBRARIES[x.element_size() > 2])
     scratch = torch.empty(grid.scratch_floats(depth, pixels, n_masks),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -282,7 +319,7 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None):
         code = lib.fused_moments_launch(
             _DTYPE_CODES[x.dtype], x.data_ptr(), masks_t.data_ptr(),
             depth, pixels, n_masks, grid.rows, grid.chunk, valid_count,
-            int(bool(compute_var)), scratch.data_ptr(), y.data_ptr(),
+            int(bool(compute_var)), passes, scratch.data_ptr(), y.data_ptr(),
             colsum.data_ptr(), colvar.data_ptr(), stream,
         )
     if code != 0:
@@ -293,14 +330,22 @@ def _fused_moments_cuda(x, masks_t, valid_count, compute_var, grid=None):
 
 
 def fused_moments(x, masks_t, valid_count: int,
-                  compute_var: bool = True):
+                  compute_var: bool = True, precision=None):
     """``(y, colsum, colvar)`` of a ``(depth, pixels)`` block; see the
     module docstring.  ``x`` of any real dtype, ``masks_t`` (M, pixels)
-    float32 on the same device, ``valid_count`` a Python int."""
+    float32 on the same device, ``valid_count`` a Python int,
+    ``precision`` ``"highest"`` or ``"default"`` (None: read from the
+    environment now, :func:`_matmul_precision`)."""
+    if precision is None:
+        precision = _matmul_precision()
+    if precision not in PASSES:
+        raise ValueError(f"precision must be one of {sorted(PASSES)}, "
+                         f"got {precision!r}")
     if x.device.type == "cpu":
         return fused_moments_reference(x, masks_t, valid_count,
                                        compute_var)
-    return _fused_moments_cuda(x, masks_t, valid_count, compute_var)
+    return _fused_moments_cuda(x, masks_t, valid_count, compute_var,
+                               passes=PASSES[precision])
 
 
 # partials launches so far, one a call for any mask count (each call

@@ -109,7 +109,7 @@ from ..io.tiling import (
     TilingScheme,
 )
 from ..executor.base import JobCancelledError  # noqa: F401
-from ..ops.moments import fused_moments
+from ..ops.moments import _matmul_precision, fused_moments
 from ..ops.sparse_masks import (
     compaction_pays,
     gather_blocks,
@@ -304,7 +304,9 @@ class UDFMeta:
     ``device_class`` is the run's device type (``"cuda"`` or
     ``"cpu"``; a caller building a meta may give it, as
     ``array_backend``), ``corrections`` the run's CorrectionSet or
-    None.
+    None, ``matmul_precision`` the run's precision of float32 products
+    that follow it (``"highest"`` or ``"default"``, latched once a run
+    from ``LIBERTEM_TPU_TORCH_MATMUL_PRECISION``).
     """
 
     def __init__(self, dataset_shape: Shape, dataset_dtype, input_dtype,
@@ -334,6 +336,7 @@ class UDFMeta:
         self.global_offset = None
         self.sig_slice: Optional[Slice] = None
         self.tiling_scheme_idx = 0
+        self.matmul_precision = "highest"
         self._valid_nav_mask: Optional[np.ndarray] = None
         # the concrete slices, where there are (host engine,
         # get_task_data); None on the device engine
@@ -762,16 +765,23 @@ def _as_state(value, like: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _full_fp32_matmul():
-    """TF32 off for the run's float32 products (the generic ApplyMasks
-    and CoM matmuls): TF32 keeps about three decimal digits, the
-    results' contract is 1e-5."""
+def _tf32_matmul(allow: bool):
+    """``torch.backends.cuda.matmul.allow_tf32`` set to ``allow``
+    inside, restored after."""
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = allow
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _full_fp32_matmul():
+    """TF32 off for the run's float32 products (the generic ApplyMasks
+    and CoM matmuls): TF32 keeps about three decimal digits, the
+    results' contract is 1e-5.  ApplyMasks' own product follows the
+    run's ``meta.matmul_precision`` inside this."""
+    return _tf32_matmul(False)
 
 
 def _canonical_backends(backends) -> tuple:
@@ -1451,6 +1461,7 @@ class UDFRunner:
                 else int(prep["support"].numel())
             ),
             "compaction": None if fused is None else fused.compaction,
+            "matmul_precision": prep["matmul_precision"],
             # how state crosses processes (None: one process)
             "transport": (None if prep.get("dist") is None
                           else prep["dist"]["transport"]),
@@ -1464,6 +1475,9 @@ class UDFRunner:
         udfs = self._udfs
         if self._debug:
             self._debug_check_picklable()
+        # latched once a run: a change of the environment takes effect
+        # at the next run, never inside one
+        precision = _matmul_precision()
         meta0 = dataset.meta
         nav_shape = tuple(meta0.shape.nav)
         if roi is not None:
@@ -1514,6 +1528,7 @@ class UDFRunner:
             corrections=meta_corrections,
             threads_per_worker=self._threads_per_worker,
         )
+        meta.matmul_precision = precision
         for udf in udfs:
             udf.meta = meta
         scheme = Negotiator().get_scheme(
@@ -1585,6 +1600,7 @@ class UDFRunner:
             "corrections": corrections,
             "input_dtype": input_dtype,
             "input_tdtype": _torch_dtype(input_dtype),
+            "matmul_precision": precision,
             "meta": meta,
             "plan": plan,
             "scheme": scheme,
@@ -2056,6 +2072,7 @@ class UDFRunner:
             )
         y, colsum, colvar = fused_moments(
             block, prep["masks_t"], valid, compute_var=fused.need_var,
+            precision=prep["matmul_precision"],
         )
         for spec in fused.specs:
             ui = spec["ui"]
@@ -2584,6 +2601,7 @@ class UDFRunner:
                             str(np.dtype(meta.dataset_dtype))),
                 "input_dtype": str(np.dtype(prep["input_dtype"])),
                 "fused": prep["fused"] is not None,
+                "matmul_precision": prep["matmul_precision"],
                 "plan": [
                     (type(e.udf).__name__, e.host, [
                         (n, e.decls[n].kind, tuple(t.shape), str(t.dtype))

@@ -5,9 +5,12 @@ The mask factories are evaluated once into a dense ``(n_masks, *sig)``
 stack (scipy.sparse and other ``.todense()`` output is densified).  On
 the fused path its flattened rows join the fused pass's mask operand;
 on the generic path each tile is projected on it with a float32 matmul
-(``torch.matmul``, full fp32: the runner keeps TF32 off), on the
+(``torch.matmul`` at the run's ``meta.matmul_precision``: full fp32
+under ``"highest"``, TF32 allowed under ``"default"``), on the
 stack's support blocks when its union support is small enough for
 compaction to pay on the run's device (``ops/sparse_masks.py``).
+``use_bf16=True`` rounds both operands of a real product to bfloat16
+and sums in float32 (:func:`bf16_product`), out of the fused pass.
 Complex masks project real tiles with one real matmul on the stacked
 [Re | Im] operand, complex tiles with a complex64 matmul.  Per-frame
 ``shifts`` (aux data or a constant ``(dy, dx)``) move each frame by
@@ -30,7 +33,26 @@ from ..ops.sparse_masks import (
     gather_blocks,
     plan_compaction,
 )
-from .base import UDF
+from .base import UDF, _tf32_matmul
+
+
+def bf16_product(flat: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """``flat @ masks`` on operands rounded to bfloat16, summed in
+    float32 into a float32 result (the JAX package's bf16 inputs with
+    ``preferred_element_type=float32``; the output is never rounded to
+    bf16).  A product of two bf16 values is exact in float32, so the
+    result is that of the rounded operands up to the order of the
+    sums."""
+    a, b = flat.to(torch.bfloat16), masks.to(torch.bfloat16)
+    if flat.device.type == "cuda":
+        # a bf16 matmul with a float32 output: on an H100 80GB HBM3 at
+        # 700 W (chip_smoke.py 19(e), a (1024, 16384) block, 8 masks)
+        # 0.048 ms a call, against 0.119 for the operands widened to
+        # float32 in a TF32 matmul and 0.061 for the float32 product
+        return torch.mm(a, b, out_dtype=torch.float32)
+    # the CPU has no such matmul, and its bf16 matmul rounds the output
+    # to bf16: the rounded operands widened back to float32
+    return a.to(torch.float32) @ b.to(torch.float32)
 
 
 class TileOperand:
@@ -273,9 +295,10 @@ class ApplyMasksUDF(UDF):
     (see :class:`MaskContainer`); ``backends`` restricts the engines;
     ``shifts`` per-frame integer ``(dy, dx)`` mask shifts, as aux data
     (``UDF.aux_data(..., kind="nav", extra_shape=(2,))``) or one
-    constant vector.  ``use_torch`` is accepted and ignored, and so is
-    ``use_bf16`` (the JAX package's bfloat16 product on the TPU): the
-    port's product is full float32.
+    constant vector.  ``use_torch`` is accepted and ignored.
+    ``use_bf16=True`` runs the product of real masks on bfloat16
+    operands with float32 sums and output (about 2^-9 of each value,
+    exact for counts up to 256), outside the fused pass.
     """
 
     def __init__(
@@ -447,23 +470,31 @@ class ApplyMasksUDF(UDF):
                 self.meta, mdt,
             )
         out_dtype = self.results.intensity.dtype
-        if masks.is_complex() and not flat.is_complex():
-            # x @ (A + iB) = x @ A + i (x @ B): one real matmul on the
-            # stacked [Re | Im] operand
-            m = masks.shape[1]
-            y = flat.to(torch.float32) @ torch.cat(
-                [masks.real, masks.imag], dim=1
-            )
-            self.results.intensity += torch.complex(
-                y[:, :m], y[:, m:]
-            ).to(out_dtype)
+        if self.params.get("use_bf16") and not (masks.is_complex()
+                                                or flat.is_complex()):
+            self.results.intensity += bf16_product(flat, masks).to(
+                out_dtype)
             return
-        dt = torch.promote_types(masks.dtype, torch.float32)
-        if flat.is_complex():
-            dt = torch.promote_types(dt, flat.dtype)
-        self.results.intensity += (
-            flat.to(dt) @ masks.to(dt)
-        ).to(out_dtype)
+        # TF32 under the run's precision "default", as the JAX package
+        # gives its generic product the run's precision
+        with _tf32_matmul(self.meta.matmul_precision == "default"):
+            if masks.is_complex() and not flat.is_complex():
+                # x @ (A + iB) = x @ A + i (x @ B): one real matmul on
+                # the stacked [Re | Im] operand
+                m = masks.shape[1]
+                y = flat.to(torch.float32) @ torch.cat(
+                    [masks.real, masks.imag], dim=1
+                )
+                self.results.intensity += torch.complex(
+                    y[:, :m], y[:, m:]
+                ).to(out_dtype)
+                return
+            dt = torch.promote_types(masks.dtype, torch.float32)
+            if flat.is_complex():
+                dt = torch.promote_types(dt, flat.dtype)
+            self.results.intensity += (
+                flat.to(dt) @ masks.to(dt)
+            ).to(out_dtype)
 
     @staticmethod
     def _shift_tile(tile: torch.Tensor, shifts) -> torch.Tensor:
@@ -486,8 +517,11 @@ class ApplyMasksUDF(UDF):
     def fused_moments_spec(self):
         """Contribute the mask stack as rows of the fused mask operand
         (real-valued, unshifted masks with float32/float64 results
-        only)."""
+        only, and not with ``use_bf16``)."""
         if self.params.get("shifts") is not None:
+            return None
+        if self.params.get("use_bf16"):
+            # the fused product is float32 or TF32 for every mask row
             return None
         stack = self._container.compute_stack(self.meta.sig_shape)
         if np.iscomplexobj(stack):

@@ -566,14 +566,16 @@ def _collect_notebook_inputs(state: SharedState,
 def prime_numba_cache(ds, devices=()):
     """Build and load the CUDA kernels ahead of the first GUI job on
     a card (the JAX package's hook of this name has nothing to
-    compile ahead of a run): ``ops/build.py`` compiles
-    ``csrc/fused_moments.cu`` with nvcc unless a current library is in
-    ``build/``.  Nothing happens where no device is a CUDA one."""
+    compile ahead of a run): ``ops/build.py`` compiles the fused
+    kernel's sources (``ops.moments.LIBRARIES``) with nvcc, at once,
+    unless current libraries are in ``build/``.  Nothing happens where
+    no device is a CUDA one."""
     import torch
 
     if any(torch.device(d).type == "cuda" for d in devices):
         from ..ops import build
-        build.load("fused_moments")
+        from ..ops.moments import LIBRARIES
+        build.build(LIBRARIES)
 
 
 class BrowseHandler(_BaseHandler):

@@ -14,6 +14,7 @@ import torch
 from libertem_tpu_torch.ops.moments import (
     fused_moments,
     fused_moments_reference,
+    tf32_round,
 )
 
 RTOL = 1e-5
@@ -177,20 +178,21 @@ def test_fused_moments_graph_replays_identical(card, n_masks):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("n_masks", [1, 6, 8, 9, 12, 17, 40, 64, 65, 130])
-def test_fused_moments_launches_per_call(card, n_masks):
+def test_fused_moments_launches_per_call(card, n_masks, precision):
     """One call captured in a CUDA graph holds 2 kernel nodes (one
     partials kernel for any mask count, one combine) and no copy or
-    memset node."""
+    memset node, at either precision."""
     import ctypes
 
     x = torch.ones((1024, 16384), dtype=torch.uint16, device=card)
     masks = torch.ones((n_masks, 16384), dtype=torch.float32, device=card)
-    fused_moments(x, masks, 1024)  # builds the library
+    fused_moments(x, masks, 1024, precision=precision)  # builds
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
-        fused_moments(x, masks, 1024)
+        fused_moments(x, masks, 1024, precision=precision)
     libcuda = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
@@ -206,6 +208,135 @@ def test_fused_moments_launches_per_call(card, n_masks):
     # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
     assert kinds.count(0) == 2, kinds
     assert 1 not in kinds and 2 not in kinds, kinds
+
+
+# The one-pass product (precision "default"): x_hi m_hi on operands
+# rounded to TF32.  Cases where the data needs more than one pass at
+# "highest" (random normal masks; wide u16; float input) and where it
+# needs one (0/1 masks on counts: the main path).
+ONE_PASS_CASES = [
+    # kind, depth, pixels, masks, valid, mask kind
+    ("u16", 1024, 16384, 6, 1024, "binary"),
+    ("u16", 1024, 16384, 6, 1024, "normal"),
+    ("u16", 1024, 16384, 12, 1000, "normal"),
+    ("u16", 1024, 16384, 40, 1024, "normal"),
+    ("u16", 1000, 5760, 65, 999, "normal"),
+    ("u16", 1024, 16384, 130, 1000, "normal"),
+    ("u16 wide", 1024, 16384, 6, 1024, "binary"),
+    ("corrected", 1024, 16384, 12, 1000, "normal"),
+    ("f32", 96, 2048, 5, 96, "normal"),
+    ("u8", 256, 4100, 33, 256, "normal"),
+    ("f16", 256, 4096, 6, 256, "normal"),
+    ("i64", 128, 4096, 3, 100, "normal"),
+    ("u16", 100, 1000, 7, 77, "normal"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,depth,pixels,n_masks,valid,m_kind",
+                         ONE_PASS_CASES)
+def test_fused_moments_one_pass(card, kind, depth, pixels, n_masks, valid,
+                                m_kind):
+    """One pass: y is the plain version's on the TF32-rounded operands
+    (within 1e-5 of ``|x_hi| @ |m_hi|``: other sum orders only) and
+    within 2^-9 of ``|x| @ |m|`` of the float64 product (two roundings
+    of at most 2^-11 each, and the float32 sums); colsum and colvar are
+    the three-pass call's bits, and so is y where the data needs one
+    pass; one partials launch a call."""
+    rng = np.random.default_rng(depth + n_masks)
+    x = _block(kind, depth, pixels, valid, rng).to(card)
+    if m_kind == "binary":
+        m = (rng.random((n_masks, pixels)) < 0.5).astype(np.float32)
+    else:
+        m = rng.normal(size=(n_masks, pixels)).astype(np.float32)
+    masks = torch.from_numpy(m).to(card)
+    before = fused_moments.launches
+    y1, s1, v1 = fused_moments(x, masks, valid, precision="default")
+    assert fused_moments.launches == before + 1
+    y3, s3, v3 = fused_moments(x, masks, valid, precision="highest")
+    assert torch.equal(s1, s3) and torch.equal(v1, v3)
+    xh, mh = tf32_round(x), tf32_round(masks)
+    want = fused_moments_reference(xh, mh, valid)[0].double()
+    mag = (xh.abs().double() @ mh.abs().double().T)
+    assert bool(torch.all((y1.double() - want).abs() <= RTOL * mag))
+    x64, m64 = x.double(), masks.double()
+    err = (y1.double() - x64 @ m64.T).abs()
+    assert bool(torch.all(err <= 2.0 ** -9 * (x64.abs() @ m64.abs().T)))
+    if m_kind == "binary" and kind == "u16":
+        assert torch.equal(y1, y3)
+
+
+@pytest.mark.cuda
+def test_fused_moments_one_pass_replays_identical(card):
+    """Three one-pass calls and two replays of 32 captured ones give
+    identical bits."""
+    rng = np.random.default_rng(19)
+    x = _block("u16", 1024, 16384, 1000, rng).to(card)
+    masks = torch.from_numpy(
+        rng.normal(size=(17, 16384)).astype(np.float32)).to(card)
+    first = fused_moments(x, masks, 1000, precision="default")
+    outs = [fused_moments(x, masks, 1000, precision="default")
+            for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs += [fused_moments(x, masks, 1000, precision="default")
+                 for _ in range(32)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out in outs:
+        for a, b in zip(first, out):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_run_precision_default_on_card(card, monkeypatch):
+    """A run under LIBERTEM_TPU_TORCH_MATMUL_PRECISION=default launches
+    the one-pass kernel; on 0/1 masks over counts its results are the
+    "highest" run's bits."""
+    import libertem_tpu_torch as lt
+
+    data = np.random.default_rng(3).poisson(
+        8.0, (16, 16, 64, 64)).astype(np.uint16)
+    ctx = lt.Context()
+    ds = ctx.load("memory", data=data, sig_dims=2)
+
+    def udfs():
+        return [lt.ApplyMasksUDF(mask_factories=[
+            lambda: lt.masks.circular(32, 32, 64, 64, 10)]),
+            lt.SumUDF(), lt.StdDevUDF()]
+
+    out = {}
+    for prec in ("highest", "default"):
+        monkeypatch.setenv("LIBERTEM_TPU_TORCH_MATMUL_PRECISION", prec)
+        res = ctx.run_udf(ds, udfs())
+        assert ctx.run_info["fused"]
+        assert ctx.run_info["matmul_precision"] == prec
+        out[prec] = [r[k].data for r in res for k in r]
+    for a, b in zip(out["highest"], out["default"]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_apply_masks_bf16_on_card(card):
+    """use_bf16=True on the card: out of the fused pass, a float32
+    result within 1e-5 of the float64 product of the bf16-rounded
+    operands."""
+    import libertem_tpu_torch as lt
+
+    rng = np.random.default_rng(5)
+    data = rng.poisson(8.0, (16, 16, 64, 64)).astype(np.float32)
+    mask = rng.random((64, 64)).astype(np.float32)
+    ctx = lt.Context()
+    ds = ctx.load("memory", data=data, sig_dims=2)
+    res = ctx.run_udf(ds, lt.ApplyMasksUDF(mask_factories=[lambda: mask],
+                                           use_bf16=True))
+    assert not ctx.run_info["fused"]
+    got = res["intensity"].data
+    assert got.dtype == np.float32
+    rounded = torch.from_numpy(mask).to(torch.bfloat16).double().numpy()
+    want = data.reshape(256, -1).astype(np.float64) @ rounded.reshape(-1)
+    np.testing.assert_allclose(got.reshape(-1), want, rtol=RTOL)
 
 
 # Blocks whose TF32 passes change inside the block.  The kernel decides
@@ -325,15 +456,16 @@ def test_fused_moments_product_runs_on_tensor_cores(card):
     from pathlib import Path
 
     from libertem_tpu_torch.ops import build
-    from libertem_tpu_torch.ops.moments import _library
+    from libertem_tpu_torch.ops.moments import LIBRARIES
 
-    _library()
+    build.build(LIBRARIES)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         pytest.skip("needs cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", str(build.library_path("fused_moments"))],
+    sass = "".join(subprocess.run(
+        [tool, "-sass", str(build.library_path(name))],
         capture_output=True, text=True, check=True, timeout=600).stdout
+        for name in LIBRARIES)
     kernels = re.split(r"\n\s*Function : ", sass)[1:]
     hmma = {k.split("\n", 1)[0]: "HMMA" in k for k in kernels}
     partials = [n for n in hmma if "moments_partials" in n]

@@ -186,3 +186,25 @@ def test_wrapper_takes_plain_version_on_cpu():
     assert fused_moments.launches == before
     for a, b in zip(out, ref):
         assert np.array_equal(a.numpy(), b)
+
+
+def test_entry_points_cover_every_dtype_once():
+    """Each input dtype's code is dispatched in the library that
+    ``_fused_moments_cuda`` loads for its item size, and in no other:
+    the 1- and 2-byte types in ``csrc/fused_moments.cu``, the 4- and
+    8-byte ones in ``csrc/fused_moments_wide.cu``."""
+    import re
+    from pathlib import Path
+
+    from libertem_tpu_torch.ops import moments
+
+    csrc = Path(moments.__file__).resolve().parent.parent / "csrc"
+    cases = {name: {int(c) for c in re.findall(
+        r"FM_CASE\((\d+),", (csrc / f"{name}.cu").read_text())}
+        for name in moments.LIBRARIES}
+    want = {name: set() for name in moments.LIBRARIES}
+    for dtype, code in moments._DTYPE_CODES.items():
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        want[moments.LIBRARIES[itemsize > 2]].add(code)
+    assert cases == want
+

@@ -83,12 +83,10 @@ EXCLUDED = {
         "tensor, by the tensor's device",
     "libertem_tpu.ops.moments.fused_moments(force_xla)":
         "the XLA fallback of the TPU kernel; no such path in the port",
-    "libertem_tpu.ops.moments.fused_moments(precision)":
-        "the MXU's bf16 pass count; the CUDA kernel's product is one "
-        "fp32 FMA pass",
     "libertem_tpu.ops.moments.fused_moments(data_terms)":
-        "the TPU kernel's MXU pass-count certificate; the CUDA kernel "
-        "has no such passes",
+        "the host feed's certificate of the MXU passes a block needs; "
+        "the CUDA kernel's warp votes find per sub-tile which TF32 "
+        "passes its data needs",
     # laid out differently on purpose
     "libertem_tpu.native":
         "the C++ decoders' module; the port's counterpart is "
@@ -827,19 +825,26 @@ def test_mask_container_like_jax(use_sparse):
 
 
 def test_apply_masks_accepts_use_bf16():
-    """``use_bf16`` (the JAX package's bfloat16 product) is accepted and
-    the port's result stays full float32: equal to the float64 sum."""
+    """``use_bf16=True`` runs the product on bfloat16 operands with
+    float32 sums, as the JAX package does: on float32 data with a
+    random mask, the port's result is the JAX package's (rtol 1e-5),
+    float32, and not the float32 product's."""
     data = _data().astype(np.float32)
     f = _mask_factories()
-    ctx, _ = _contexts()
-    ds = ctx.load("memory", data=data, sig_dims=2)
-    res = ctx.run_udf(ds, port.ApplyMasksUDF(mask_factories=f,
-                                             use_bf16=True))
+    ctx, jctx = _contexts()
+    res = ctx.run_udf(ctx.load("memory", data=data, sig_dims=2),
+                      port.ApplyMasksUDF(mask_factories=f, use_bf16=True))
+    want = jctx.run_udf(jctx.load("memory", data=data, sig_dims=2),
+                        libertem_tpu.udf.ApplyMasksUDF(mask_factories=f,
+                                                       use_bf16=True))
+    got = res["intensity"].data
+    assert got.dtype == np.float32
+    _close(got, want["intensity"].data)
     stack = np.stack([np.asarray(m()) if not sp.issparse(m()) else
                       m().toarray() for m in f])
-    want = np.einsum("nyx,myx->nm", data.reshape(-1, *SIG).astype(np.float64),
-                     stack.astype(np.float64)).reshape(NAV + (2,))
-    _close(res["intensity"].data, want)
+    f32 = np.einsum("nyx,myx->nm", data.reshape(-1, *SIG).astype(np.float64),
+                    stack.astype(np.float64)).reshape(NAV + (2,))
+    assert not np.allclose(got, f32, rtol=1e-7)
 
 
 def test_udf_constants_and_helpers_like_jax():

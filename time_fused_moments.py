@@ -29,6 +29,10 @@ def main() -> int:
         raise RuntimeError(f"imported {mm.__file__}, not from {tree}")
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
+    from libertem_tpu_torch.ops import build
+
+    # every library of the kernel at once (one source in older trees)
+    build.build(getattr(mm, "LIBRARIES", ("fused_moments",)))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
