@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..common.tracing import span
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = (
@@ -85,38 +87,40 @@ def library_path(name: str) -> Path:
 
 def build(names) -> None:
     """Compile every named source that has no current library, one
-    compiler per source, all started together."""
+    compiler per source, all started together, in a span
+    ``libertem.kernel_build`` (none where every library is current)."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in todo:
-        src = _source(name)
-        out = library_path(name)
-        tmp = out.with_name(
-            f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-        log_path = out.with_name(f"{name}.{os.getpid()}.log")
-        log = open(log_path, "w")
-        cmd = [*_command(src), "-o", str(tmp), str(src)]
-        procs.append((name, out, tmp, log_path, log, subprocess.Popen(
-            cmd, stdout=log, stderr=subprocess.STDOUT,
-        )))
-    failed = []
-    for name, out, tmp, log_path, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        os.replace(log_path, BUILD_DIR / f"{name}.log")
-        if rc != 0:
-            failed.append(name)
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        details = "\n".join(
-            (BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed
-        )
-        raise RuntimeError(f"the build failed for {failed}:\n{details}")
+    with span("libertem.kernel_build", libraries=todo):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name in todo:
+            src = _source(name)
+            out = library_path(name)
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            log_path = out.with_name(f"{name}.{os.getpid()}.log")
+            log = open(log_path, "w")
+            cmd = [*_command(src), "-o", str(tmp), str(src)]
+            procs.append((name, out, tmp, log_path, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT,
+            )))
+        failed = []
+        for name, out, tmp, log_path, log, proc in procs:
+            rc = proc.wait()
+            log.close()
+            os.replace(log_path, BUILD_DIR / f"{name}.log")
+            if rc != 0:
+                failed.append(name)
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            details = "\n".join(
+                (BUILD_DIR / f"{n}.log").read_text()[-4000:] for n in failed
+            )
+            raise RuntimeError(f"the build failed for {failed}:\n{details}")
 
 
 def load(name: str) -> ctypes.CDLL:

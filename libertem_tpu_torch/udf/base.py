@@ -88,6 +88,7 @@ from ..common.exceptions import UDFException, UDFRunCancelled  # noqa: F401
 from ..warnings import UseDiscouragedWarning
 from ..common.shape import Shape
 from ..common.slice import Slice
+from ..common.tracing import RunTrace, span
 from ..io.corrections import CorrectionSet
 from ..io.dataset.base import (
     Block,
@@ -1057,15 +1058,15 @@ class HostFeed:
         """The next slot, once the consumer has released it and the
         copy out of it has finished; ReadCancelled once ``stop`` is
         set."""
-        t0 = time.perf_counter()
-        while not self._free.acquire(timeout=0.1):
-            if stop.is_set():
-                raise ReadCancelled()
-        slot = self._next % self.SLOTS
-        self._next += 1
-        if self._cuda:
-            self._copied[slot].synchronize()
-        self.stats["slot_wait_s"] += time.perf_counter() - t0
+        with span("libertem.slot_wait", timed=True) as waited:
+            while not self._free.acquire(timeout=0.1):
+                if stop.is_set():
+                    raise ReadCancelled()
+            slot = self._next % self.SLOTS
+            self._next += 1
+            if self._cuda:
+                self._copied[slot].synchronize()
+        self.stats["slot_wait_s"] += waited.seconds
         return slot
 
     def host_block(self, slot: int, shape: tuple) -> np.ndarray:
@@ -1095,7 +1096,7 @@ class HostFeed:
             return
         else:
             self.stats["h2d_bytes"] += self._host[slot].nbytes
-        with torch.cuda.device(self._device), \
+        with span("libertem.h2d"), torch.cuda.device(self._device), \
                 torch.cuda.stream(self._stream):
             self._stream.wait_event(self._consumed[slot])
             if block.sparse is None:
@@ -1134,12 +1135,14 @@ class HostFeed:
         self._free.release()
 
     def run(self, partitions: Sequence[Partition], scheme: TilingScheme,
-            roi: Optional[np.ndarray] = None):
+            roi: Optional[np.ndarray] = None,
+            spans: Optional[dict] = None):
         """Yield ``(partition index, device block, Block)`` for every
-        block of every partition (of the roi's frames), in order."""
+        block of every partition (of the roi's frames), in order.
+        ``spans``: the run's span totals (:class:`RunTrace`), for the
+        consumer's spans here."""
         budgets = [p.sparse_nnz_budget(scheme, roi) for p in partitions]
         sparse = any(b is not None for b in budgets)
-        self.open(max(b or 0 for b in budgets) if sparse else None)
         stop = threading.Event()
         q: queue.Queue = queue.Queue()
         # the slot of the block gen_blocks is reading
@@ -1167,11 +1170,11 @@ class HostFeed:
                         part.gen_blocks(scheme, roi, out=acquire)
                     )
                     while True:
-                        t0 = time.perf_counter()
                         waited = self.stats["slot_wait_s"]
-                        block = next(blocks, None)
+                        with span("libertem.read", timed=True) as read:
+                            block = next(blocks, None)
                         self.stats["read_s"] += (
-                            time.perf_counter() - t0
+                            read.seconds
                             - (self.stats["slot_wait_s"] - waited)
                         )
                         if block is None:
@@ -1186,23 +1189,27 @@ class HostFeed:
 
         thread = threading.Thread(target=worker, daemon=True,
                                   name="HostFeed-reader")
-        thread.start()
+        with span("libertem.open", spans):
+            self.open(max(b or 0 for b in budgets) if sparse else None)
+            thread.start()
         try:
             while True:
-                t0 = time.perf_counter()
-                kind, payload = q.get()
-                self.stats["wait_s"] += time.perf_counter() - t0
+                with span("libertem.feed_wait", spans, True) as waited:
+                    kind, payload = q.get()
+                self.stats["wait_s"] += waited.seconds
                 if kind == "done":
                     break
                 if kind == "error":
                     raise payload
                 pi, slot, block = payload
                 yield pi, self.take(slot), block
-                self.release(slot)
+                with span("libertem.release", spans):
+                    self.release(slot)
         finally:
-            stop.set()
-            thread.join(timeout=60)
-            self.close()
+            with span("libertem.close", spans):
+                stop.set()
+                thread.join(timeout=60)
+                self.close()
 
 
 def executor_devices(executor) -> tuple:
@@ -1362,11 +1369,24 @@ class UDFRunner:
         list of a ``ShardedJobExecutor``) always takes the multi-device
         loop, over every process's workers; each process makes the
         identical call.  Numpy UDFs are refused there."""
+        trace = RunTrace()
+        with span("libertem.run", trace.spans,
+                  udfs=[type(u).__name__ for u in self._udfs]) as run:
+            trace.run = run
+            yield from self._run_iter(dataset, device, roi, corrections,
+                                      progress, yield_partial, devices,
+                                      trace)
+
+    def _run_iter(self, dataset, device, roi, corrections, progress,
+                  yield_partial, devices, trace: RunTrace):
+        """:meth:`run_for_dataset_iter`'s body, inside its
+        ``libertem.run`` span."""
         from ..common import distributed
         from ..common.backend import resolve_device
 
         rank, n_proc = distributed.world()
         refused = None
+        udf_names = [type(u).__name__ for u in self._udfs]
         if devices is not None and (len(devices) > 1 or n_proc > 1):
             blocked = [
                 type(u).__name__ for u in self._udfs
@@ -1403,7 +1423,8 @@ class UDFRunner:
                     f"no worker of the run belongs to process {rank}")
             # the rank's first local worker: copies keyed by device
             # never reach another process's device
-            prep = self._prepare(dataset, local[0], roi, corrections)
+            with trace.span("libertem.prepare", udfs=udf_names):
+                prep = self._prepare(dataset, local[0], roi, corrections)
             prep["dist"] = None if n_proc == 1 else {
                 "rank": rank, "transport": distributed.transport(),
                 "collective_s": 0.0,
@@ -1420,10 +1441,17 @@ class UDFRunner:
         else:
             if device is None and devices:
                 device = devices[0]
-            prep = self._prepare(dataset, resolve_device(device), roi,
-                                 corrections)
+            with trace.span("libertem.prepare", udfs=udf_names):
+                prep = self._prepare(dataset, resolve_device(device), roi,
+                                     corrections)
             prep["dist"] = None
             loop = self._run_loop(prep, dataset, progress, yield_partial)
+        prep["trace"] = trace
+        meta = prep["meta"]
+        trace.run.set_attributes(
+            frames=int(prep["n_nav"]),
+            bytes=int(prep["n_nav"] * meta.dataset_shape.sig.size
+                      * np.dtype(meta.dataset_dtype).itemsize))
         self.run_info = self._run_info(prep)
         try:
             if refused is not None:
@@ -2063,6 +2091,7 @@ class UDFRunner:
 
         fused: FusedPlan = prep["fused"]
         sig_shape = tuple(prep["meta"].dataset_shape.sig)
+        trace = prep["trace"]
         if prep["corr_plan"] is not None:
             block = self._apply_corrections(block, prep, valid)
         if prep["support"] is not None:
@@ -2070,31 +2099,36 @@ class UDFRunner:
                 block.reshape(block.shape[0], -1), prep["support"],
                 fused.compaction["block"],
             )
-        y, colsum, colvar = fused_moments(
-            block, prep["masks_t"], valid, compute_var=fused.need_var,
-            precision=prep["matmul_precision"],
-        )
-        for spec in fused.specs:
-            ui = spec["ui"]
-            mode = spec["mode"]
-            if mode in ("masks", "sumsig"):
-                name = spec["name"]
-                decl = prep["plan"][ui].decls[name]
-                if mode == "masks" and len(decl.extra_shape):
-                    rows = y[:valid, spec["off"]:spec["off"] + spec["n"]]
-                else:
-                    rows = y[:valid, spec["off"]]
-                state[ui][name][goff:goff + valid] += rows
-            elif mode == "colsum":
-                part_state[ui][spec["name"]] += colsum.reshape(sig_shape)
-            elif mode == "stats":
-                ps = part_state[ui]
-                n, s_, v = _combine(
-                    ps["num_frames"], ps["sum"], ps["varsum"],
-                    torch.full_like(ps["num_frames"], float(valid)),
-                    colsum.reshape(sig_shape), colvar.reshape(sig_shape),
-                )
-                ps["num_frames"], ps["sum"], ps["varsum"] = n, s_, v
+        with trace.span("libertem.fused_moments"):
+            y, colsum, colvar = fused_moments(
+                block, prep["masks_t"], valid, compute_var=fused.need_var,
+                precision=prep["matmul_precision"],
+            )
+        with trace.span("libertem.state_update"):
+            for spec in fused.specs:
+                ui = spec["ui"]
+                mode = spec["mode"]
+                if mode in ("masks", "sumsig"):
+                    name = spec["name"]
+                    decl = prep["plan"][ui].decls[name]
+                    if mode == "masks" and len(decl.extra_shape):
+                        rows = y[:valid,
+                                 spec["off"]:spec["off"] + spec["n"]]
+                    else:
+                        rows = y[:valid, spec["off"]]
+                    state[ui][name][goff:goff + valid] += rows
+                elif mode == "colsum":
+                    part_state[ui][spec["name"]] += colsum.reshape(
+                        sig_shape)
+                elif mode == "stats":
+                    ps = part_state[ui]
+                    n, s_, v = _combine(
+                        ps["num_frames"], ps["sum"], ps["varsum"],
+                        torch.full_like(ps["num_frames"], float(valid)),
+                        colsum.reshape(sig_shape),
+                        colvar.reshape(sig_shape),
+                    )
+                    ps["num_frames"], ps["sum"], ps["varsum"] = n, s_, v
 
     def _generic_step(self, prep, state, part_state, block, goff: int,
                       coords, valid: int, loff: Optional[int] = None
@@ -2286,18 +2320,23 @@ class UDFRunner:
         device = prep["device"]
         plan = prep["plan"]
         roi = prep["roi"]
+        trace = prep["trace"]
+        trace.run.set_attributes(workers=1)
         pixels = int(np.prod(prep["meta"].sig_shape))
         on_device = any(not e.host for e in plan)
         host_entries = [(ui, e) for ui, e in enumerate(plan) if e.host]
-        host = HostUDFRunner(host_entries, prep) if host_entries else None
-        host_global = host.init_global() if host else {}
-        feed = HostFeed(
-            (scheme.depth, pixels), dataset.meta.native_dtype, device,
-            to_device=on_device, host_reads=host is not None,
-        )
-        feed.stats["host_s"] = 0.0
-        self.feed_stats = feed.stats
-        state = self._init_state(prep)
+        with trace.span("libertem.open"):
+            host = (HostUDFRunner(host_entries, prep) if host_entries
+                    else None)
+            host_global = host.init_global() if host else {}
+            feed = HostFeed(
+                (scheme.depth, pixels), dataset.meta.native_dtype, device,
+                to_device=on_device, host_reads=host is not None,
+            )
+            feed.stats["host_s"] = 0.0
+            feed.stats["spans"] = trace.spans
+            self.feed_stats = feed.stats
+            state = self._init_state(prep)
         # the nav positions merged so far (roi-compressed)
         damage = np.zeros(prep["n_nav"], dtype=bool)
         part = {}
@@ -2330,26 +2369,29 @@ class UDFRunner:
 
         def finish():
             goff0, n_sel = part["goff0"], part["n_sel"]
-            if host:
-                host.bind_partition_views(
-                    host_global, part["host"], goff0, n_sel
+            with trace.span("libertem.hooks"):
+                if host:
+                    host.bind_partition_views(
+                        host_global, part["host"], goff0, n_sel
+                    )
+                bound = self._bind_device_postprocess(
+                    prep, state, part["state"], goff0, n_sel
                 )
-            bound = self._bind_device_postprocess(
-                prep, state, part["state"], goff0, n_sel
-            )
-            for udf in self._udfs:
-                udf.postprocess()
-            self._writeback_device_postprocess(
-                prep, state, part["state"], goff0, n_sel, bound
-            )
-            if host:
-                host.unbind_views()
-            self._merge(prep, state, part["state"])
-            if host:
-                host.merge_partition(
-                    host_global, part["host"], goff0, n_sel,
-                    init_rows=part["host_init"],
+                for udf in self._udfs:
+                    udf.postprocess()
+                self._writeback_device_postprocess(
+                    prep, state, part["state"], goff0, n_sel, bound
                 )
+                if host:
+                    host.unbind_views()
+            # the partition's partials folded into the run's state
+            with trace.span("libertem.fold"):
+                self._merge(prep, state, part["state"])
+                if host:
+                    host.merge_partition(
+                        host_global, part["host"], goff0, n_sel,
+                        init_rows=part["host_init"],
+                    )
             arrived = getattr(dataset, "frames_valid_count", None)
             if arrived is None:
                 damage[goff0:goff0 + n_sel] = True
@@ -2362,11 +2404,16 @@ class UDFRunner:
             if pm is not None:
                 pm.partition_done(n_sel, ident=part["pi"])
 
+        def wrap(damage_now):
+            with trace.span("libertem.wrap"):
+                return self._wrap_results(prep, state, host_global,
+                                          damage_now)
+
         current = None
         pm = self._make_progress(progress, prep)
         try:
             with contextlib.closing(
-                feed.run(prep["partitions"], scheme, roi)
+                feed.run(prep["partitions"], scheme, roi, trace.spans)
             ) as blocks:
                 for pi, block_t, block in blocks:
                     if pi != current:
@@ -2374,15 +2421,14 @@ class UDFRunner:
                             with _full_fp32_matmul():
                                 finish()
                             if yield_partial:
-                                yield self._wrap_results(
-                                    prep, state, host_global, damage.copy()
-                                )
+                                yield wrap(damage.copy())
                         if self._params_patched:
                             self._params_patched = False
                             self._apply_param_patch(prep)
-                        start(pi)
+                        with trace.span("libertem.hooks"):
+                            start(pi)
                         current = pi
-                    with _full_fp32_matmul():
+                    with trace.span("libertem.step"), _full_fp32_matmul():
                         if prep["fused"] is not None:
                             self._fused_step(
                                 prep, state, part["state"], block_t,
@@ -2398,19 +2444,21 @@ class UDFRunner:
                     if host:
                         # the pinned host slot itself, done with before
                         # the feed refills it
-                        t0 = time.perf_counter()
-                        host.process_block(
-                            host_global, part["host"], block.data,
-                            block.global_offset, block.coords, block.valid,
-                        )
-                        feed.stats["host_s"] += time.perf_counter() - t0
+                        with trace.span("libertem.host_step",
+                                        timed=True) as stepped:
+                            host.process_block(
+                                host_global, part["host"], block.data,
+                                block.global_offset, block.coords,
+                                block.valid,
+                            )
+                        feed.stats["host_s"] += stepped.seconds
                     if pm is not None:
                         pm.frames_done(block.valid, ident=pi)
             if current is not None:
                 with _full_fp32_matmul():
                     finish()
             # the last partition's partial, or the only result
-            yield self._wrap_results(prep, state, host_global, damage)
+            yield wrap(damage)
         finally:
             if pm is not None:
                 pm.close()
@@ -2513,78 +2561,86 @@ class UDFRunner:
         local = [d for d, w in enumerate(workers) if w.rank == rank]
         devs = [w.device for w in workers]
         main = prep["device"]
+        trace = prep["trace"]
 
-        # per-stage wall seconds (timing a stage synchronises the
-        # devices: set only when measuring)
-        stats = None
-        if os.environ.get("LIBERTEM_TPU_SHARDED_STATS"):
-            stats = {
-                "assembly_s": 0.0, "h2d_s": 0.0, "step_s": 0.0,
-                "host_udf_s": 0.0, "fold_s": 0.0, "wrap_s": 0.0,
-                "n_steps": 0, "n_devices": n_dev,
-                "collective_s": 0.0,
-                "transport": (None if dist_info is None
-                              else dist_info["transport"]),
-            }
-        self.last_sharded_stats = stats
+        # the shards, each worker's blocks, the super-steps
+        with trace.span("libertem.shard_plan"):
+            # per-stage wall seconds (timing a stage synchronises the
+            # devices: set only when measuring)
+            stats = None
+            if os.environ.get("LIBERTEM_TPU_SHARDED_STATS"):
+                stats = {
+                    "assembly_s": 0.0, "h2d_s": 0.0, "step_s": 0.0,
+                    "host_udf_s": 0.0, "fold_s": 0.0, "wrap_s": 0.0,
+                    "n_steps": 0, "n_devices": n_dev,
+                    "collective_s": 0.0,
+                    "transport": (None if dist_info is None
+                                  else dist_info["transport"]),
+                }
+            self.last_sharded_stats = stats
 
-        ids_all = (np.flatnonzero(roi) if roi is not None
-                   else np.arange(n_nav, dtype=np.int64))
-        block_cyclic = not dataset.supports_concurrent_reads
-        if block_cyclic:
-            # one super-step's reads must fit the source's in-flight
-            # window, or the producer and the reader block each other
-            cap = getattr(dataset, "max_inflight_frames", None)
-            if cap is not None and n_dev * depth > int(cap):
-                depth = max(1, int(cap) // n_dev)
-                scheme = TilingScheme(
-                    depth, [sl for _, sl in scheme.slices],
-                    scheme.dataset_shape, intent=scheme.intent,
-                )
-                prep["scheme"] = meta.tiling_scheme = scheme
-        bounds = np.linspace(0, n_nav, n_dev + 1).astype(np.int64)
-        shard_max = int(np.diff(bounds).max()) if n_nav else 0
-        # each shard's (first position, frames) runs in the
-        # roi-compressed nav order: one contiguous run, or one a
-        # super-step (block-cyclic); its state's rows are their
-        # concatenation
-        if block_cyclic:
-            shard_runs = [
-                [(lo, min(depth, n_nav - lo))
-                 for lo in range(d * depth, n_nav, n_dev * depth)]
-                for d in range(n_dev)
+            ids_all = (np.flatnonzero(roi) if roi is not None
+                       else np.arange(n_nav, dtype=np.int64))
+            block_cyclic = not dataset.supports_concurrent_reads
+            if block_cyclic:
+                # one super-step's reads must fit the source's in-flight
+                # window, or the producer and the reader block each other
+                cap = getattr(dataset, "max_inflight_frames", None)
+                if cap is not None and n_dev * depth > int(cap):
+                    depth = max(1, int(cap) // n_dev)
+                    scheme = TilingScheme(
+                        depth, [sl for _, sl in scheme.slices],
+                        scheme.dataset_shape, intent=scheme.intent,
+                    )
+                    prep["scheme"] = meta.tiling_scheme = scheme
+            bounds = np.linspace(0, n_nav, n_dev + 1).astype(np.int64)
+            shard_max = int(np.diff(bounds).max()) if n_nav else 0
+            # each shard's (first position, frames) runs in the
+            # roi-compressed nav order: one contiguous run, or one a
+            # super-step (block-cyclic); its state's rows are their
+            # concatenation
+            if block_cyclic:
+                shard_runs = [
+                    [(lo, min(depth, n_nav - lo))
+                     for lo in range(d * depth, n_nav, n_dev * depth)]
+                    for d in range(n_dev)
+                ]
+            else:
+                shard_runs = [[(int(lo), int(hi - lo))]
+                              for lo, hi in zip(bounds[:-1], bounds[1:])]
+            # each worker's blocks, (first, end) positions: block s of a
+            # worker is super-step s, at row s * depth of its nav state
+            worker_blocks = [
+                [(lo + k, lo + min(k + depth, n))
+                 for lo, n in runs for k in range(0, n, depth)]
+                for runs in shard_runs
             ]
-        else:
-            shard_runs = [[(int(lo), int(hi - lo))]
-                          for lo, hi in zip(bounds[:-1], bounds[1:])]
-        # each worker's blocks, (first, end) positions: block s of a
-        # worker is super-step s, at row s * depth of its nav state
-        worker_blocks = [
-            [(lo + k, lo + min(k + depth, n))
-             for lo, n in runs for k in range(0, n, depth)]
-            for runs in shard_runs
-        ]
-        n_steps = max([1] + [len(b) for b in worker_blocks])
-        # block-cyclic: a worker's n_steps * depth rows fit
-        # shard_max + depth
-        prep["block_cyclic"] = (depth, n_steps) if block_cyclic else None
-        frames_valid_count = getattr(dataset, "frames_valid_count", None)
+            n_steps = max([1] + [len(b) for b in worker_blocks])
+            # block-cyclic: a worker's n_steps * depth rows fit
+            # shard_max + depth
+            prep["block_cyclic"] = (depth, n_steps) if block_cyclic else None
+            frames_valid_count = getattr(dataset, "frames_valid_count", None)
+            trace.run.set_attributes(workers=n_dev, super_steps=n_steps)
 
         on_device = any(not e.host for e in plan)
         host_entries = [(ui, e) for ui, e in enumerate(plan) if e.host]
-        host = HostUDFRunner(host_entries, prep) if host_entries else None
-        host_global = host.init_global() if host else {}
-        host_parts = {d: host.init_partition() for d in local} if host \
-            else None
-        wpreps = dict(zip(local, self._worker_preps(
-            prep, [devs[d] for d in local])))
-        states = {d: self._init_state(wpreps[d], shard_max) for d in local}
+        with trace.span("libertem.open"):
+            host = (HostUDFRunner(host_entries, prep) if host_entries
+                    else None)
+            host_global = host.init_global() if host else {}
+            host_parts = ({d: host.init_partition() for d in local}
+                          if host else None)
+            wpreps = dict(zip(local, self._worker_preps(
+                prep, [devs[d] for d in local])))
+            states = {d: self._init_state(wpreps[d], shard_max)
+                      for d in local}
 
         totals = {"read_s": 0.0, "slot_wait_s": 0.0, "wait_s": 0.0,
                   "blocks": 0, "h2d_bytes": 0, "host_s": 0.0,
                   "collective_s": 0.0, "workers": [],
                   "transport": (None if dist_info is None
-                                else dist_info["transport"])}
+                                else dist_info["transport"]),
+                  "spans": trace.spans}
         self.feed_stats = totals
         if dist_info is not None:
             # what every process must agree on before the first read:
@@ -2617,43 +2673,46 @@ class UDFRunner:
                     "over several processes - run it in one process")
 
         feeds = {}
-        for d in local:
-            feeds[d] = HostFeed(
-                (depth, int(np.prod(sig))), dataset.meta.native_dtype,
-                devs[d], to_device=on_device, host_reads=host is not None)
-            feeds[d].open()
-            totals["workers"].append(feeds[d].stats)
+        # the feeds, the hooks' instances, the readers' pool
+        with trace.span("libertem.open"):
+            for d in local:
+                feeds[d] = HostFeed(
+                    (depth, int(np.prod(sig))), dataset.meta.native_dtype,
+                    devs[d], to_device=on_device,
+                    host_reads=host is not None)
+                feeds[d].open()
+                totals["workers"].append(feeds[d].stats)
+            # the hooks' instances: the first local shard the real ones,
+            # clones for the others (get_task_data sees the run's
+            # coordinates, as in _prepare)
+            shard_udfs = {local[0]: list(self._udfs)}
+            meta.coordinates = np.stack(
+                np.unravel_index(ids_all, nav_shape), axis=-1
+            ).astype(np.int32).reshape(n_nav, len(nav_shape))
+            meta._slice = Slice((0,) * (1 + len(sig)),
+                                Shape((n_nav,) + sig, sig_dims=len(sig)))
+            try:
+                for d in local[1:]:
+                    clones = []
+                    for udf in self._udfs:
+                        clone = udf.copy()
+                        clone.meta = udf.meta
+                        clone.task_data = UDFData(clone.get_task_data() or {})
+                        clones.append(clone)
+                    shard_udfs[d] = clones
+            finally:
+                meta.coordinates = None
+                meta._slice = None
+
+            stop = threading.Event()
+            for p in partitions:
+                p.stop_event = stop
+            q: queue.Queue = queue.Queue()
+            pool = ThreadPoolExecutor(max_workers=min(len(local), 8),
+                                      thread_name_prefix="shard-reader")
+
         # with stats: each worker's copies, waited for by its reader
         h2d_s = [0.0] * n_dev
-
-        # the hooks' instances: the first local shard the real ones,
-        # clones for the others (get_task_data sees the run's
-        # coordinates, as in _prepare)
-        shard_udfs = {local[0]: list(self._udfs)}
-        meta.coordinates = np.stack(
-            np.unravel_index(ids_all, nav_shape), axis=-1
-        ).astype(np.int32).reshape(n_nav, len(nav_shape))
-        meta._slice = Slice((0,) * (1 + len(sig)),
-                            Shape((n_nav,) + sig, sig_dims=len(sig)))
-        try:
-            for d in local[1:]:
-                clones = []
-                for udf in self._udfs:
-                    clone = udf.copy()
-                    clone.meta = udf.meta
-                    clone.task_data = UDFData(clone.get_task_data() or {})
-                    clones.append(clone)
-                shard_udfs[d] = clones
-        finally:
-            meta.coordinates = None
-            meta._slice = None
-
-        stop = threading.Event()
-        for p in partitions:
-            p.stop_event = stop
-        q: queue.Queue = queue.Queue()
-        pool = ThreadPoolExecutor(max_workers=min(len(local), 8),
-                                  thread_name_prefix="shard-reader")
 
         def read_chunk(d, s):
             """Worker ``d``'s block of super-step ``s``, read into its
@@ -2665,18 +2724,19 @@ class UDFRunner:
             loff = s * depth
             feed = feeds[d]
             slot = feed.acquire_slot(stop)
-            t0 = time.perf_counter()
-            out = feed.host_block(slot, (depth,) + sig)
-            chunk = ids_all[base:end]
-            read_ids_across(partitions, chunk, out)
-            coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
-            if nav_shape:
-                for k, u in enumerate(np.unravel_index(chunk, nav_shape)):
-                    coords[:len(chunk), k] = u
-            block = Block(global_offset=base, coords=coords,
-                          valid=len(chunk), data=out)
+            with span("libertem.read", timed=True) as read:
+                out = feed.host_block(slot, (depth,) + sig)
+                chunk = ids_all[base:end]
+                read_ids_across(partitions, chunk, out)
+                coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
+                if nav_shape:
+                    for k, u in enumerate(
+                            np.unravel_index(chunk, nav_shape)):
+                        coords[:len(chunk), k] = u
+                block = Block(global_offset=base, coords=coords,
+                              valid=len(chunk), data=out)
+            feed.stats["read_s"] += read.seconds
             t1 = time.perf_counter()
-            feed.stats["read_s"] += t1 - t0
             feed.push(slot, block)
             if stats and feed._cuda:
                 feed._copied[slot].synchronize()
@@ -2728,15 +2788,16 @@ class UDFRunner:
                     torch.cuda.synchronize(dev)
 
         def snapshot(damage_now):
-            t0 = time.perf_counter()
-            collapsed = self._collapse_sharded(prep, states, bounds, fold)
-            t1 = time.perf_counter()
-            wrapped = self._wrap_results(prep, collapsed, host_global,
+            with trace.span("libertem.fold", True, workers=n_dev) as folded:
+                collapsed = self._collapse_sharded(prep, states, bounds,
+                                                   fold)
+            with trace.span("libertem.wrap", True) as wrapped:
+                out = self._wrap_results(prep, collapsed, host_global,
                                          damage_now)
             if stats:
-                stats["fold_s"] += t1 - t0
-                stats["wrap_s"] += time.perf_counter() - t1
-            return wrapped
+                stats["fold_s"] += folded.seconds
+                stats["wrap_s"] += wrapped.seconds
+            return out
 
         def hook(d, name):
             """``preprocess`` or ``postprocess`` of shard ``d``'s
@@ -2763,119 +2824,130 @@ class UDFRunner:
                 host.unbind_views()
 
         damage = np.zeros(n_nav, dtype=bool)
-        fold = self._make_sharded_fold(prep, workers)
-        pm = self._make_progress(progress, prep, n_steps=n_steps)
-        thread = threading.Thread(target=assemble, daemon=True,
-                                  name="shard-reader-main")
+        with trace.span("libertem.open"):
+            fold = self._make_sharded_fold(prep, workers)
+            pm = self._make_progress(progress, prep, n_steps=n_steps)
+            thread = threading.Thread(target=assemble, daemon=True,
+                                      name="shard-reader-main")
 
         try:
-            for d in local:
-                hook(d, "preprocess")
-            thread.start()
+            with trace.span("libertem.hooks"):
+                for d in local:
+                    hook(d, "preprocess")
+            with trace.span("libertem.open"):
+                thread.start()
             while True:
-                t0 = time.perf_counter()
-                kind, payload = q.get()
-                totals["wait_s"] += time.perf_counter() - t0
-                if kind == "done":
-                    break
-                if kind == "error":
-                    raise payload
-                items, spans, frames = payload
-                if self._params_patched:
-                    self._params_patched = False
-                    self._apply_param_patch(prep)
-                    wpreps = dict(zip(local, self._worker_preps(
-                        prep, [devs[d] for d in local])))
-                t0 = time.perf_counter()
-                # every worker's step first, then the host engine on
-                # the host copies while the devices work
-                for d, item in items.items():
-                    if item is None:
-                        continue
-                    slot, block, loff = item
-                    with on(devs[d]), _full_fp32_matmul():
-                        block_t = feeds[d].take(slot)
-                        meta.device = devs[d]
-                        if prep["fused"] is not None:
-                            self._fused_step(
-                                wpreps[d], states[d], states[d], block_t,
-                                loff, block.valid,
-                            )
-                        elif on_device:
-                            coords = torch.from_numpy(block.coords).to(
-                                devs[d])
-                            self._generic_step(
-                                wpreps[d], states[d], states[d], block_t,
-                                block.global_offset, coords, block.valid,
-                                loff=loff,
-                            )
-                meta.device = main
-                if stats:
-                    sync()
-                    t1 = time.perf_counter()
-                    stats["step_s"] += t1 - t0
-                    stats["n_steps"] += 1
-                    t0 = t1
-                if host is not None:
-                    th = time.perf_counter()
+                # the super-step up to its slots' release: its parts
+                # and the stretches between them
+                with trace.span("libertem.super_step"):
+                    with trace.span("libertem.feed_wait", True) as waited:
+                        kind, payload = q.get()
+                    totals["wait_s"] += waited.seconds
+                    if kind == "done":
+                        break
+                    if kind == "error":
+                        raise payload
+                    items, spans, frames = payload
+                    if self._params_patched:
+                        self._params_patched = False
+                        self._apply_param_patch(prep)
+                        wpreps = dict(zip(local, self._worker_preps(
+                            prep, [devs[d] for d in local])))
+                    t0 = time.perf_counter()
+                    # every worker's step first, then the host engine on
+                    # the host copies while the devices work
                     for d, item in items.items():
-                        if item is not None:
-                            _, block, _ = item
-                            host.process_block(
-                                host_global, host_parts[d], block.data,
-                                block.global_offset, block.coords,
-                                block.valid,
-                            )
-                    totals["host_s"] += time.perf_counter() - th
+                        if item is None:
+                            continue
+                        slot, block, loff = item
+                        with trace.span("libertem.step"), on(devs[d]), \
+                                _full_fp32_matmul():
+                            block_t = feeds[d].take(slot)
+                            meta.device = devs[d]
+                            if prep["fused"] is not None:
+                                self._fused_step(
+                                    wpreps[d], states[d], states[d], block_t,
+                                    loff, block.valid,
+                                )
+                            elif on_device:
+                                coords = torch.from_numpy(block.coords).to(
+                                    devs[d])
+                                self._generic_step(
+                                    wpreps[d], states[d], states[d], block_t,
+                                    block.global_offset, coords, block.valid,
+                                    loff=loff,
+                                )
+                    meta.device = main
                     if stats:
-                        stats["host_udf_s"] += time.perf_counter() - th
-                for d, item in items.items():
-                    if item is not None:
-                        with on(devs[d]):
-                            feeds[d].release(item[0])
-                for lo, hi in spans:
-                    damage[lo:hi] = True
-                if pm is not None:
-                    pm.frames_done(frames)
+                        sync()
+                        t1 = time.perf_counter()
+                        stats["step_s"] += t1 - t0
+                        stats["n_steps"] += 1
+                        t0 = t1
+                    if host is not None:
+                        with trace.span("libertem.host_step", True) as stepped:
+                            for d, item in items.items():
+                                if item is not None:
+                                    _, block, _ = item
+                                    host.process_block(
+                                        host_global, host_parts[d], block.data,
+                                        block.global_offset, block.coords,
+                                        block.valid,
+                                    )
+                        totals["host_s"] += stepped.seconds
+                        if stats:
+                            stats["host_udf_s"] += stepped.seconds
+                    with trace.span("libertem.release"):
+                        for d, item in items.items():
+                            if item is not None:
+                                with on(devs[d]):
+                                    feeds[d].release(item[0])
+                        for lo, hi in spans:
+                            damage[lo:hi] = True
+                        if pm is not None:
+                            pm.frames_done(frames)
                 if yield_partial:
                     yield snapshot(damage.copy())
             # postprocess once a shard, the clones cleaned up after it
             # (the real instances at the run's end: get_results may
             # read their task data)
-            for d in local:
-                hook(d, "postprocess")
-                if d != local[0]:
-                    for udf in shard_udfs[d]:
-                        udf.cleanup()
+            with trace.span("libertem.hooks"):
+                for d in local:
+                    hook(d, "postprocess")
+                    if d != local[0]:
+                        for udf in shard_udfs[d]:
+                            udf.cleanup()
             if host is not None:
                 # each shard's partition buffers, in shard order (host
                 # UDFs run in one process); the valid nav mask shows
                 # what is merged so far
                 merged = np.zeros_like(damage)
-                for d in local:
-                    runs = shard_runs[d] or [(0, 0)]
-                    meta._valid_nav_mask = merged.copy()
-                    try:
-                        if len(runs) > 1:
-                            host.merge_partition(host_global, host_parts[d],
-                                                 runs=runs)
-                        else:
-                            host.merge_partition(host_global, host_parts[d],
-                                                 *runs[0])
-                    finally:
-                        meta._valid_nav_mask = None
-                    for lo, n in runs:
-                        merged[lo:lo + n] = damage[lo:lo + n]
+                with trace.span("libertem.fold"):
+                    for d in local:
+                        runs = shard_runs[d] or [(0, 0)]
+                        meta._valid_nav_mask = merged.copy()
+                        try:
+                            if len(runs) > 1:
+                                host.merge_partition(
+                                    host_global, host_parts[d], runs=runs)
+                            else:
+                                host.merge_partition(
+                                    host_global, host_parts[d], *runs[0])
+                        finally:
+                            meta._valid_nav_mask = None
+                        for lo, n in runs:
+                            merged[lo:lo + n] = damage[lo:lo + n]
             yield snapshot(damage)
         finally:
             # no collective here: after an exception the other
             # processes meet this one's absence in their next gather
-            stop.set()
-            if thread.is_alive():
-                thread.join(timeout=60)
-            pool.shutdown(wait=True)
-            for feed in feeds.values():
-                feed.close()
+            with trace.span("libertem.close"):
+                stop.set()
+                if thread.is_alive():
+                    thread.join(timeout=60)
+                pool.shutdown(wait=True)
+                for feed in feeds.values():
+                    feed.close()
             meta.device = main
             for k in ("read_s", "slot_wait_s", "blocks", "h2d_bytes"):
                 totals[k] = sum(feed.stats[k] for feed in feeds.values())

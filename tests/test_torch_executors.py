@@ -1058,6 +1058,13 @@ def test_tracing_off_without_endpoint(monkeypatch):
     with pt._NoopTracer().start_as_current_span("x") as span:
         span.add_event("e")
         span.record_exception(ValueError())
+    # off: the port's run-level span is the shared no-op, unless a run
+    # counts it
+    assert pt.span("libertem.run") is pt.NOOP
+    totals = {}
+    with pt.span("libertem.run", totals) as span:
+        span.set_attributes(frames=1)
+    assert totals == {"libertem.run": [1, span.seconds]}
 
 
 def test_set_num_threads():
