@@ -1,7 +1,11 @@
 """The benchmark's arithmetic against hand figures: the interval union
-and idle gaps of a trace, the percentile over all passes, the rate over
-all the window's bytes and time, the quartile spread, the fused-moments
-roofline count, and the metric readers over a made-up record."""
+and idle gaps of a trace, the cards' kernel time, the percentile over
+all passes, the rate over all the window's bytes and time, the quartile
+spread, the fused-moments roofline count, and the metric readers over a
+made-up record; and a trace recorded on the card read to the numbers
+recorded beside it."""
+import gzip
+import json
 import math
 import sys
 from pathlib import Path
@@ -88,6 +92,99 @@ def test_overlapping_copies_take_the_union_of_their_time():
     assert s.busy_s == pytest.approx({0: 40e-6, 1: 30e-6})
 
 
+def test_kernel_time_is_the_union_of_kernels_and_memsets():
+    # card 0: two kernels on two streams that overlap, a memset beside
+    # them, a kernel under a copy, a copy alone and a kernel cut by the
+    # window; card 1: one kernel under a copy
+    events = [_x("user_annotation", "w", 0.0, 100.0, pid=1, tid=1)]
+    for cat, name, start, dur, dev in [
+            ("kernel", "a", 0.0, 10.0, 0),
+            ("kernel", "b", 5.0, 10.0, 0),
+            ("gpu_memset", "Memset (Device)", 20.0, 4.0, 0),
+            ("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 30.0, 20.0, 0),
+            ("kernel", "c", 35.0, 5.0, 0),
+            ("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 60.0, 10.0,
+             0),
+            ("kernel", "d", 95.0, 10.0, 0),
+            ("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 10.0, 30.0, 1),
+            ("kernel", "e", 20.0, 5.0, 1)]:
+        args = {"device": dev}
+        if cat == "gpu_memcpy":
+            args["bytes"] = 1000
+        events.append(_x(cat, name, start, dur, args=args, pid=dev, tid=7))
+    s = trace.summarize(events, "w", [0, 1])
+    # each card's intervals, clipped to the window, from its start
+    assert [iv[2:] for iv in s.intervals[1]] == [
+        ("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)"), ("kernel", "e")]
+    assert s.intervals[1][0][:2] == pytest.approx((10e-6, 40e-6))
+    assert s.intervals[0][-1][:2] == pytest.approx((95e-6, 100e-6))
+    # the copies count in the card's busy time
+    assert s.busy_s == pytest.approx({0: 54e-6, 1: 30e-6})
+    rec = _rec(trace=s, traced_passes=2)
+    # card 0: 15 (a, b) + 4 (the memset) + 5 (c) + 5 (d, to the window's
+    # end); card 1: 5 (e); over two passes
+    assert _readers()["card_kernel_ms_per_pass"].read(rec) == \
+        pytest.approx(34e-3 / 2)
+    assert _readers()["card_ms_per_pass"].read(rec) == \
+        pytest.approx(84e-3 / 2)
+    # a window with copies alone leaves the kernels' time silent
+    copies = trace.summarize(
+        [e for e in events if e["cat"] in ("user_annotation", "gpu_memcpy")],
+        "w", [0, 1])
+    assert _readers()["card_kernel_ms_per_pass"].read(
+        _rec(trace=copies, traced_passes=2)) is None
+
+
+TRACES = HERE / "traces"
+
+
+def test_recorded_trace_reads_as_recorded():
+    """30 ms of one pass of ``vdet-u16-mem-w4`` recorded on an H100 (the
+    device's kernels and copies, the consumer thread's host events, a
+    window annotation put around them); the numbers beside it are what
+    the trace reader and the readers gave before the device intervals were
+    kept, which must not change."""
+    events = json.loads(gzip.decompress(
+        (TRACES / "vdet-u16-mem-w4.json.gz").read_bytes()))["traceEvents"]
+    want = json.loads((TRACES / "vdet-u16-mem-w4.expected.json").read_text())
+    s = trace.summarize(events, "portbench.traced", [0])
+    ws = want["summary"]
+    assert s.window_s == ws["window_s"]
+    assert {str(k): v for k, v in s.busy_s.items()} == ws["busy_s"]
+    assert s.op_s == ws["op_s"]
+    assert (s.h2d_bytes, s.h2d_s) == (ws["h2d_bytes"], ws["h2d_s"])
+    assert s.idle_by_host == ws["idle_by_host"]
+    rec = _rec(trace=s, traced_passes=1)
+    readers = _readers()
+    for name, value in want["readings"].items():
+        assert readers[name].read(rec) == value, name
+
+    def top(d):
+        return [[k, v] for k, v in
+                sorted(d.items(), key=lambda kv: -kv[1])[:10]]
+    assert {"device_ops": top(s.op_s), "idle_gaps": top(s.idle_by_host)} \
+        == want["breakdown"]
+    # the kernels' union, counted here by hand: every kernel clipped to
+    # the window, merged, without a copy
+    w = next(e for e in events if e["cat"] == "user_annotation")
+    lo, hi = w["ts"], w["ts"] + w["dur"]
+    ivs = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                 for e in events if e["cat"] == "kernel")
+    total, end = 0.0, -math.inf
+    for a, b in ivs:
+        if b <= a:
+            continue
+        if a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    got = readers["card_kernel_ms_per_pass"].read(rec)
+    assert got == pytest.approx(total / 1e3, rel=1e-9)
+    assert 0 < got < 1e3 * s.busy_s[0]
+
+
 def test_percentile_over_every_pass():
     values = [float(v) for v in range(1, 101)]
     assert stats.percentile(values, 90) == pytest.approx(90.1)
@@ -149,13 +246,18 @@ def test_metric_readers():
     bound, _ = roofline.fused_moments_bound_s(65536 * 3, 16384, 6, 2, 128)
     summary = trace.Summary(window_s=2.0, busy_s={0: 0.5},
                             op_s={"moments_partials<u16>": 2 * bound},
-                            h2d_bytes=10**9, h2d_s=0.02)
+                            h2d_bytes=10**9, h2d_s=0.02,
+                            intervals={0: [(0.0, 0.05, "kernel", "k"),
+                                           (0.04, 0.06, "gpu_memset", "m"),
+                                           (0.1, 0.5, "gpu_memcpy", "c")]})
     rec = _rec(spans=spans, feeds=feeds, sharded=sharded, trace=summary,
                pass_bytes=3 * 10**9, traced_passes=3, traced_launches=128)
     got = {name: r.read(rec) for name, r in readers.items()}
     assert got["scan_GBps.host"] == pytest.approx(9.0)
     # 0.5 s of the card's time over the window's three passes
     assert got["card_ms_per_pass"] == pytest.approx(500.0 / 3)
+    # 0.06 s of it kernels and memsets
+    assert got["card_kernel_ms_per_pass"] == pytest.approx(20.0)
     assert got["setup_s"] == 12.5
     assert got["first_pass_s"] == 7.5
     assert got["pass_p90_s.host"] == pytest.approx(0.46)

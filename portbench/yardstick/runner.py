@@ -111,13 +111,22 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         check_cards(cell)
     os.environ[PRECISION_ENV] = config["matmul_precision"]
     os.environ.pop(STATS_ENV, None)
+    # where set-up's time goes: seconds from the process's start at the
+    # end of each of its steps (in the run's output file)
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start
+
     import torch
     import libertem_tpu_torch as lt
     from libertem_tpu_torch.ops.moments import fused_moments
+    mark("imports")
 
     cards = cell.cards
     main = f"cuda:{cards[0]}" if device_type == "cuda" else "cpu"
     inputs = data.make_inputs(config, seed, main)
+    mark("inputs")
     udfset = cells.load_module("udfsets", config["udfset"], root)
     groups, udfs, corrections = udfset.build(lt, config, inputs)
     ctx = make_context(lt, cell, device_type)
@@ -134,13 +143,16 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     def passes():
         return one_pass(ctx, ds, udfs, corrections, groups)
 
+    mark("context_and_dataset")
     t0 = time.perf_counter()
     passes()
     rec.first_pass_s = time.perf_counter() - t0
+    mark("first_pass")
     with _profiler(device_type):
         passes()
     gc.collect()
     rec.setup_s = time.perf_counter() - t_start
+    mark("second_pass")
 
     attempted = failed = 0
     last = None
@@ -180,6 +192,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
 
     notes = {"cell": cell.name, "seed": seed, "trace": trace,
              "setup_s": rec.setup_s, "first_pass_s": rec.first_pass_s,
+             "setup_marks_s": marks,
              "pass_s": [b - a for a, b in rec.spans]}
     t0 = time.perf_counter()
     rec.trace = _summarize(prof, rec.cell.name, seed, cards)

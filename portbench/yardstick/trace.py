@@ -4,9 +4,12 @@ Device activity is every kernel, copy and memset on a card.  They
 overlap (a copy on a side stream runs under a kernel), so a card's busy
 time is the length of the union of their intervals, never their sum.
 The window is the host annotation the harness put around the traced
-passes.  An idle gap of a card is named by what the host's main thread
-(the one that opened the window) was doing at its middle: the innermost
-host event that covers that instant.
+passes.  Each card's device intervals, clipped to the window, are kept
+with their category and name, so that a metric's reader can take its
+own union of them (say, of the kernels alone).  An idle gap of a card
+is named by what the host's main thread (the one that opened the
+window) was doing at its middle: the innermost host event that covers
+that instant.
 """
 from __future__ import annotations
 
@@ -81,13 +84,16 @@ class Summary:
     bytes and time (on each card the union of its copies' intervals,
     since copies on side streams overlap; summed over the cards), and
     the idle time of a card by what the host was doing, averaged over
-    the cards."""
+    the cards.  ``intervals``: each card's device activity as
+    ``(start, end, category, name)``, clipped to the window, in seconds
+    from its start, in the trace's order."""
     window_s: float
     busy_s: dict
     op_s: dict = field(default_factory=dict)
     h2d_bytes: int = 0
     h2d_s: float = 0.0
     idle_by_host: dict = field(default_factory=dict)
+    intervals: dict = field(default_factory=dict)
 
     def matching_s(self, pattern: str) -> float:
         """Device seconds of the operations whose name matches
@@ -111,6 +117,7 @@ def summarize(events: list, window_name: str, devices) -> Summary:
     main = (w.get("pid"), w.get("tid"))
 
     per_dev = defaultdict(list)
+    named = defaultdict(list)
     op_us: dict = defaultdict(float)
     h2d = defaultdict(list)
     h2d_bytes = 0
@@ -129,6 +136,8 @@ def summarize(events: list, window_name: str, devices) -> Summary:
             if end <= start:
                 continue
             per_dev[dev].append((start, end))
+            named[dev].append(((start - lo) / 1e6, (end - lo) / 1e6, cat,
+                               e["name"]))
             op_us[e["name"]] += end - start
             if cat == "gpu_memcpy" and H2D.search(e["name"]):
                 nbytes = int(args.get("bytes", 0))
@@ -155,4 +164,5 @@ def summarize(events: list, window_name: str, devices) -> Summary:
         h2d_bytes=h2d_bytes,
         h2d_s=sum(union_length(ivs) for ivs in h2d.values()) / 1e6,
         idle_by_host=dict(idle),
+        intervals={d: named.get(d, []) for d in devices},
     )
