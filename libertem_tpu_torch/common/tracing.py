@@ -21,7 +21,9 @@ sinks:
 * a run's totals: a span given a ``totals`` dict adds ``[count,
   seconds]`` (``time.perf_counter``) under its name there.  The
   consumer thread's spans of a run do (:class:`RunTrace`), and the run
-  hands them on as ``feed_stats["spans"]``.
+  hands them on as ``feed_stats["spans"]``.  A UDF's own spans
+  (:func:`udf_span`) add into the totals of the run whose engine is
+  calling it (:meth:`RunTrace.udf_process`), on that thread.
 
 With no profiler recording and no export, a span reads one flag and the
 clock twice; with no totals either, it is one shared no-op.
@@ -42,8 +44,14 @@ consumer thread (the thread that iterates the run)
   through the fused or generic step; ``libertem.fused_moments`` the
   fused step's call of ``ops/moments.py``'s ``fused_moments`` (the
   kernel, in whatever form runs it); ``libertem.state_update`` the fused
-  step's updates of the UDFs' state; ``libertem.host_step`` the host
-  engine; ``libertem.release`` the blocks' slots handed back to the
+  step's updates of the UDFs' state; ``libertem.udf_process`` the
+  generic step's call of a device UDF's own ``process_*`` (the engine's
+  cloning and writing back of the nav rows stay outside it);
+  ``libertem.correlate`` (``udf/blobfinder.py``) a block's cast, FFT,
+  product with the template's spectrum and inverse, in both correlation
+  UDFs; ``libertem.refine`` (``udf/blobfinder.py``) the windows, argmax,
+  centre of mass and result writes after it; ``libertem.host_step`` the
+  host engine; ``libertem.release`` the blocks' slots handed back to the
   readers; ``libertem.fold`` the workers' (or a partition's) partials
   folded into one state; ``libertem.wrap`` the results to the host and
   ``get_results``; ``libertem.close`` joining the readers and releasing
@@ -66,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import threading
 import time
 
 import torch
@@ -82,6 +91,10 @@ RUN_SPANS = frozenset({
     "libertem.kernel_build",
 })
 
+
+# the totals of the run whose engine is calling a UDF's ``process_*``
+# on this thread (RunTrace.udf_process), for the UDF's own spans
+_CALLING = threading.local()
 
 # a record function of the profiler: the C++ one where torch has it
 _record = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
@@ -233,6 +246,30 @@ def span(name: str, totals: dict | None = None, timed: bool = False,
     return Span(name, totals, profile, attrs if export else None)
 
 
+def udf_span(name: str):
+    """:func:`span` in a UDF's own code: inside the engine's call of
+    its ``process_*`` (:meth:`RunTrace.udf_process`) it adds into that
+    run's totals; elsewhere it has none."""
+    return span(name, getattr(_CALLING, "totals", None))
+
+
+class _UdfCall(Span):
+    """``libertem.udf_process``: a :class:`Span` that makes its totals
+    those of :func:`udf_span` on this thread while it lasts."""
+
+    __slots__ = ("_outer",)
+
+    def __enter__(self) -> "_UdfCall":
+        self._outer = getattr(_CALLING, "totals", None)
+        _CALLING.totals = self._totals
+        return super().__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        super().__exit__(*exc)
+        _CALLING.totals = self._outer
+        return False
+
+
 class RunTrace:
     """One run's spans: the consumer thread's totals (``spans``, ``{name:
     [count, seconds]}``), handed on as ``feed_stats["spans"]``, and the
@@ -245,3 +282,10 @@ class RunTrace:
     def span(self, name: str, timed: bool = False, **attrs):
         """:func:`span` adding into this run's totals."""
         return span(name, self.spans, timed, **attrs)
+
+    def udf_process(self) -> Span:
+        """The span ``libertem.udf_process`` of the engine's call of a
+        device UDF's ``process_*``: into this run's totals, as are the
+        UDF's own :func:`udf_span` inside it."""
+        return _UdfCall("libertem.udf_process", self.spans,
+                        _profiler._is_profiler_enabled, None)

@@ -88,7 +88,7 @@ from ..common.exceptions import UDFException, UDFRunCancelled  # noqa: F401
 from ..warnings import UseDiscouragedWarning
 from ..common.shape import Shape
 from ..common.slice import Slice
-from ..common.tracing import RunTrace, span
+from ..common.tracing import NOOP, RunTrace, span
 from ..io.corrections import CorrectionSet
 from ..io.dataset.base import (
     Block,
@@ -2163,14 +2163,18 @@ class UDFRunner:
                 self._run_udf_on_tile(
                     entry, tile, k, sig_slice, meta, state[ui],
                     part_state[ui], goff, coords, valid_mask, valid,
-                    depth, aux[ui], loff=loff,
+                    depth, aux[ui], loff=loff, trace=prep["trace"],
                 )
 
     def _run_udf_on_tile(self, entry, tile, scheme_idx, sig_slice, meta,
                          state_u, part_u, goff, coords, valid_mask, valid,
-                         depth, aux_views, loff: Optional[int] = None
-                         ) -> None:
+                         depth, aux_views, loff: Optional[int] = None,
+                         trace: Optional[RunTrace] = None) -> None:
+        """One device UDF's ``process_*`` on a tile of a block, its
+        results written back into the state; ``trace``: the run's
+        spans, which take the call as ``libertem.udf_process``."""
         udf = entry.udf
+        call = NOOP if trace is None else trace.udf_process()
         decls = entry.decls
         if loff is None:
             loff = goff
@@ -2217,10 +2221,11 @@ class UDFRunner:
             udf.results = UDFData(views)
             udf.params = UDFParams(udf._kwargs, aux_views)
             meta.coordinates = coords
-            if entry.method == "tile":
-                udf.process_tile(tile)
-            else:
-                udf.process_partition(tile)
+            with call:
+                if entry.method == "tile":
+                    udf.process_tile(tile)
+                else:
+                    udf.process_partition(tile)
             res = udf.results
             for n in entry.nav_names:
                 nav_writeback(n, res._get(n))
@@ -2240,28 +2245,31 @@ class UDFRunner:
                     for n in entry.nav_names
                 }
 
-            out = torch.func.vmap(per_frame)(tile, coords, nav_old, aux_views)
+            with call:
+                out = torch.func.vmap(per_frame)(tile, coords, nav_old,
+                                                 aux_views)
             for n in entry.nav_names:
                 nav_writeback(n, out[n])
         else:
             # frames accumulate into sig/single buffers: one after
             # another over the valid frames (counterpart of lax.scan)
             carry = {n: part_view(n) for n in entry.part_names}
-            for i in range(valid):
-                views = {n: nav_old[n][i] for n in entry.nav_names}
-                views.update(carry)
-                views.update(ro_views)
-                udf.results = UDFData(views)
-                udf.params = UDFParams(
-                    udf._kwargs, {k: v[i] for k, v in aux_views.items()}
-                )
-                meta.coordinates = coords[i]
-                udf.process_frame(tile[i])
-                res = udf.results
-                for n in entry.nav_names:
-                    nav_old[n][i] = _as_state(res._get(n), nav_old[n])
-                for n in entry.part_names:
-                    carry[n] = _as_state(res._get(n), carry[n])
+            with call:
+                for i in range(valid):
+                    views = {n: nav_old[n][i] for n in entry.nav_names}
+                    views.update(carry)
+                    views.update(ro_views)
+                    udf.results = UDFData(views)
+                    udf.params = UDFParams(
+                        udf._kwargs, {k: v[i] for k, v in aux_views.items()}
+                    )
+                    meta.coordinates = coords[i]
+                    udf.process_frame(tile[i])
+                    res = udf.results
+                    for n in entry.nav_names:
+                        nav_old[n][i] = _as_state(res._get(n), nav_old[n])
+                    for n in entry.part_names:
+                        carry[n] = _as_state(res._get(n), carry[n])
             for n in entry.nav_names:
                 nav_writeback(n, nav_old[n])
             for n in entry.part_names:

@@ -15,7 +15,9 @@ conjugate spectrum of the centred template, one ``ifft2``, then
 The template spectrum and the windows are numpy arrays made once, as
 in the JAX package, and kept as device tensors until the parameters
 change (``on_params_updated``).  Both UDFs need whole frames, and run
-on the generic device path.
+on the generic device path.  Each block's correlation is the span
+``libertem.correlate`` and what follows it ``libertem.refine``
+(``common/tracing.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from .. import masks as mask_lib
 from ..common.exceptions import UDFException
+from ..common.tracing import udf_span
 from .base import UDF
 
 
@@ -159,17 +162,19 @@ class FullFrameCorrelationUDF(UDF):
 
     def process_tile(self, tile):
         self._require_whole_sig()
-        corr = _correlate(tile, self._get_spectrum(tile.device))
-        w = corr.shape[-1]
-        flat = corr.reshape(corr.shape[0], -1)
-        flat_idx = torch.argmax(flat, dim=-1)  # the first maximum
-        iy = flat_idx // w
-        ix = flat_idx % w
-        ref_y, ref_x = _subpixel_refine(corr, iy, ix)
-        self.results.centers = torch.stack([iy, ix], dim=-1).to(
-            torch.float32)
-        self.results.refineds = torch.stack([ref_y, ref_x], dim=-1)
-        self.results.peak_values = flat.amax(dim=-1)
+        with udf_span("libertem.correlate"):
+            corr = _correlate(tile, self._get_spectrum(tile.device))
+        with udf_span("libertem.refine"):
+            w = corr.shape[-1]
+            flat = corr.reshape(corr.shape[0], -1)
+            flat_idx = torch.argmax(flat, dim=-1)  # the first maximum
+            iy = flat_idx // w
+            ix = flat_idx % w
+            ref_y, ref_x = _subpixel_refine(corr, iy, ix)
+            self.results.centers = torch.stack([iy, ix], dim=-1).to(
+                torch.float32)
+            self.results.refineds = torch.stack([ref_y, ref_x], dim=-1)
+            self.results.peak_values = flat.amax(dim=-1)
 
 
 class SparseCorrelationUDF(UDF):
@@ -240,23 +245,25 @@ class SparseCorrelationUDF(UDF):
         plan = self._get_plan(tile.device)
         steps = int(self.params.steps)
         size = 2 * steps + 1
-        corr = _correlate(tile, plan["spectrum"])
-        # (depth, n_peaks, size^2) windows around the expected peaks
-        wins = corr.reshape(corr.shape[0], -1)[:, plan["windows"]]
-        idx = torch.argmax(wins, dim=-1)
-        dy = (idx // size).to(torch.float32) - steps
-        dx = (idx % size).to(torch.float32) - steps
-        peaks = plan["peaks"][None]
-        self.results.centers = peaks + torch.stack([dy, dx], dim=-1)
-        # subpixel: the window's centre of mass, less its minimum
-        w0 = wins - wins.amin(dim=-1, keepdim=True)
-        total = w0.sum(dim=-1).clamp_min(1e-12)
-        g = torch.arange(size, dtype=torch.float32,
-                         device=corr.device) - steps
-        ry = (w0 * g.repeat_interleave(size)).sum(dim=-1) / total
-        rx = (w0 * g.repeat(size)).sum(dim=-1) / total
-        self.results.refineds = peaks + torch.stack([ry, rx], dim=-1)
-        self.results.peak_values = wins.amax(dim=-1)
+        with udf_span("libertem.correlate"):
+            corr = _correlate(tile, plan["spectrum"])
+        with udf_span("libertem.refine"):
+            # (depth, n_peaks, size^2) windows around the expected peaks
+            wins = corr.reshape(corr.shape[0], -1)[:, plan["windows"]]
+            idx = torch.argmax(wins, dim=-1)
+            dy = (idx // size).to(torch.float32) - steps
+            dx = (idx % size).to(torch.float32) - steps
+            peaks = plan["peaks"][None]
+            self.results.centers = peaks + torch.stack([dy, dx], dim=-1)
+            # subpixel: the window's centre of mass, less its minimum
+            w0 = wins - wins.amin(dim=-1, keepdim=True)
+            total = w0.sum(dim=-1).clamp_min(1e-12)
+            g = torch.arange(size, dtype=torch.float32,
+                             device=corr.device) - steps
+            ry = (w0 * g.repeat_interleave(size)).sum(dim=-1) / total
+            rx = (w0 * g.repeat(size)).sum(dim=-1) / total
+            self.results.refineds = peaks + torch.stack([ry, rx], dim=-1)
+            self.results.peak_values = wins.amax(dim=-1)
 
 
 def run_blobfinder(ctx, dataset, match_pattern: MatchPattern,
