@@ -1871,17 +1871,18 @@ def stage_ms(fn, args, calls=8) -> tuple[float, float]:
 def fft_stage_times(block, at) -> dict:
     """Device ms of the full-frame correlation's steps on one block of
     the path (1024 frames of 128 x 128 u16, on the card): the cast and
-    fft2, the product with the template spectrum, ifft2 with the real
-    part, and the argmax with the refinement."""
+    rfft2, the product with the template's scaled half spectrum, the
+    unscaled irfft2 (with torch's copy of its input), and the argmax
+    with the refinement."""
     import torch
 
     from libertem_tpu_torch.udf import blobfinder
 
-    spec = torch.from_numpy(blobfinder.RadialGradient(
-        LATTICE["radius"]).get_template_spectrum(SIG)).to(block.device)
-    f = torch.fft.fft2(block.float())
+    spec = blobfinder._half_spectrum(
+        blobfinder.RadialGradient(LATTICE["radius"]), SIG, block.device)
+    f = torch.fft.rfft2(block.float())
     prod_ = f * spec
-    corr = torch.fft.ifft2(prod_).real
+    corr = blobfinder._correlate(block, spec)
 
     def peak(c):
         flat = c.reshape(c.shape[0], -1)
@@ -1889,11 +1890,12 @@ def fft_stage_times(block, at) -> dict:
         return blobfinder._subpixel_refine(c, i // SIG[1], i % SIG[1])
 
     times = {
-        "cast + fft2": stage_ms(lambda b: torch.fft.fft2(b.float()),
-                                (block,)),
-        "product": stage_ms(torch.mul, (f, spec)),
-        "ifft2 + real": stage_ms(lambda p: torch.fft.ifft2(p).real,
-                                 (prod_,)),
+        "cast + rfft2": stage_ms(lambda b: torch.fft.rfft2(b.float()),
+                                 (block,)),
+        "product": stage_ms(lambda p: torch.mul(p, spec, out=prod_), (f,)),
+        "irfft2": stage_ms(lambda p: torch.fft.irfft2(p, s=SIG,
+                                                      norm="forward"),
+                           (prod_,)),
         "argmax + refine": stage_ms(peak, (corr,)),
     }
     print("11a ms a block (1024 frames) by step, device (traced) / "

@@ -1,9 +1,11 @@
 """Correlation peak finding, the basis of strain mapping (counterpart
 of ``libertem_tpu/udf/blobfinder.py``).
 
-Each frame is cross-correlated with a match pattern on the device:
-one batched ``torch.fft.fft2`` of the block, a product with the
-conjugate spectrum of the centred template, one ``ifft2``, then
+Each frame is cross-correlated with a match pattern on the device on
+the real half-spectrum: one batched ``torch.fft.rfft2`` of the block,
+a product in place with the conjugate half-spectrum of the centred
+template (the inverse's 1/(h w) folded in), one unscaled ``irfft2``,
+then
 
 * :class:`FullFrameCorrelationUDF`: the argmax over the whole map per
   frame, refined by the centre of mass of its 3x3 neighbourhood
@@ -14,7 +16,8 @@ conjugate spectrum of the centred template, one ``ifft2``, then
 
 The template spectrum and the windows are numpy arrays made once, as
 in the JAX package, and kept as device tensors until the parameters
-change (``on_params_updated``).  Both UDFs need whole frames, and run
+change (``on_params_updated``); both UDFs take the device spectrum
+from ``_half_spectrum``.  Both UDFs need whole frames, and run
 on the generic device path.  Each block's correlation is the span
 ``libertem.correlate`` and what follows it ``libertem.refine``
 (``common/tracing.py``).
@@ -107,11 +110,27 @@ def _subpixel_refine(corr, iy, ix):
     return iy.to(torch.float32) + dy, ix.to(torch.float32) + dx
 
 
+def _half_spectrum(match_pattern, sig_shape, device) -> torch.Tensor:
+    """``conj(rfft2(template)) / (h * w)``, complex64 (h, w // 2 + 1) on
+    ``device``: the first half of the template's conjugate spectrum
+    (its other half is the mirror, the template being real), with the
+    inverse transform's 1/(h w) folded in."""
+    h, w = sig_shape
+    spectrum = match_pattern.get_template_spectrum(sig_shape)
+    return torch.from_numpy(np.ascontiguousarray(
+        spectrum[..., : w // 2 + 1] / (h * w), dtype=np.complex64)
+    ).to(device)
+
+
 def _correlate(tile, spectrum):
     """The real circular cross-correlation of each frame of ``tile``
-    with the template of ``spectrum``: (d, h, w) float32."""
-    f = torch.fft.fft2(tile.to(torch.float32))
-    return torch.fft.ifft2(f * spectrum).real
+    with the template of ``spectrum`` (``_half_spectrum``'s): (d, h, w)
+    float32."""
+    h, w = tile.shape[-2:]
+    f = torch.fft.rfft2(tile.to(torch.float32))
+    f.mul_(spectrum)
+    # the 1/(h w) is in the spectrum: the inverse runs unscaled
+    return torch.fft.irfft2(f, s=(h, w), norm="forward")
 
 
 class FullFrameCorrelationUDF(UDF):
@@ -154,10 +173,8 @@ class FullFrameCorrelationUDF(UDF):
 
     def _get_spectrum(self, device) -> torch.Tensor:
         if self._spectrum is None or self._spectrum.device != device:
-            self._spectrum = torch.from_numpy(
-                self.params.match_pattern.get_template_spectrum(
-                    self.meta.sig_shape)
-            ).to(device)
+            self._spectrum = _half_spectrum(
+                self.params.match_pattern, self.meta.sig_shape, device)
         return self._spectrum
 
     def process_tile(self, tile):
@@ -230,9 +247,9 @@ class SparseCorrelationUDF(UDF):
             win_x = (peaks[:, 1:2, None] + offs[None, None, :]) % w
             flat = (win_y * w + win_x).reshape(len(peaks), -1)
             self._plan = {
-                "spectrum": torch.from_numpy(
-                    self.params.match_pattern.get_template_spectrum(
-                        self.meta.sig_shape)).to(device),
+                "spectrum": _half_spectrum(
+                    self.params.match_pattern, self.meta.sig_shape,
+                    device),
                 "windows": torch.from_numpy(
                     flat.astype(np.int64)).to(device),
                 "peaks": torch.from_numpy(

@@ -384,6 +384,107 @@ def test_match_pattern_patch_mid_run():
         -1)[-5:])
 
 
+class _Template(pblob.MatchPattern):
+    """A match pattern whose mask is a given array."""
+
+    def __init__(self, mask):
+        super().__init__()
+        self.mask = mask
+
+    def get_mask(self, sig_shape):
+        return self.mask
+
+
+def _full_spectrum_correlation(frames, mask):
+    """float64 ``ifft2(fft2(x) * conj(fft2(template))).real``, the
+    template centred at (0, 0)."""
+    spectrum = np.conj(np.fft.fft2(np.fft.ifftshift(mask)))
+    return np.fft.ifft2(np.fft.fft2(frames.astype(np.float64))
+                        * spectrum).real
+
+
+@pytest.mark.parametrize("sig", [(64, 64), (63, 65), (32, 48)])
+def test_correlate_on_the_half_spectrum(sig):
+    """``_correlate`` on real frames with ``_half_spectrum``'s plan: the
+    full complex correlation in float64, within 1e-6 of the map's
+    scale, as a contiguous float32 (d, h, w) map (odd widths too)."""
+    rng = np.random.default_rng(11)
+    frames = rng.poisson(50.0, (3,) + sig).astype(np.float32)
+    mask = rng.random(sig)
+    got = pblob._correlate(
+        torch.from_numpy(frames),
+        pblob._half_spectrum(_Template(mask), sig, torch.device("cpu")))
+    want = _full_spectrum_correlation(frames, mask)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert tuple(got.shape) == (3,) + sig
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("sig", [(64, 64), (63, 65)])
+def test_plan_holds_the_scaled_half_spectrum(sparse, sig):
+    """Each correlation UDF's plan after a run: complex64 (h, w//2+1),
+    ``conj(rfft2(template)) / (h * w)``."""
+    data = np.random.default_rng(12).poisson(8, (2, 2) + sig).astype(
+        np.uint16)
+    ctx = _ctx()
+    mp = pblob.RadialGradient(radius=3)
+    if sparse:
+        udf = pblob.SparseCorrelationUDF(mp, peaks=[[20, 20]], steps=2)
+    else:
+        udf = pblob.FullFrameCorrelationUDF(mp)
+    ctx.run_udf(ctx.load("memory", data=data, sig_dims=2), udf)
+    got = udf._plan["spectrum"] if sparse else udf._spectrum
+    h, w = sig
+    assert got.dtype == torch.complex64
+    assert tuple(got.shape) == (h, w // 2 + 1)
+    want = np.conj(np.fft.rfft2(np.fft.ifftshift(mp.get_mask(sig)))) / (
+        h * w)
+    assert np.allclose(got.numpy(), want, rtol=0,
+                       atol=1e-6 * np.abs(want).max())
+
+
+def _complex_spectrum_path(monkeypatch):
+    """The correlation as it was before the half spectrum: the full
+    conjugate spectrum, ``fft2``, the product, ``ifft2``, ``.real``."""
+    monkeypatch.setattr(
+        pblob, "_half_spectrum",
+        lambda mp, sig, device: torch.from_numpy(
+            mp.get_template_spectrum(sig)).to(device))
+    monkeypatch.setattr(
+        pblob, "_correlate",
+        lambda tile, spectrum: torch.fft.ifft2(
+            torch.fft.fft2(tile.to(torch.float32)) * spectrum).real)
+
+
+@pytest.mark.parametrize("pattern", ["disk", "gradient", "background"])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_half_spectrum_centres_equal_the_complex_path(pattern, sparse,
+                                                      monkeypatch):
+    """Both correlation UDFs on the test frames: every centre equal to
+    the complex-spectrum path's, refined positions and peak values
+    within float32 rounding of it."""
+    data = _cbed_data()
+    ctx = _ctx()
+    ds = ctx.load("memory", data=data, sig_dims=2, num_partitions=3)
+
+    def run():
+        mp = _patterns(pblob)[pattern]
+        if sparse:
+            udf = pblob.SparseCorrelationUDF(mp, peaks=_nominal_peaks(),
+                                             steps=3)
+        else:
+            udf = pblob.FullFrameCorrelationUDF(mp)
+        return ctx.run_udf(ds, udf)
+
+    ours = run()
+    with monkeypatch.context() as m:
+        _complex_spectrum_path(m)
+        theirs = run()
+    _check_correlation(ours, theirs)
+
+
 # -- holography ---------------------------------------------------------------
 
 

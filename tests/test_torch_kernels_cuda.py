@@ -1295,3 +1295,48 @@ def test_workers_on_one_card(card, n):
         assert len(ctx.feed_stats["workers"]) == n
         # 10 ring masks and CoM's 3 rows: one launch a block
         assert launched == blocks and single > 0
+
+
+@pytest.mark.cuda
+def test_half_spectrum_correlation_on_card(card):
+    """One block of 256 u16 256x256 lattice frames (disks of radius 7
+    every 28 px, on thirds of a pixel, Poisson counts up to ~1300)
+    correlated on the card on the half spectrum (``_half_spectrum``,
+    ``_correlate``: rfft2, the product in place, unscaled irfft2)
+    against the full complex correlation in float64: within 1e-6 of the
+    map's scale, and the argmax of each of the 49 11x11 windows around
+    the lattice's peaks equal in every frame."""
+    from libertem_tpu_torch.udf import blobfinder as blob
+    from libertem_tpu_torch.utils.generate import cbed_frame
+
+    sig, steps = (256, 256), 5
+    rng = np.random.default_rng(26)
+    hk = np.mgrid[-3:4, -3:4]
+    base = [cbed_frame(*sig, zero=(128 + dy / 3, 128 + dx / 3), a=(28, 0),
+                       b=(0, 28), radius=7, indices=hk)[0][0]
+            for dy in range(3) for dx in range(3)]
+    pick = rng.integers(0, len(base), 256)
+    shift = rng.integers(-2, 3, (256, 2))
+    lam = np.stack([np.roll(base[p], tuple(s), (0, 1))
+                    for p, s in zip(pick, shift)])
+    tile = torch.from_numpy(
+        rng.poisson(1.0 + 8.0 * lam).astype(np.uint16)).to(card)
+    mp = blob.RadialGradient(7)
+    got = blob._correlate(tile, blob._half_spectrum(mp, sig, card))
+    assert got.dtype == torch.float32 and got.shape == (256,) + sig
+    spectrum = torch.from_numpy(np.conj(np.fft.fft2(
+        np.fft.ifftshift(mp.get_mask(sig))))).to(card)
+    want = torch.fft.ifft2(torch.fft.fft2(tile.to(torch.float64))
+                           * spectrum).real
+    scale = float(want.abs().max())
+    assert float((got.double() - want).abs().max()) <= 1e-6 * scale
+
+    peaks = 128 + 28 * hk.reshape(2, -1).T
+    offs = np.arange(-steps, steps + 1)
+    win_y = (peaks[:, 0:1, None] + offs[None, :, None]) % sig[0]
+    win_x = (peaks[:, 1:2, None] + offs[None, None, :]) % sig[1]
+    flat = torch.from_numpy(
+        (win_y * sig[1] + win_x).reshape(len(peaks), -1)).to(card)
+    got_idx = got.reshape(256, -1)[:, flat].argmax(dim=-1)
+    want_idx = want.reshape(256, -1)[:, flat].argmax(dim=-1)
+    assert torch.equal(got_idx, want_idx)
