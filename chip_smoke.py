@@ -987,7 +987,7 @@ def grid_sweep(cases, depth, at, failures) -> None:
 
 def readers_alive() -> list:
     return [t for t in threading.enumerate()
-            if t.name == "HostFeed-reader" and t.is_alive()]
+            if t.name.startswith("block-reader") and t.is_alive()]
 
 
 def partial_results(ctx, ds, lt, data, want4, failures) -> dict:
@@ -3496,7 +3496,7 @@ def slice12_phase(lt, path, data, want4, n_blocks, tmp, at,
     print(f"  14b async iterator closed after two partials: readers alive "
           f"{len(readers_alive())} after {ended_s:.3f} s")
     if readers_alive():
-        failures.append("14b: HostFeed reader alive 1 s after aclose()")
+        failures.append("14b: block reader alive 1 s after aclose()")
 
     # -- (c) delayed -------------------------------------------------------
     dctx = lt.Context.make_with("delayed")
@@ -3624,11 +3624,6 @@ def shard_steps(n: int, n_dev: int, depth: int) -> list:
     return [[(int(lo), int(min(lo + depth, b1)))
              for lo in range(int(b0), int(b1), depth)]
             for b0, b1 in zip(bounds[:-1], bounds[1:])]
-
-
-def shard_readers_alive() -> list:
-    return [t for t in threading.enumerate() if t.is_alive() and (
-        t.name == "HostFeed-reader" or t.name.startswith("shard-reader"))]
 
 
 def check_roi(label, res, want, failures) -> None:
@@ -3822,12 +3817,12 @@ def slice13_phase(lt, path, data, want4, depth, n_blocks, at,
     next(gen)
     t0 = time.perf_counter()
     gen.close()
-    while shard_readers_alive() and time.perf_counter() - t0 < 1.0:
+    while readers_alive() and time.perf_counter() - t0 < 1.0:
         time.sleep(0.01)
     ended = time.perf_counter() - t0
     print(f"  15c iterator abandoned after two partials: reader threads "
-          f"alive {len(shard_readers_alive())} after {ended:.3f} s")
-    if shard_readers_alive():
+          f"alive {len(readers_alive())} after {ended:.3f} s")
+    if readers_alive():
         failures.append("15c: reader threads alive 1 s after close()")
 
     # -- (d) a numpy UDF beside the fused pass on 2 workers ----------------
@@ -6040,11 +6035,14 @@ def time_paths_main(tree: str, scan: str) -> int:
     line of wall seconds, each pass three times: the main path (the raw
     u16 scan at SCAN through ``Context().run_udf`` with phase 4's five
     UDFs), the same scan pushed by a producer thread into a live ring
-    of 2048 frames (phase 13b), and two and four workers on card 0
-    (phase 15a; ``null`` where the checkout has no multi-device loop).
-    SCAN is written first when it is missing (:func:`write_dataset`).
-    To compare two checkouts, run it for each in turns on one card (A,
-    B, B, A)."""
+    of 2048 frames (phase 13b), two and four workers on card 0
+    (phase 15a; ``null`` where the checkout has no multi-device loop),
+    and phase 13a's raw CSR scan (``EVT_NAV`` frames of ``EVT_SIG``,
+    written beside SCAN in ``events/``) with phase 13a's five UDFs on
+    one device and on four workers on card 0, each with its H2D bytes.
+    SCAN and the events are written first when they are missing
+    (:func:`write_dataset`, :func:`write_events`).  To compare two
+    checkouts, run it for each in turns on one card (A, B, B, A)."""
     label, tree = tree, os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -6103,6 +6101,24 @@ def time_paths_main(tree: str, scan: str) -> int:
             res[f"{n_dev} workers"] = [timed(wctx, wds) for _ in range(3)]
         except NotImplementedError:
             res[f"{n_dev} workers"] = None
+    events = os.path.join(os.path.dirname(os.path.abspath(scan)), "events")
+    toml = os.path.join(events, "events.toml")
+    if not os.path.exists(toml):
+        os.makedirs(events, exist_ok=True)
+        write_events(events, EVT_NAV, EVT_SIG)
+    for key, cctx in (
+            ("csr main", ctx),
+            ("csr 4 workers", lt.Context(executor=ShardedJobExecutor(
+                devices=[card] * 4)))):
+        cds = cctx.load("raw_csr", path=toml)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cctx.run_udf(cds, format_udfs(lt, EVT_SIG)[0])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        res[key] = secs
+        res[key + " h2d_bytes"] = cctx.feed_stats["h2d_bytes"]
     print(json.dumps(res), flush=True)
     return 0
 

@@ -23,7 +23,7 @@ import os
 import threading
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Iterator, Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -224,12 +224,24 @@ def densify_into(dense, vals, rows, cols) -> None:
     dense.index_put_((rows.long(), cols.long()), vals, accumulate=True)
 
 
+def nav_coords(ids: np.ndarray, depth: int, nav_shape: tuple) -> np.ndarray:
+    """The ``(depth, nav_dims)`` int32 nav coordinates of a block of
+    dataset frames ``ids``, zeros in the rows past them."""
+    coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
+    if nav_shape:
+        for k, u in enumerate(np.unravel_index(ids, nav_shape)):
+            coords[:len(ids), k] = u
+    return coords
+
+
 def read_ids_across(partitions, ids: np.ndarray, out: np.ndarray) -> None:
     """Dataset frames ``ids`` (sorted; they may span partitions) into
     ``out`` (a block of ``len(ids)`` or more frames), zeros in the rows
     past them: each partition's share with its
     :meth:`Partition.read_ids_into`."""
     for p in partitions:
+        if p.start_frame > ids[-1]:
+            break
         a = int(np.searchsorted(ids, p.start_frame))
         b = int(np.searchsorted(ids, p.start_frame + p.num_frames))
         if b > a:
@@ -422,19 +434,15 @@ class Partition:
         self,
         scheme: TilingScheme,
         roi: Optional[np.ndarray] = None,
-        out: Optional[Callable[[], np.ndarray]] = None,
     ) -> Iterator[Block]:
         """Stream this partition's (roi-selected) frames as
-        zero-padded fixed-depth blocks.
+        zero-padded fixed-depth blocks, each in a fresh array.
 
         A roi is read run by run (:meth:`read_ids_into`): each stretch
         of consecutive selected frames is one read straight into the
-        block, so no frame outside the roi is read; the multi-device
-        loop reads its workers' chunks the same way
-        (:func:`read_ids_across`).  ``out`` hands out the destination
-        array of each block (the host feed passes its pinned staging
-        buffers, so frames are read straight into memory the card can
-        copy from); by default every block gets a fresh array.
+        block, so no frame outside the roi is read; the run loops' block
+        reader reads its chunks the same way (:func:`read_ids_across`),
+        into its pinned slots.
         """
         ids = self.local_frame_ids(roi)
         depth = scheme.depth
@@ -443,28 +451,22 @@ class Partition:
         sig = tuple(self.meta.shape.sig)
         for off in range(0, len(ids), depth):
             chunk = ids[off:off + depth]
-            valid = len(chunk)
-            data = (
-                np.empty((depth,) + sig, self.meta.native_dtype)
-                if out is None else out()
-            )
+            data = np.empty((depth,) + sig, self.meta.native_dtype)
             self.read_ids_into(chunk, data)
-            data[valid:] = 0
-            coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
-            if nav_shape:
-                for d, u in enumerate(np.unravel_index(chunk, nav_shape)):
-                    coords[:valid, d] = u
+            data[len(chunk):] = 0
             yield Block(
-                data=data, global_offset=goff + off, coords=coords,
-                valid=valid,
+                data=data, global_offset=goff + off,
+                coords=nav_coords(chunk, depth, nav_shape),
+                valid=len(chunk),
             )
 
-    def sparse_nnz_budget(self, scheme: TilingScheme,
-                          roi: Optional[np.ndarray] = None
-                          ) -> Optional[int]:
-        """For a format whose blocks are sparse, the largest entry
-        budget of any of this partition's blocks (the host feed sizes
-        its staging by it); None for dense blocks."""
+    def sparse_nnz_budget(self, ids: np.ndarray) -> Optional[int]:
+        """For a format whose blocks are sparse, the entry budget of a
+        block of dataset frames ``ids`` (sorted; a block of the
+        multi-device loop may span partitions, and such a format's
+        partition counts and reads any frame of the dataset); the block
+        reader sizes its staging by the largest.  None for dense
+        blocks."""
         return None
 
     def _get_read_ranges(self, tiling_scheme, roi=None) -> list:

@@ -5,20 +5,24 @@ TOML descriptor names (counterpart of
 nav_shape, sig_shape; ``[raw_csr]`` indptr_file/indptr_dtype,
 indices_file/indices_dtype, data_file/data_dtype.
 
-A block leaves the host as its CSR entries, not as dense frames:
-``gen_blocks`` yields ``(vals, rows, cols)`` zero-padded to a
-power-of-two entry budget (the host feed's staging is sized once, for
-the largest), the host feed copies the block's own entries (bytes
-that scale with the events, not the pixels) and densifies them on the
-device (``io.dataset.base.densify_into``).  Reads on the host (the
-host engine's ``Block.data``, ``read_dataset_frames``, ``get_tiles``)
-densify with ``np.add.at``: in both places duplicate entries sum.
+A block leaves the host as its CSR entries, not as dense frames: the
+run loops' block reader reads a block's ``(vals, rows, cols)``
+(:meth:`RawCSRPartition.read_sparse_into`, by dataset frame id, so a
+block may span partitions) into its slot's staging, sized once for the
+largest entry budget of the run (:meth:`~RawCSRPartition.
+sparse_nnz_budget`, a power of two), the host feed copies the block's
+own entries (bytes that scale with the events, not the pixels) and
+densifies them on the device (``io.dataset.base.densify_into``);
+``gen_blocks`` yields the same sparse blocks in fresh arrays.  Reads on
+the host (the host engine's ``Block.data``, ``read_dataset_frames``,
+``get_tiles``) densify with ``np.add.at``: in both places duplicate
+entries sum.
 """
 from __future__ import annotations
 
 import os
 import tomllib
-from typing import Callable, Iterator, NamedTuple, Optional, Sequence
+from typing import Iterator, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -34,6 +38,7 @@ from .base import (
     Partition,
     RangeReader,
     _runs,
+    nav_coords,
 )
 
 # detection parses no file larger than this as TOML
@@ -200,15 +205,15 @@ class RawCSRPartition(Partition):
         np.add.at(flat, (rows, np.asarray(indices[lo:hi], dtype=np.int64)),
                   data[lo:hi])
 
-    def _read_sparse_chunk(self, frame_ids: np.ndarray, vals: np.ndarray,
-                           rows: np.ndarray, cols: np.ndarray) -> int:
-        """The entries of dataset frames ``frame_ids`` (ascending) into
-        ``vals``, ``rows`` (the frame's position in ``frame_ids``) and
-        ``cols``, zero-padded to their length; returns how many there
-        are.  Under the sync offset,
-        frames outside the data have no entries.  Each run of
-        consecutive stored frames is one read of each file; a
-        big-endian ``data_dtype`` is swapped by the assignment."""
+    def read_sparse_into(self, frame_ids: np.ndarray, vals: np.ndarray,
+                         rows: np.ndarray, cols: np.ndarray) -> int:
+        """The entries of dataset frames ``frame_ids`` (ascending, of
+        any partition: the files are the dataset's) into ``vals``,
+        ``rows`` (the frame's position in ``frame_ids``) and ``cols``,
+        zero-padded to their length; returns how many there are.
+        Under the sync offset, frames outside the data have no entries.
+        Each run of consecutive stored frames is one read of each file;
+        a big-endian ``data_dtype`` is swapped by the assignment."""
         indptr, indices, data = self._get_maps()
         so = self.meta.sync_offset
         n_stored = len(indptr) - 1
@@ -234,50 +239,34 @@ class RawCSRPartition(Partition):
         cols[pos:] = 0
         return pos
 
-    def _block_plan(self, scheme, roi) -> list:
-        """``(offset, frame ids, entry budget)`` of each block."""
-        ids = self.local_frame_ids(roi)
+    def sparse_nnz_budget(self, ids) -> Optional[int]:
+        """The entry budget (:func:`nnz_budget`) of a block of dataset
+        frames ``ids`` (ascending, of any partition)."""
         indptr = self._get_maps()[0]
-        counts = np.diff(np.asarray(indptr, dtype=np.int64))
-        so = self.meta.sync_offset
-        plan = []
-        for off in range(0, len(ids), scheme.depth):
-            chunk = ids[off:off + scheme.depth]
-            stored = chunk + so
-            stored = stored[(stored >= 0) & (stored < len(counts))]
-            plan.append((off, chunk, nnz_budget(int(counts[stored].sum()))))
-        return plan
+        stored = np.asarray(ids, dtype=np.int64) + self.meta.sync_offset
+        stored = stored[(stored >= 0) & (stored < len(indptr) - 1)]
+        counts = indptr[stored + 1].astype(np.int64) - indptr[stored]
+        return nnz_budget(int(counts.sum()))
 
-    def sparse_nnz_budget(self, scheme, roi=None) -> Optional[int]:
-        return max((b for _, _, b in self._block_plan(scheme, roi)),
-                   default=_MIN_NNZ)
-
-    def gen_blocks(self, scheme, roi: Optional[np.ndarray] = None,
-                   sparse_out: Optional[Callable[[int], tuple]] = None
+    def gen_blocks(self, scheme, roi: Optional[np.ndarray] = None
                    ) -> Iterator[Block]:
-        """Sparse blocks: each block's entries, zero-padded to its
-        budget (:func:`nnz_budget`).  ``sparse_out(budget)`` hands out
-        the destination ``(vals, rows, cols)`` (the host feed's pinned
-        staging); by default every block gets new arrays."""
+        """Sparse blocks: each block's entries in fresh arrays,
+        zero-padded to its budget (:meth:`sparse_nnz_budget`)."""
         depth = scheme.depth
+        ids = self.local_frame_ids(roi)
         goff = self.roi_offset(roi)
         nav_shape = tuple(self.meta.shape.nav)
         sig = tuple(self.meta.shape.sig)
-        for off, chunk, budget in self._block_plan(scheme, roi):
-            if sparse_out is None:
-                triple = (np.empty(budget, self.meta.native_dtype),
-                          np.empty(budget, np.int32),
-                          np.empty(budget, np.int32))
-            else:
-                triple = sparse_out(budget)
-            nnz = self._read_sparse_chunk(chunk, *triple)
-            valid = len(chunk)
-            coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
-            if nav_shape:
-                for d, u in enumerate(np.unravel_index(chunk, nav_shape)):
-                    coords[:valid, d] = u
-            yield Block(global_offset=goff + off, coords=coords,
-                        valid=valid, sparse=triple,
+        for off in range(0, len(ids), depth):
+            chunk = ids[off:off + depth]
+            budget = self.sparse_nnz_budget(chunk)
+            triple = (np.empty(budget, self.meta.native_dtype),
+                      np.empty(budget, np.int32),
+                      np.empty(budget, np.int32))
+            nnz = self.read_sparse_into(chunk, *triple)
+            yield Block(global_offset=goff + off,
+                        coords=nav_coords(chunk, depth, nav_shape),
+                        valid=len(chunk), sparse=triple,
                         block_shape=(depth,) + sig, nnz=nnz)
 
 

@@ -96,6 +96,7 @@ from ..io.dataset.base import (
     Partition,
     ReadCancelled,
     densify_into,
+    nav_coords,
     read_ids_across,
 )
 from ..io.tiling import (
@@ -785,6 +786,17 @@ def _full_fp32_matmul():
     return _tf32_matmul(False)
 
 
+def _on_device(device: torch.device):
+    """``device`` current, where it is a CUDA device other than the
+    current one; else nothing (on an H100 a step inside a device
+    context, even one that changes nothing, took ~10% longer on the
+    host)."""
+    if device.type != "cuda" or device.index in (
+            None, torch.cuda.current_device()):
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _canonical_backends(backends) -> tuple:
     """A backend spec as a tuple (a bare string is one backend)."""
     if backends is None:
@@ -937,30 +949,31 @@ class FusedPlan:
 
 
 class HostFeed:
-    """Streams a dataset's blocks to the device, overlapped with
-    compute (counterpart of ``UDFRunner._prefetch``).
+    """One worker's blocks to its device, overlapped with compute
+    (counterpart of ``UDFRunner._prefetch``).
 
-    A background thread reads each block straight into one of
-    ``SLOTS`` page-locked host buffers and, on the CUDA path, copies it
-    to the matching device buffer with ``non_blocking=True`` on a side
-    stream.  A sparse block (raw CSR) is read into page-locked staging
-    for its ``(vals, rows, cols)`` entries instead, sized once for the
-    largest entry budget of the run; only the block's entries cross to
-    the device, where the side stream zeroes the slot's dense buffer
-    and adds them into it (``densify_into``), so the steps see a dense
-    block as before.  The ordering rules:
+    The block reader (:class:`BlockReader`) reads each block straight
+    into one of ``SLOTS`` page-locked host buffers and, on the CUDA
+    path, the feed copies it to the matching device buffer with
+    ``non_blocking=True`` on a side stream.  A sparse block (raw CSR)
+    is read into page-locked staging for its ``(vals, rows, cols)``
+    entries instead, sized once for the largest entry budget of the
+    run; only the block's entries cross to the device, where the side
+    stream zeroes the slot's dense buffer and adds them into it
+    (``densify_into``), so the steps see a dense block as before.  The
+    ordering rules:
 
     * the step that reads a device buffer waits (on the device) for the
       event recorded after its copy (and densify);
     * a copy into a device buffer waits (on the device) for the event
       recorded after the previous step that read it;
-    * the thread refills a host buffer only after the copy out of it
+    * the reader refills a host buffer only after the copy out of it
       has finished (a host wait on the copy event), and only after the
       consumer has released the slot.
 
     On the CPU the host buffers are the blocks themselves (a sparse
-    block is densified into one by the thread).  Each item is usable
-    until the consumer asks for the next one: ``Block.data`` is the
+    block is densified into one by the reader).  Each block is usable
+    until the consumer releases its slot: ``Block.data`` is the
     pinned host slot itself, which the host engine reads in place (with
     ``host_reads``, the consumer also waits on the host for the slot's
     copy, so what the host engine does to the slot cannot reach the
@@ -968,15 +981,10 @@ class HostFeed:
     nothing is copied and the device block is None.
 
     The slot and copy logic is in :meth:`acquire_slot`,
-    :meth:`host_block`, :meth:`push` (reader side) and :meth:`take`,
-    :meth:`release` (consumer side); :meth:`run` drives them from its
-    one reader thread, the multi-device loop drives one feed per
-    worker from its reader pool.
-
-    Stopping (the consumer went away): the thread gives up where it
-    waits for a slot, and a read that waits for data gives up too
-    (``Partition.stop_event``, ``ReadCancelled``).  :meth:`close`
-    releases the buffers.
+    :meth:`host_block`, :meth:`staging`, :meth:`push` (reader side) and
+    :meth:`take`, :meth:`release` (consumer side).  Stopping: the
+    reader gives up where it waits for a slot (``ReadCancelled``).
+    :meth:`close` releases the buffers.
     """
 
     SLOTS = 3
@@ -1134,82 +1142,133 @@ class HostFeed:
             )
         self._free.release()
 
-    def run(self, partitions: Sequence[Partition], scheme: TilingScheme,
-            roi: Optional[np.ndarray] = None,
-            spans: Optional[dict] = None):
-        """Yield ``(partition index, device block, Block)`` for every
-        block of every partition (of the roi's frames), in order.
-        ``spans``: the run's span totals (:class:`RunTrace`), for the
-        consumer's spans here."""
-        budgets = [p.sparse_nnz_budget(scheme, roi) for p in partitions]
-        sparse = any(b is not None for b in budgets)
-        stop = threading.Event()
-        q: queue.Queue = queue.Queue()
-        # the slot of the block gen_blocks is reading
-        last = [0]
-        shape = (scheme.depth,) + tuple(scheme.dataset_shape.sig)
 
-        def acquire() -> np.ndarray:
-            last[0] = self.acquire_slot(stop)
-            return self.host_block(last[0], shape)
+class BlockReader:
+    """The block reader of both run loops.  ``blocks``: for each local
+    worker (the keys of ``feeds``), its blocks in order, each ``(ids,
+    global offset, first state row, tag)``, ``ids`` at most ``depth``
+    sorted dataset frames, which may span partitions.  Step ``s`` of
+    ``n_steps`` (as many in every process of a run) is every worker's
+    ``s``-th block, None past its list, read into its feed's next slot
+    and pushed: in a pool, a thread a worker (at most 8), where several
+    workers can read at once; else on the reader's thread in worker
+    order (one worker, or a source that reads in order only,
+    ``concurrent`` False: the live ring frees what was read).  Sparse
+    blocks (``sparse_nnz_budget`` not None: raw CSR) are read as their
+    entries into the slot's staging, sized for the largest block budget
+    of all the workers, and the push densifies them on the device;
+    dense ones into the slot (:func:`read_ids_across`).
 
-        def acquire_sparse(nnz: int) -> tuple:
-            last[0] = self.acquire_slot(stop)
-            return self.staging(last[0], nnz)
+    :meth:`start` opens the feeds and starts the reader, :meth:`get`
+    waits for the next step (``libertem.feed_wait``, ``wait_s`` in the
+    run's ``stats``), :meth:`close` stops it: a wait for a slot or for
+    data gives up (``Partition.stop_event``, ``ReadCancelled``).
+    ``timings`` (``LIBERTEM_TPU_SHARDED_STATS``): the reader's time a
+    step into ``assembly_s``, each copy waited for into ``h2d_s``.
+    """
 
-        def worker():
-            try:
-                if self._cuda:
-                    torch.cuda.set_device(self._device)
-                for pi, part in enumerate(partitions):
-                    part.stop_event = stop
-                    blocks = (
-                        part.gen_blocks(scheme, roi,
-                                        sparse_out=acquire_sparse)
-                        if sparse else
-                        part.gen_blocks(scheme, roi, out=acquire)
-                    )
-                    while True:
-                        waited = self.stats["slot_wait_s"]
-                        with span("libertem.read", timed=True) as read:
-                            block = next(blocks, None)
-                        self.stats["read_s"] += (
-                            read.seconds
-                            - (self.stats["slot_wait_s"] - waited)
-                        )
-                        if block is None:
-                            break
-                        self.push(last[0], block)
-                        q.put(("item", (pi, last[0], block)))
-                q.put(("done", None))
-            except ReadCancelled:
-                pass
-            except BaseException as e:  # handed to the consumer
-                q.put(("error", e))
+    def __init__(self, partitions: Sequence[Partition], feeds: dict,
+                 blocks: dict, n_steps: int, depth: int, trace: RunTrace,
+                 stats: dict, concurrent: bool = True,
+                 timings: Optional[dict] = None):
+        from concurrent.futures import ThreadPoolExecutor
 
-        thread = threading.Thread(target=worker, daemon=True,
-                                  name="HostFeed-reader")
-        with span("libertem.open", spans):
-            self.open(max(b or 0 for b in budgets) if sparse else None)
-            thread.start()
+        self._partitions = list(partitions)
+        self._feeds = feeds
+        self._blocks = blocks
+        self._n_steps = n_steps
+        shape = self._partitions[0].meta.shape
+        self._shape = (depth,) + tuple(shape.sig)
+        self._nav_shape = tuple(shape.nav)
+        self._trace = trace
+        self._stats = stats
+        self._timings = timings
+        self._copy_s = dict.fromkeys(feeds, 0.0)
+        self._budgets = None
+        self._stop = threading.Event()
+        self._q: queue.Queue = queue.Queue()
+        self._pool = (ThreadPoolExecutor(min(len(feeds), 8),
+                                         thread_name_prefix="block-reader")
+                      if concurrent and len(feeds) > 1 else None)
+        self._thread = threading.Thread(target=self._main, daemon=True,
+                                        name="block-reader")
+
+    def start(self) -> None:
+        p = self._partitions[0]
+        budgets = {d: [p.sparse_nnz_budget(b[0]) for b in blocks]
+                   for d, blocks in self._blocks.items()}
+        sizes = [b for bs in budgets.values() for b in bs if b is not None]
+        if sizes:
+            self._budgets = budgets
+        for p in self._partitions:
+            p.stop_event = self._stop
+        for feed in self._feeds.values():
+            feed.open(max(sizes) if sizes else None)
+        self._thread.start()
+
+    def _read(self, d, s):
+        if s >= len(self._blocks[d]):
+            return None
+        ids, goff, row, tag = self._blocks[d][s]
+        feed = self._feeds[d]
+        slot = feed.acquire_slot(self._stop)
+        with span("libertem.read", timed=True) as read:
+            coords = nav_coords(ids, self._shape[0], self._nav_shape)
+            if self._budgets is None:
+                data = feed.host_block(slot, self._shape)
+                read_ids_across(self._partitions, ids, data)
+                block = Block(goff, coords, len(ids), data=data)
+            else:
+                # a sparse format's partition reads any of its frames
+                staged = feed.staging(slot, self._budgets[d][s])
+                nnz = self._partitions[0].read_sparse_into(ids, *staged)
+                block = Block(goff, coords, len(ids), sparse=staged,
+                              block_shape=self._shape, nnz=nnz)
+        feed.stats["read_s"] += read.seconds
+        t0 = time.perf_counter()
+        feed.push(slot, block)
+        if self._timings is not None and feed._cuda:
+            feed._copied[slot].synchronize()
+            self._copy_s[d] += time.perf_counter() - t0
+        return slot, block, row, tag
+
+    def _main(self) -> None:
+        workers = list(self._feeds)
+        each = map if self._pool is None else self._pool.map
         try:
-            while True:
-                with span("libertem.feed_wait", spans, True) as waited:
-                    kind, payload = q.get()
-                self.stats["wait_s"] += waited.seconds
-                if kind == "done":
-                    break
-                if kind == "error":
-                    raise payload
-                pi, slot, block = payload
-                yield pi, self.take(slot), block
-                with span("libertem.release", spans):
-                    self.release(slot)
-        finally:
-            with span("libertem.close", spans):
-                stop.set()
-                thread.join(timeout=60)
-                self.close()
+            for s in range(self._n_steps):
+                t0 = time.perf_counter()
+                items = dict(zip(workers, each(
+                    self._read, workers, [s] * len(workers))))
+                if self._timings is not None:
+                    self._timings["assembly_s"] += time.perf_counter() - t0
+                self._q.put(("item", items))
+            self._q.put(("done", None))
+        except ReadCancelled:
+            pass
+        except BaseException as e:  # handed to the consumer
+            self._q.put(("error", e))
+
+    def get(self) -> Optional[dict]:
+        """The next step, each local worker's ``(slot, Block, first
+        state row, tag)`` or None; None after the last step."""
+        with self._trace.span("libertem.feed_wait", True) as waited:
+            kind, payload = self._q.get()
+        self._stats["wait_s"] += waited.seconds
+        if kind == "error":
+            raise payload
+        return payload
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=60)
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        for feed in self._feeds.values():
+            feed.close()
+        if self._timings is not None:
+            self._timings["h2d_s"] = sum(self._copy_s.values())
 
 
 def executor_devices(executor) -> tuple:
@@ -2131,14 +2190,12 @@ class UDFRunner:
                     ps["num_frames"], ps["sum"], ps["varsum"] = n, s_, v
 
     def _generic_step(self, prep, state, part_state, block, goff: int,
-                      coords, valid: int, loff: Optional[int] = None
-                      ) -> None:
+                      coords, valid: int, loff: int) -> None:
         """Every device UDF's own ``process_*`` on a (corrected) block,
         one sig tile of the scheme after another.  ``goff``: the
         block's first frame in the roi-compressed nav order (aux rows,
         ``meta.global_offset``); ``loff``: its first row in the nav
-        state (a worker's own rows in the multi-device loop; ``goff``
-        by default)."""
+        state (a worker's own rows in the multi-device loop)."""
         meta = prep["meta"]
         scheme = prep["scheme"]
         depth = scheme.depth
@@ -2276,6 +2333,38 @@ class UDFRunner:
                 part_writeback(n, carry[n])
         udf.results = None
         udf.params = UDFParams(udf._kwargs)
+
+    def _step_block(self, prep, state, part_state, feed: HostFeed,
+                    slot: int, block, row: int) -> None:
+        """One worker's block under ``libertem.step``: its slot taken
+        from ``feed``, then the fused or generic step on ``prep``'s
+        device (the worker's), current for the step.  ``row``: the
+        block's first row in the nav state."""
+        device = prep["device"]
+        with prep["trace"].span("libertem.step"), _on_device(device), \
+                _full_fp32_matmul():
+            block_t = feed.take(slot)
+            prep["meta"].device = device
+            if prep["fused"] is not None:
+                self._fused_step(prep, state, part_state, block_t, row,
+                                 block.valid)
+            elif block_t is not None:
+                coords = torch.from_numpy(block.coords).to(device)
+                self._generic_step(prep, state, part_state, block_t,
+                                   block.global_offset, coords, block.valid,
+                                   row)
+
+    def _host_step(self, prep, host, host_global, blocks) -> None:
+        """The host engine on each ``(partition buffers, Block)`` of
+        ``blocks`` (the pinned host slots themselves, done with before
+        the feeds refill them) under ``libertem.host_step``, its time
+        in the run's ``host_s``."""
+        with prep["trace"].span("libertem.host_step", True) as stepped:
+            for part, block in blocks:
+                host.process_block(host_global, part, block.data,
+                                   block.global_offset, block.coords,
+                                   block.valid)
+        self.feed_stats["host_s"] += stepped.seconds
 
     def _merge(self, prep, state, part_state) -> None:
         """Fold a partition's sig/single state into the run's state
@@ -2417,13 +2506,24 @@ class UDFRunner:
                 return self._wrap_results(prep, state, host_global,
                                           damage_now)
 
+        # the one worker's blocks, partition by partition, tagged with
+        # the partition's index: a block never straddles two
+        blocks = []
+        for pi, p in enumerate(prep["partitions"]):
+            ids = p.local_frame_ids(roi)
+            goff = p.roi_offset(roi)
+            blocks += [(ids[o:o + scheme.depth], goff + o, goff + o, pi)
+                       for o in range(0, len(ids), scheme.depth)]
+        reader = BlockReader(prep["partitions"], {0: feed}, {0: blocks},
+                             len(blocks), scheme.depth, trace, feed.stats)
         current = None
         pm = self._make_progress(progress, prep)
         try:
-            with contextlib.closing(
-                feed.run(prep["partitions"], scheme, roi, trace.spans)
-            ) as blocks:
-                for pi, block_t, block in blocks:
+            try:
+                with trace.span("libertem.open"):
+                    reader.start()
+                while (step := reader.get()) is not None:
+                    slot, block, row, pi = step[0]
                     if pi != current:
                         if current is not None:
                             with _full_fp32_matmul():
@@ -2436,32 +2536,18 @@ class UDFRunner:
                         with trace.span("libertem.hooks"):
                             start(pi)
                         current = pi
-                    with trace.span("libertem.step"), _full_fp32_matmul():
-                        if prep["fused"] is not None:
-                            self._fused_step(
-                                prep, state, part["state"], block_t,
-                                block.global_offset, block.valid,
-                            )
-                        elif on_device:
-                            coords = torch.from_numpy(block.coords).to(
-                                device)
-                            self._generic_step(
-                                prep, state, part["state"], block_t,
-                                block.global_offset, coords, block.valid,
-                            )
+                    self._step_block(prep, state, part["state"], feed,
+                                     slot, block, row)
                     if host:
-                        # the pinned host slot itself, done with before
-                        # the feed refills it
-                        with trace.span("libertem.host_step",
-                                        timed=True) as stepped:
-                            host.process_block(
-                                host_global, part["host"], block.data,
-                                block.global_offset, block.coords,
-                                block.valid,
-                            )
-                        feed.stats["host_s"] += stepped.seconds
+                        self._host_step(prep, host, host_global,
+                                        [(part["host"], block)])
                     if pm is not None:
                         pm.frames_done(block.valid, ident=pi)
+                    with trace.span("libertem.release"):
+                        feed.release(slot)
+            finally:
+                with trace.span("libertem.close"):
+                    reader.close()
             if current is not None:
                 with _full_fp32_matmul():
                     finish()
@@ -2509,17 +2595,18 @@ class UDFRunner:
         it), driven by this process for its own workers.
 
         The roi-compressed nav axis splits into one contiguous shard
-        per worker.  Every super-step reads each local worker's next
-        block of ``depth`` frames in a reader pool (one thread per
-        worker, at most 8), straight into that worker's pinned slot:
+        per worker.  Every super-step is a step of the
+        :class:`BlockReader`: each local worker's next block of
+        ``depth`` frames, read straight into that worker's pinned slot:
         each worker has its own :class:`HostFeed`, copied on its own
-        side stream.  Then the step (fused or generic) runs on each
-        worker's block with that worker's device current, on its
-        current stream.  Nav state is the worker's own (its shard's
-        rows, plus ``depth`` pad rows); sig/single state accumulates per
-        worker and is folded with each UDF's ``merge``
-        (:meth:`_make_sharded_fold`) for every partial result and the
-        final one; :meth:`_collapse_sharded` places the nav shards.
+        side stream.  Then the step (fused or generic,
+        :meth:`_step_block`) runs on each worker's block with that
+        worker's device current, on its current stream.  Nav state is
+        the worker's own (its shard's rows, plus ``depth`` pad rows);
+        sig/single state accumulates per worker and is folded with each
+        UDF's ``merge`` (:meth:`_make_sharded_fold`) for every partial
+        result and the final one; :meth:`_collapse_sharded` places the
+        nav shards.
 
         Under a process group of several processes (counterpart of the
         JAX package's multi-host branch), every process computes all of
@@ -2534,8 +2621,9 @@ class UDFRunner:
         = False``, the live ring) takes block-cyclic shards instead:
         super-step ``s`` covers the next ``n_dev * depth`` frames of
         the acquisition, worker ``d`` the ``d``-th run of ``depth`` of
-        them, read serially in worker order; the depth is capped so
-        that one super-step fits the source's in-flight window.  Such a
+        them, read serially in worker order (the reader reads on its own
+        thread); the depth is capped so that one super-step fits the
+        source's in-flight window.  Such a
         source lives in one process and is refused across several.
 
         Host UDFs process the host copy of each worker's block into one
@@ -2547,8 +2635,6 @@ class UDFRunner:
         in the process that holds its state.  A parameter patch
         applies at the next super-step.  One partial result a
         super-step, then the final one after postprocess."""
-        from concurrent.futures import ThreadPoolExecutor
-
         from ..common import distributed
         from .host import HostUDFRunner
 
@@ -2681,15 +2767,24 @@ class UDFRunner:
                     "over several processes - run it in one process")
 
         feeds = {}
-        # the feeds, the hooks' instances, the readers' pool
+        # the feeds and their reader, the hooks' instances
         with trace.span("libertem.open"):
             for d in local:
                 feeds[d] = HostFeed(
                     (depth, int(np.prod(sig))), dataset.meta.native_dtype,
                     devs[d], to_device=on_device,
                     host_reads=host is not None)
-                feeds[d].open()
                 totals["workers"].append(feeds[d].stats)
+            # block s of a worker is super-step s, at row s * depth of
+            # its nav state
+            reader = BlockReader(
+                partitions, feeds,
+                {d: [(ids_all[lo:hi], lo, s * depth, None)
+                     for s, (lo, hi) in enumerate(worker_blocks[d])]
+                 for d in local},
+                n_steps, depth, trace, totals,
+                concurrent=not block_cyclic, timings=stats,
+            )
             # the hooks' instances: the first local shard the real ones,
             # clones for the others (get_task_data sees the run's
             # coordinates, as in _prepare)
@@ -2711,84 +2806,6 @@ class UDFRunner:
             finally:
                 meta.coordinates = None
                 meta._slice = None
-
-            stop = threading.Event()
-            for p in partitions:
-                p.stop_event = stop
-            q: queue.Queue = queue.Queue()
-            pool = ThreadPoolExecutor(max_workers=min(len(local), 8),
-                                      thread_name_prefix="shard-reader")
-
-        # with stats: each worker's copies, waited for by its reader
-        h2d_s = [0.0] * n_dev
-
-        def read_chunk(d, s):
-            """Worker ``d``'s block of super-step ``s``, read into its
-            next pinned slot and copied to its device: ``(slot, Block,
-            first local row)``, or None past the worker's shard."""
-            if s >= len(worker_blocks[d]):
-                return None
-            base, end = worker_blocks[d][s]
-            loff = s * depth
-            feed = feeds[d]
-            slot = feed.acquire_slot(stop)
-            with span("libertem.read", timed=True) as read:
-                out = feed.host_block(slot, (depth,) + sig)
-                chunk = ids_all[base:end]
-                read_ids_across(partitions, chunk, out)
-                coords = np.zeros((depth, len(nav_shape)), dtype=np.int32)
-                if nav_shape:
-                    for k, u in enumerate(
-                            np.unravel_index(chunk, nav_shape)):
-                        coords[:len(chunk), k] = u
-                block = Block(global_offset=base, coords=coords,
-                              valid=len(chunk), data=out)
-            feed.stats["read_s"] += read.seconds
-            t1 = time.perf_counter()
-            feed.push(slot, block)
-            if stats and feed._cuda:
-                feed._copied[slot].synchronize()
-                h2d_s[d] += time.perf_counter() - t1
-            return slot, block, loff
-
-        def assemble():
-            try:
-                for s in range(n_steps):
-                    t0 = time.perf_counter()
-                    if block_cyclic:
-                        # in order, one worker after another: the ring
-                        # frees what was read
-                        items = {d: read_chunk(d, s) for d in local}
-                    else:
-                        items = dict(zip(local, pool.map(
-                            read_chunk, local, [s] * len(local))))
-                    # every worker's block of the step, this process's
-                    # or another's (global knowledge)
-                    spans = [worker_blocks[d][s] for d in range(n_dev)
-                             if s < len(worker_blocks[d])]
-                    frames = sum(hi - lo for lo, hi in spans)
-                    if frames_valid_count is not None:
-                        # an acquisition that finished early: damage
-                        # only the frames that arrived
-                        vc = int(frames_valid_count())
-                        spans = [
-                            (lo, lo + cut) for lo, hi in spans
-                            for cut in [int(np.searchsorted(
-                                ids_all[lo:hi], vc))]
-                            if cut > 0
-                        ]
-                    if stats:
-                        stats["assembly_s"] += time.perf_counter() - t0
-                    q.put(("item", (items, spans, frames)))
-                q.put(("done", None))
-            except ReadCancelled:
-                pass
-            except BaseException as e:  # handed to the consumer
-                q.put(("error", e))
-
-        def on(dev):
-            return (torch.cuda.device(dev) if dev.type == "cuda"
-                    else contextlib.nullcontext())
 
         def sync():
             for dev in {devs[d] for d in local}:
@@ -2835,27 +2852,20 @@ class UDFRunner:
         with trace.span("libertem.open"):
             fold = self._make_sharded_fold(prep, workers)
             pm = self._make_progress(progress, prep, n_steps=n_steps)
-            thread = threading.Thread(target=assemble, daemon=True,
-                                      name="shard-reader-main")
 
         try:
             with trace.span("libertem.hooks"):
                 for d in local:
                     hook(d, "preprocess")
             with trace.span("libertem.open"):
-                thread.start()
-            while True:
+                reader.start()
+            for s in range(n_steps + 1):
                 # the super-step up to its slots' release: its parts
                 # and the stretches between them
                 with trace.span("libertem.super_step"):
-                    with trace.span("libertem.feed_wait", True) as waited:
-                        kind, payload = q.get()
-                    totals["wait_s"] += waited.seconds
-                    if kind == "done":
+                    items = reader.get()
+                    if items is None:
                         break
-                    if kind == "error":
-                        raise payload
-                    items, spans, frames = payload
                     if self._params_patched:
                         self._params_patched = False
                         self._apply_param_patch(prep)
@@ -2864,52 +2874,35 @@ class UDFRunner:
                     t0 = time.perf_counter()
                     # every worker's step first, then the host engine on
                     # the host copies while the devices work
-                    for d, item in items.items():
-                        if item is None:
-                            continue
-                        slot, block, loff = item
-                        with trace.span("libertem.step"), on(devs[d]), \
-                                _full_fp32_matmul():
-                            block_t = feeds[d].take(slot)
-                            meta.device = devs[d]
-                            if prep["fused"] is not None:
-                                self._fused_step(
-                                    wpreps[d], states[d], states[d], block_t,
-                                    loff, block.valid,
-                                )
-                            elif on_device:
-                                coords = torch.from_numpy(block.coords).to(
-                                    devs[d])
-                                self._generic_step(
-                                    wpreps[d], states[d], states[d], block_t,
-                                    block.global_offset, coords, block.valid,
-                                    loff=loff,
-                                )
+                    items = [(d, item) for d, item in items.items()
+                             if item is not None]
+                    for d, (slot, block, row, _) in items:
+                        self._step_block(wpreps[d], states[d], states[d],
+                                         feeds[d], slot, block, row)
                     meta.device = main
                     if stats:
                         sync()
-                        t1 = time.perf_counter()
-                        stats["step_s"] += t1 - t0
+                        stats["step_s"] += time.perf_counter() - t0
                         stats["n_steps"] += 1
-                        t0 = t1
                     if host is not None:
-                        with trace.span("libertem.host_step", True) as stepped:
-                            for d, item in items.items():
-                                if item is not None:
-                                    _, block, _ = item
-                                    host.process_block(
-                                        host_global, host_parts[d], block.data,
-                                        block.global_offset, block.coords,
-                                        block.valid,
-                                    )
-                        totals["host_s"] += stepped.seconds
-                        if stats:
-                            stats["host_udf_s"] += stepped.seconds
+                        self._host_step(
+                            prep, host, host_global,
+                            [(host_parts[d], item[1]) for d, item in items])
                     with trace.span("libertem.release"):
-                        for d, item in items.items():
-                            if item is not None:
-                                with on(devs[d]):
-                                    feeds[d].release(item[0])
+                        for d, item in items:
+                            with _on_device(devs[d]):
+                                feeds[d].release(item[0])
+                        # every worker's block of the step, this
+                        # process's or another's (global knowledge)
+                        spans = [worker_blocks[d][s] for d in range(n_dev)
+                                 if s < len(worker_blocks[d])]
+                        frames = sum(hi - lo for lo, hi in spans)
+                        if frames_valid_count is not None:
+                            # an acquisition that finished early: damage
+                            # only the frames that arrived
+                            vc = int(frames_valid_count())
+                            spans = [(lo, lo + int(np.searchsorted(
+                                ids_all[lo:hi], vc))) for lo, hi in spans]
                         for lo, hi in spans:
                             damage[lo:hi] = True
                         if pm is not None:
@@ -2950,19 +2943,14 @@ class UDFRunner:
             # no collective here: after an exception the other
             # processes meet this one's absence in their next gather
             with trace.span("libertem.close"):
-                stop.set()
-                if thread.is_alive():
-                    thread.join(timeout=60)
-                pool.shutdown(wait=True)
-                for feed in feeds.values():
-                    feed.close()
+                reader.close()
             meta.device = main
             for k in ("read_s", "slot_wait_s", "blocks", "h2d_bytes"):
                 totals[k] = sum(feed.stats[k] for feed in feeds.values())
             if dist_info is not None:
                 totals["collective_s"] = dist_info["collective_s"]
             if stats:
-                stats["h2d_s"] = sum(h2d_s)
+                stats["host_udf_s"] = totals["host_s"]
                 stats["collective_s"] = totals["collective_s"]
             if pm is not None:
                 pm.close()

@@ -92,7 +92,7 @@ def cpu_default(monkeypatch):
 
 def _readers():
     return [t for t in threading.enumerate()
-            if t.name == "HostFeed-reader" and t.is_alive()]
+            if t.name.startswith("block-reader") and t.is_alive()]
 
 
 def _readers_end(timeout=1.0) -> bool:
@@ -654,7 +654,7 @@ def test_async_iterator_patch():
 @pytest.mark.parametrize("how", ["aclose", "break"])
 def test_abandoned_async_iterator_stops_the_reader(how):
     """``aclose()`` after two partials reaches the run in the producer's
-    thread: no HostFeed reader alive within 1 s, the run's end sent."""
+    thread: no block reader alive within 1 s, the run's end sent."""
     data = _data(nav=(16, 8))
     ctx, ds, _, _, _ = _both(data, parts=8)
     ev = []

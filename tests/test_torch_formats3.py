@@ -158,17 +158,20 @@ def test_raw_csr_big_endian_and_narrow_indices(tmp_path):
 
 
 def test_raw_csr_sparse_blocks(tmp_path):
-    """Blocks carry the entries, zero-padded to a power of two; the
-    host feed's staging budget is the largest block's."""
+    """Blocks carry the entries, zero-padded to a power of two: the
+    budget of the block's frames, by which the block reader sizes its
+    staging; one sparse read takes frames of every partition."""
     path, dense = _write_csr(tmp_path)
-    ds = _ctx().load("raw_csr", path=path)
+    ds = _ctx().load("raw_csr", path=path, num_partitions=3)
     prep = UDFRunner([port.SumUDF()])._prepare(ds, torch.device("cpu"))
     scheme = prep["scheme"]
-    for p in ds.get_partitions():
+    parts = list(ds.get_partitions())
+    for p in parts:
         blocks = list(p.gen_blocks(scheme))
         budgets = [len(b.sparse[0]) for b in blocks]
         assert all(b & (b - 1) == 0 and b >= 16 for b in budgets)
-        assert p.sparse_nnz_budget(scheme) == max(budgets)
+        assert budgets == [p.sparse_nnz_budget(np.arange(
+            b.global_offset, b.global_offset + b.valid)) for b in blocks]
         for b in blocks:
             assert b.sparse[1].dtype == b.sparse[2].dtype == np.int32
             # the block's own entries, then the budget's zero padding
@@ -179,6 +182,15 @@ def test_raw_csr_sparse_blocks(tmp_path):
             want = dense[b.global_offset:b.global_offset + b.valid]
             assert np.array_equal(got[:b.valid], want)
             assert not got[b.valid:].any()
+    ids = np.arange(3, N - 2)
+    budget = parts[0].sparse_nnz_budget(ids)
+    staged = (np.empty(budget, np.uint16), np.empty(budget, np.int32),
+              np.empty(budget, np.int32))
+    nnz = parts[0].read_sparse_into(ids, *staged)
+    assert not any(a[nnz:].any() for a in staged)
+    got = np.zeros((len(ids), PX), np.int64)
+    np.add.at(got, staged[1:], staged[0])
+    assert np.array_equal(got, dense[ids])
 
 
 def test_raw_csr_tiles(tmp_path):
@@ -396,7 +408,7 @@ def test_live_abandoned_iterator_returns_promptly():
     deadline = time.perf_counter() + 5.0
     while time.perf_counter() < deadline:
         alive = [t for t in set(threading.enumerate()) - before
-                 if t.name == "HostFeed-reader"]
+                 if t.name.startswith("block-reader")]
         if not alive:
             break
         time.sleep(0.02)

@@ -1264,6 +1264,32 @@ def test_new_formats_on_card(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_raw_csr_workers_on_one_card(card, tmp_path):
+    """Raw CSR on two workers on one card: every block crosses as its
+    entries (the H2D bytes are the entries', a u16 value and two int32
+    indices each) and is densified on the card, and the results equal
+    the single-device run's bit for bit."""
+    import os
+
+    import libertem_tpu_torch as lt
+    from libertem_tpu_torch.executor.sharded import ShardedJobExecutor
+
+    csr = _write_events(str(tmp_path), 120, (64, 64), 4)
+    entries = int(np.fromfile(os.path.join(tmp_path, "indptr.bin"),
+                              "<i8")[-1])
+    dev = torch.device("cuda", torch.cuda.current_device())
+    runs = []
+    for ctx in (lt.Context(device=dev),
+                lt.Context(executor=ShardedJobExecutor(devices=[dev] * 2))):
+        ds = ctx.load("raw_csr", path=csr, num_partitions=3)
+        runs.append(ctx.run_udf(ds, [lt.SumUDF(), lt.SumSigUDF()]))
+        assert ctx.feed_stats["h2d_bytes"] == entries * (2 + 4 + 4)
+    assert len(ctx.feed_stats["workers"]) == 2
+    for got, want in zip(*runs):
+        assert np.array_equal(got["intensity"].data, want["intensity"].data)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_workers_on_one_card(card, n):
     """n workers on one card (the multi-device loop, each worker with

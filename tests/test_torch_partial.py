@@ -216,7 +216,7 @@ def test_aux_param_patch_mid_run():
 
 def test_abandoned_iterator_releases_prefetch(monkeypatch):
     """Closing a partial-results iterator, or dropping it, stops the
-    host feed's reader thread, releases the feed (its pinned slots)
+    block reader's threads, releases the feed (its pinned slots)
     and runs every UDF's cleanup, in both packages."""
     feeds = []
 
@@ -236,7 +236,9 @@ def test_abandoned_iterator_releases_prefetch(monkeypatch):
 
     data = _data(seed=5)
     for close in (True, False):
-        ctx, ds, jds = _datasets(data)
+        # eight one-block partitions: at the first partial the reader
+        # waits for a slot, with blocks left to read
+        ctx, ds, jds = _datasets(data, num_partitions=8)
         before = set(threading.enumerate())
         cleaned, jcleaned = [], []
         gen = ctx.run_udf_iter(ds, counting(port, cleaned))
@@ -254,7 +256,7 @@ def test_abandoned_iterator_releases_prefetch(monkeypatch):
         deadline = time.time() + 5.0
         while time.time() < deadline:
             alive = [t for t in set(threading.enumerate()) - before
-                     if t.name == "HostFeed-reader"]
+                     if t.name.startswith("block-reader")]
             if not alive:
                 break
             time.sleep(0.05)

@@ -60,7 +60,7 @@ def _close(a, b):
 def _readers_end(timeout=1.0) -> bool:
     def alive():
         return [t for t in threading.enumerate()
-                if t.name == "HostFeed-reader" and t.is_alive()]
+                if t.name.startswith("block-reader") and t.is_alive()]
     t0 = time.perf_counter()
     while alive() and time.perf_counter() - t0 < timeout:
         time.sleep(0.01)
@@ -279,8 +279,10 @@ def test_plot_class_default_is_matplotlib():
 @pytest.mark.parametrize("how", ["run_udf", "run_udf_iter"])
 def test_failing_plot_stops_the_reader(how):
     """A plot whose ``update`` raises ends the run: the error reaches
-    the caller and no HostFeed reader is alive within 1 s."""
-    ctx, ds, _, _, _ = _both(parts=4)
+    the caller and no block reader is alive within 1 s (eight
+    partitions: the reader still has blocks to read when the plot
+    fails)."""
+    ctx, ds, _, _, _ = _both(parts=8)
     ended = []
     ctx.executor.subscribe("run_udf:end", lambda t, m: ended.append(t))
 

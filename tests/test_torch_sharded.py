@@ -110,8 +110,8 @@ def check(res, jres, single, kinds):
 
 
 def threads_alive():
-    return [t for t in threading.enumerate() if t.is_alive() and (
-        t.name == "HostFeed-reader" or t.name.startswith("shard-reader"))]
+    return [t for t in threading.enumerate()
+            if t.is_alive() and t.name.startswith("block-reader")]
 
 
 def threads_end(timeout=1.0) -> bool:
@@ -590,11 +590,18 @@ def test_context_paths_over_workers(n):
 
 
 def test_abandoned_iterator_ends_readers():
-    """An iterator abandoned after two partials leaves no HostFeed or
-    shard reader thread alive within 1 s, and releases every slot."""
+    """An iterator abandoned after two partials leaves no block reader
+    thread alive within 1 s, and releases every slot (blocks of 8
+    frames: the reader still has steps to read)."""
+    from libertem_tpu_torch.io.tiling import TILE_SIZE_MAX
+
+    class SmallBlocks(port.SumUDF):
+        def get_tiling_preferences(self):
+            return {"depth": 8, "total_size": TILE_SIZE_MAX}
+
     data = data16()
     ds, _ = both_ds(data, parts=4)
-    runner = UDFRunner([port.SumUDF(), port.SumSigUDF()])
+    runner = UDFRunner([SmallBlocks(), port.SumSigUDF()])
     gen = runner.run_for_dataset_iter(ds, devices=[CPU] * 2)
     next(gen)
     next(gen)

@@ -751,3 +751,52 @@ def test_sharded_live_fewer_frames_than_workers():
                      (2, "total")):
         close(res.buffers[ui][name].data, single.buffers[ui][name].data)
     assert res.damage.data.all()
+
+
+@pytest.mark.parametrize("n", WORKERS)
+def test_sharded_raw_csr_crosses_as_entries(tmp_path, n, monkeypatch):
+    """Raw CSR over n workers, with and without a roi: every block the
+    feeds push is sparse, its own entries (as in the single-device
+    loop; a worker's block may span partitions), and the results equal
+    the single-device run's and the JAX package's bit for bit."""
+    from libertem_tpu_torch.udf import base as port_base
+    from test_torch_formats3 import NAV as CSR_NAV, _write_csr
+
+    pushed = []
+    push = port_base.HostFeed.push
+
+    def recording(self, slot, block):
+        pushed.append((block.sparse is not None, block.nnz, block.valid))
+        return push(self, slot, block)
+
+    monkeypatch.setattr(port_base.HostFeed, "push", recording)
+    path, dense = _write_csr(tmp_path)
+    entries = np.diff(np.fromfile(tmp_path / "indptr.bin", "<i8"))
+    flat_roi = np.random.default_rng(6).random(len(dense)) > 0.3
+
+    def udfs(lib):
+        return [lib.udf.SumUDF(), lib.udf.SumSigUDF()]
+
+    for sel in (None, flat_roi):
+        roi = None if sel is None else sel.reshape(CSR_NAV)
+        ds = port.Context(device="cpu").load("raw_csr", path=path,
+                                             num_partitions=3)
+        jds = JaxContext().load("raw_csr", path=path, num_partitions=3)
+        single = port_single(udfs(port), ds, roi=roi)
+        pushed.clear()
+        res = port_run(udfs(port), ds, n, roi=roi)
+        frames = dense if sel is None else dense[sel]
+        assert pushed and all(sparse for sparse, _, _ in pushed)
+        assert sum(valid for _, _, valid in pushed) == len(frames)
+        assert sum(nnz for _, nnz, _ in pushed) == (
+            entries if sel is None else entries[sel]).sum()
+        jres = jax_run(udfs(libertem_tpu), jds, n, roi=roi)
+        for ui in (0, 1):
+            got = np.asarray(res.buffers[ui]["intensity"].data)
+            assert np.array_equal(
+                got, single.buffers[ui]["intensity"].data, equal_nan=True)
+            assert np.array_equal(
+                got, np.asarray(jres.buffers[ui]["intensity"].data),
+                equal_nan=True)
+        assert np.array_equal(res.buffers[0]["intensity"].data.reshape(-1),
+                              frames.sum(axis=0))
